@@ -1,0 +1,124 @@
+"""Device-side header codec: trim and frame sync of the header capture
+windows (port of axctdprocessor_tpu.ops.header_device).
+
+Same contracts as the host versions (reference parse.py:157-285):
+
+* :func:`trim_header` — force the first 25 bits high, find the last
+  run-of-8-ones before the ones-density collapse (the pulse end), return
+  the start and length of the 75-frame window;
+* :func:`parse_header_frames` — frame sync with the +1/+32 jump chain,
+  counter decode incl. the '11111'+3 form, and each frame's 16 data bits
+  (4 nibbles) into its counter slot, the later frame winning;
+* :func:`parse_header_window` — both, for one fixed-size capture window.
+
+The coefficient decode (``decode_coefficients``/``merge_live_coeffs``) is
+not ported: the fused decode ships the raw (found, nibbles) arrays and the
+host decodes the coefficients.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import chain as chain_ops
+from . import crc as crc_ops
+
+HEADER_FRAMES = 72
+FRAME_BITS = 32
+WINDOW_BITS = FRAME_BITS * 75  # trimmed header window capacity
+
+
+def first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True of a 1-D bool mask (0 when none), on the
+    device; torch's argmax does not take bool and returns the first
+    maximal index."""
+    return torch.argmax(mask.to(torch.uint8))
+
+
+def trim_header(bits: torch.Tensor, n_bits):
+    """(start index of the 75-frame header window, window length)."""
+    n = bits.shape[0]
+    dev = bits.device
+    idx = torch.arange(n, device=dev)
+    valid = idx < n_bits
+    b = torch.where(idx < 25, 1, torch.where(valid, bits.to(torch.int64), 0))
+
+    csum = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
+                      torch.cumsum(b, 0)])
+    ones25 = csum[idx + 1] - csum[torch.clamp(idx - 24, min=0)]
+    run8 = csum[idx + 1] - csum[torch.clamp(idx - 7, min=0)]
+
+    stop_mask = (idx >= 400) & (ones25 <= 20) & valid
+    stop = torch.where(stop_mask.any(), first_true(stop_mask), n_bits - 1)
+
+    pulse_mask = (idx > 10) & (run8 == 8) & (idx <= stop) & valid
+    # last True index: length-1 - first True of the reversed mask
+    last = torch.where(pulse_mask.any(), n - 1 - first_true(pulse_mask.flip(0)), 0)
+    length = torch.clamp(n_bits - last, max=FRAME_BITS * 75)
+    return last, length
+
+
+def parse_header_frames(bits: torch.Tensor, n_bits):
+    """Frame-sync a trimmed header window: (found bool[72], nibbles
+    int64[72, 4]).
+
+    Advance 1 on an invalid window and 32 on a '10'+CRC frame; frames whose
+    counter exceeds 71 are consumed but ignored, and nothing after the first
+    frame 71 writes a slot (the upstream loop stops there).  A repeated
+    counter keeps the LATER frame, as the upstream dict assignment does:
+    the winner per slot is chosen explicitly (torch's index_put with
+    duplicate indices leaves the winner undefined on CUDA).
+    """
+    n = bits.shape[0]
+    dev = bits.device
+    bits = bits.to(torch.int64)
+    idx = torch.arange(n, device=dev)
+    in_range = idx < n_bits
+    crc_ok = crc_ops.check_crc_all_windows(bits)
+    sync = (bits == 1) & (torch.roll(bits, -1) == 0)
+    accept = sync & crc_ok & in_range & (idx < n_bits - FRAME_BITS)
+
+    max_frames = n // FRAME_BITS + 2
+    starts, n_frames, _, _ = chain_ops.enumerate_frames(
+        accept, n_bits, max_frames=max_frames)
+
+    offs = torch.arange(FRAME_BITS, device=dev)
+    fwin = bits[torch.clamp(starts[:, None] + offs, 0, n - 1)]
+    k = torch.arange(max_frames, device=dev)
+    frame_ok = k < n_frames
+
+    counter_bits = fwin[:, 2:10]
+    w8 = 1 << torch.arange(7, -1, -1, device=dev)
+    plain = (counter_bits * w8).sum(dim=1)
+    high = counter_bits[:, :5].sum(dim=1) == 5
+    w3 = torch.tensor([4, 2, 1], device=dev)
+    counter = torch.where(high, (counter_bits[:, 5:] * w3).sum(dim=1) + 64, plain)
+    counter_ok = frame_ok & (counter <= 71)
+    saw71 = counter_ok & (counter == 71)
+    k71 = torch.where(saw71.any(), first_true(saw71), max_frames)
+    counter_ok &= k <= k71
+
+    # integer matmuls have no CUDA kernel: multiply and sum
+    nib = (fwin[:, 10:26].reshape(-1, 4, 4)
+           * torch.tensor([8, 4, 2, 1], device=dev)).sum(dim=2)
+    slot = torch.where(counter_ok, counter, HEADER_FRAMES)
+    # last-wins: the highest frame index per slot, then one gather
+    winner = torch.full((HEADER_FRAMES + 1,), -1, dtype=torch.int64, device=dev)
+    winner = winner.scatter_reduce(0, slot, k, reduce="amax")[:HEADER_FRAMES]
+    found = winner >= 0
+    frames = torch.where(found[:, None], nib[torch.clamp(winner, min=0)], 0)
+    return found, frames
+
+
+def parse_header_window(win_bits: torch.Tensor, n_bits):
+    """One header capture window -> (found bool[72], nibbles int64[72, 4],
+    usable bool).  A window shorter than 72 frames before or after trimming
+    never yields a header."""
+    start, length = trim_header(win_bits, n_bits)
+    idx = torch.arange(WINDOW_BITS, device=win_bits.device)
+    trimmed = win_bits[torch.clamp(start + idx, 0, win_bits.shape[0] - 1)]
+    trimmed = torch.where(idx < length, trimmed, 0)
+    found, frames = parse_header_frames(trimmed, length)
+    usable = (n_bits >= HEADER_FRAMES * FRAME_BITS) & \
+        (length >= HEADER_FRAMES * FRAME_BITS)
+    return found & usable, frames, usable
