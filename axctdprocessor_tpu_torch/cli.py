@@ -1,10 +1,12 @@
 """processAXCTD-compatible command line interface of the PyTorch port.
 
 The flags and defaults of ``axctdprocessor_tpu.cli`` (the reference CLI's,
-processAXCTD.py:47-101), decoding with the fused engine of this package on
-``--device`` (default ``cuda``; asking for it without a GPU fails).  Not
-yet ported: ``--engine`` (there is one engine here), ``--corpus``,
-``--batch-size`` and ``--no-resume`` (archive mode).  The parser is this
+processAXCTD.py:47-101), decoding with this package's engine on
+``--device`` (default ``cuda``; asking for it without a GPU fails): drops
+over 300 s take the segmented engine, shorter ones the fused program, as
+with the JAX CLI's ``--engine tpu``.  Not yet ported: ``--engine`` (the
+parity engine), ``--corpus``, ``--batch-size`` and ``--no-resume``
+(archive mode).  The parser is this
 module's own because the JAX CLI module loads jax.
 
     python -m axctdprocessor_tpu_torch.cli -i drop.wav -o output.txt --device cuda

@@ -1,2 +1,3 @@
-"""Decode engine (``models.engine``) and the jax-free host pieces it needs:
+"""Decode engines (``models.engine``, ``models.segmented``, the stream
+decoder ``models.stream_device``) and the jax-free host pieces they need:
 ``result``, ``convert``, ``frames`` and the signal ``simulator``."""

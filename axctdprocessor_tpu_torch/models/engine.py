@@ -24,7 +24,13 @@ Inside the program nothing reads a device value on the host: the
 dynamic indices of the JAX code (``argmax``, ``roll`` by a traced amount,
 ``dynamic_slice``) are gathers with index tensors here, and a scalar index
 goes through ``torch.take`` (indexing with a 0-dim tensor calls
-``.item()``).
+``.item()``).  Nothing copies a host value in either: constants are made on
+the device (``torch.full``), because ``torch.tensor(..., device="cuda")``
+is a blocking copy that waits for the device's queue, and host arrays go
+up through pinned memory without blocking (``to_device``).
+
+The demodulation front end (filter, crossings, per-bit probes) is written
+once here and shared with the segmented engine (``models/segmented.py``).
 
 Deliberate deviations from the reference's chunked semantics are the JAX
 engine's (uniform power grid, whole-waveform filtering, true bit-edge
@@ -57,6 +63,11 @@ from .result import DecodeResult
 # ---------------------------------------------------------------------------
 # static sizing
 # ---------------------------------------------------------------------------
+
+def probe_window(cfg: DecoderConfig, fs: float) -> int:
+    """Samples in the per-bit probe window (``npcm``) at decode rate `fs`."""
+    return int(np.round(fs / cfg.bitrate * (1 - cfg.phase_error / 100))) - 2 * cfg.bit_inset
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineDims:
@@ -115,81 +126,98 @@ def sos_response_on_device(sos: torch.Tensor, nfft: int) -> torch.Tensor:
 
 def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Unpack the 2-samples-per-byte int4 wire (even samples in the high
-    nibble, level + 8) to int32 PCM."""
+    nibble, level + 8) to int32 PCM, along the last dimension."""
     u = packed.to(torch.int32)
     hi = (u >> 4) - 8
     lo = (u & 15) - 8
-    return torch.stack([hi, lo], dim=1).reshape(-1)[:n]
+    return torch.stack([hi, lo], dim=-1).reshape(*u.shape[:-1], -1)[..., :n]
 
 
 def condition_integer(pcm: torch.Tensor, n: int, n_valid) -> torch.Tensor:
     """DC removal + peak normalization of raw integer PCM (reference
-    AXCTDprocessor.py:55-57); ``n_valid`` (the true length of the
-    zero-padded buffer) keeps the mean exact and zeroes the padded tail."""
+    AXCTDprocessor.py:55-57) along the last dimension (a batch conditions
+    row by row); ``n_valid`` (the true length of each zero-padded buffer)
+    keeps the mean exact and zeroes the padded tail."""
     xf = pcm.to(torch.float32)
-    mean = xf.sum() / n_valid.to(torch.float32)
-    peak = torch.clamp(xf.abs().max(), min=1.0)
+    nv = n_valid.unsqueeze(-1)
+    mean = xf.sum(-1, keepdim=True) / nv.to(torch.float32)
+    peak = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1.0)
     x = (xf - mean) / peak
-    return torch.where(torch.arange(n, device=x.device) < n_valid, x, 0.0)
+    return torch.where(torch.arange(n, device=x.device) < nv, x, 0.0)
 
 
-def decimate2_on_device(x: torch.Tensor, n_valid, decim_sos: torch.Tensor):
-    """Zero-phase decimation by 2 (scipy.signal.decimate for >50 kHz
-    inputs): the order-8 Chebyshev-I response applied as |H|^2 in the FFT
-    domain, then a stride-2 slice.  Returns (half-rate PCM, half-rate
-    n_valid)."""
-    n = x.shape[0]
-    nfft = iir.next_pow2(n + 4096)
+def zero_phase_decimate2(x: torch.Tensor, decim_sos: torch.Tensor,
+                         nfft: int) -> torch.Tensor:
+    """The order-8 Chebyshev-I anti-alias response applied as |H|^2 in the
+    FFT domain (zero phase, scipy.signal.decimate for >50 kHz inputs), then
+    a stride-2 slice; unmasked."""
     h = sos_response_on_device(decim_sos, nfft)
     zero_phase = (h * torch.conj(h)).real
     spec = torch.fft.rfft(x, nfft) * zero_phase
-    x2 = torch.fft.irfft(spec, nfft)[:n][::2]
+    return torch.fft.irfft(spec, nfft)[: x.shape[0]][::2]
+
+
+def decimate2_on_device(x: torch.Tensor, n_valid, decim_sos: torch.Tensor):
+    """Zero-phase decimation by 2 of the whole waveform.  Returns (half-rate
+    PCM, half-rate n_valid)."""
+    x2 = zero_phase_decimate2(x, decim_sos, iir.next_pow2(x.shape[0] + 4096))
     n_valid2 = (n_valid + 1) // 2
     x2 = torch.where(torch.arange(x2.shape[0], device=x2.device) < n_valid2, x2, 0.0)
     return x2, n_valid2
 
 
-def stage1_core(pcm: torch.Tensor, power_trig: torch.Tensor, sos: torch.Tensor,
-                bit_trig: torch.Tensor, dims: EngineDims, fs: float,
-                bitrate: float, bit_inset: int, edge_pad: int, n_valid,
-                use_kernel: bool = True) -> dict:
-    """Front end: tone ratios, FFT-domain demod filter, crossings, the
-    bit-edge chain and per-bit mark/space powers.
+BIG = torch.iinfo(torch.int32).max // 2  # fill of empty crossing slots
 
-    ``use_kernel=False`` takes the plain tone-ratio version on a GPU too
-    (for comparison runs only); on a CPU tensor both are the plain one."""
-    if pcm.dtype == torch.uint8:  # packed int4 wire
-        pcm = unpack_int4(pcm, 2 * pcm.shape[0])
-    x = pcm if pcm.is_floating_point() else condition_integer(pcm, dims.n, n_valid)
 
-    # A. smoothed tone-power ratios on the uniform whole-file grid
-    ratios = tonepower.tone_ratios if use_kernel else tonepower.tone_ratios_reference
-    r400, r7500 = ratios(x.to(torch.float32).contiguous(), power_trig,
-                         dims.n_power, dims.d_pcm)
-
-    # B. demod filter in the FFT domain -> crossings -> bit-edge chain
-    nfft = iir.next_pow2(dims.n + 4096)
+def fft_filter(x: torch.Tensor, sos: torch.Tensor, nfft: int) -> torch.Tensor:
+    """The demod filter (the SOS cascade's response) applied in the FFT
+    domain over `nfft` points."""
     spec = torch.fft.rfft(x, nfft) * sos_response_on_device(sos, nfft)
-    filtered = torch.fft.irfft(spec, nfft)[: dims.n].to(x.dtype)
-    pos = torch.arange(dims.n, device=x.device)
+    return torch.fft.irfft(spec, nfft)
+
+
+def find_crossings(filtered: torch.Tensor, length: int, g_off, n_valid,
+                   edge_pad: int, size: int, fs: float):
+    """Zero crossings of the filtered signal between local samples i and
+    i + 1, i in [0, length), kept where the global position ``i + g_off``
+    lies in [edge_pad, n_valid - 1) (no bit edges in a zero-padded tail),
+    compacted with the per-row cap.  A crossing past the last sample of
+    `filtered` does not exist.  Returns (local positions int64[size], then
+    ``BIG``; the exact count; the row-overflow flag)."""
     nonneg = filtered >= 0
-    is_cross = torch.cat([nonneg[:-1] != nonneg[1:],
-                          torch.zeros((1,), dtype=torch.bool, device=x.device)])
-    is_cross &= pos >= edge_pad
-    is_cross &= pos < n_valid - 1  # no bit edges in the zero-padded tail
-    big = torch.iinfo(torch.int32).max // 2
-    crossings, n_cross, rovf = chain_ops.compact_indices_rowcap(
-        is_cross, dims.max_crossings, big, row_cap=chain_ops.rowcap_for_fs(fs))
+    nxt = nonneg[1: length + 1]
+    if nxt.shape[0] < length:
+        nxt = torch.cat([nxt, nonneg[length - 1: length]])
+    gpos = torch.arange(length, device=filtered.device) + g_off
+    is_cross = (nonneg[:length] != nxt) & (gpos >= edge_pad) & (gpos < n_valid - 1)
+    return chain_ops.compact_indices_rowcap(
+        is_cross, size, BIG, row_cap=chain_ops.rowcap_for_fs(fs))
+
+
+def probe_ratio(filtered: torch.Tensor, starts: torch.Tensor, npcm: int,
+                bit_trig: torch.Tensor) -> torch.Tensor:
+    """Per-bit confidence ratio ``space / max(mark, 1e-30)`` of the
+    `npcm`-sample windows at `starts`: one stream carries both the bit
+    decision and the calibration histogram (``stage15_core``)."""
+    probes = goertzel.tone_power_at(filtered, starts, npcm, bit_trig)
+    return probes[:, 1] / torch.clamp(probes[:, 0], min=1e-30)
+
+
+def demod_core(x: torch.Tensor, sos: torch.Tensor, bit_trig: torch.Tensor,
+               dims: EngineDims, fs: float, bitrate: float, bit_inset: int,
+               edge_pad: int, n_valid) -> dict:
+    """Whole-waveform demod front end: FFT-domain filter, crossings, the
+    bit-edge chain and per-bit confidence ratios over the inset window."""
+    nfft = iir.next_pow2(dims.n + 4096)
+    filtered = fft_filter(x, sos, nfft)[: dims.n].to(x.dtype)
+    crossings, n_cross, rovf = find_crossings(
+        filtered, dims.n, 0, n_valid, edge_pad, dims.max_crossings, fs)
     edge_idx, n_edges = chain_ops.enumerate_bit_edges(
         crossings, n_cross, fs, bitrate, dims.max_edges)
     edge_samples = crossings[torch.clamp(edge_idx, 0, dims.max_crossings - 1)]
-
-    # C. per-bit mark/space powers over the inset window
-    probes = goertzel.tone_power_at(filtered, edge_samples + bit_inset,
-                                    dims.npcm, bit_trig)
+    c0 = probe_ratio(filtered, edge_samples + bit_inset, dims.npcm, bit_trig)
     overflow = (n_cross > dims.max_crossings).to(torch.int32) | rovf
-    return dict(r400=r400, r7500=r7500, edge_samples=edge_samples,
-                n_edges=n_edges, s1=probes[:, 0], s2=probes[:, 1],
+    return dict(edge_samples=edge_samples, n_edges=n_edges, c0=c0,
                 overflow=overflow)
 
 
@@ -216,7 +244,7 @@ def stage15_core(c0: torch.Tensor, edge_samples: torch.Tensor, n_edges,
     me = dims.max_edges
     idx = torch.arange(me, device=dev)
     bit_valid = idx < n_edges - 1  # the final edge's bit is never emitted
-    scale0 = torch.tensor(1.5, dtype=torch.float32, device=dev)
+    scale0 = torch.full((), 1.5, dtype=torch.float32, device=dev)
     edges = edge_samples.to(torch.int64)
     last = torch.clamp(n_edges - 1, min=0)
 
@@ -431,7 +459,7 @@ def back_half_core(r400, r7500, edge_samples, n_edges, c0p, n_valid,
                                            trig_f, dims, fs)
     # empty header windows when no pulse was found
     big = 2 ** 30
-    lo_mask = torch.tensor([True, False, True, False, True, False], device=dev)
+    lo_mask = torch.arange(6, device=dev) % 2 == 0
     hb = torch.where(fp >= 0, fp + hdr_rel,
                      torch.where(lo_mask, big, -big))
     s15 = stage15_core(c0p, edge_samples, n_edges, hb, fp + calib_off, dims)
@@ -470,35 +498,70 @@ def fused_core(pcm, n_valid, power_trig, sos, bit_trig, trig_i, trig_f,
                bitrate: float, bit_inset: int, edge_pad: int,
                use_kernel: bool = True, decimate2: bool = False,
                decim_sos=None) -> torch.Tensor:
-    """The whole decode: stage 1 + back half -> packed int32 vector.
+    """The whole decode: conditioning, smoothed tone ratios on the uniform
+    whole-file grid (the CUDA kernel on a GPU, the plain version on a CPU
+    tensor; ``use_kernel=False`` takes the plain version on a GPU too, for
+    comparison runs only), the demod front end and the back half -> packed
+    int32 vector.
 
-    With ``decimate2`` the input is at twice the decode rate (>50 kHz
-    WAVs): conditioning and zero-phase decimation run first at the raw
-    rate.  ``dims``/``fs`` describe the post-decimation stream."""
+    A (B, N) batch with (B,) ``n_valid`` (the batch path) is conditioned
+    as one tensor and its tone ratios are one kernel launch; the front end
+    and back half then run row by row, with no host sync, into a (B, L)
+    matrix.  With ``decimate2`` (one waveform only) the input is at twice
+    the decode rate (>50 kHz WAVs): conditioning and zero-phase decimation
+    run first at the raw rate.  ``dims``/``fs`` describe the
+    post-decimation stream."""
     if pcm.dtype == torch.uint8:  # packed int4 wire
-        pcm = unpack_int4(pcm, 2 * pcm.shape[0])
+        pcm = unpack_int4(pcm, 2 * pcm.shape[-1])
     x = pcm
+    if not x.is_floating_point():
+        x = condition_integer(x, x.shape[-1], n_valid)
     if decimate2:
-        if not pcm.is_floating_point():
-            x = condition_integer(pcm, pcm.shape[0], n_valid)
         x, n_valid = decimate2_on_device(x, n_valid, decim_sos)
-    s1 = stage1_core(x, power_trig, sos, bit_trig, dims, fs, bitrate,
-                     bit_inset, edge_pad, n_valid, use_kernel=use_kernel)
-    c0 = s1["s2"] / torch.clamp(s1["s1"], min=1e-30)
-    return back_half_core(s1["r400"], s1["r7500"], s1["edge_samples"],
-                          s1["n_edges"], c0, n_valid, trig_i, trig_f,
-                          hdr_rel, calib_off, dims, fs,
-                          overflow0=s1["overflow"])
+    ratios = tonepower.tone_ratios if use_kernel else tonepower.tone_ratios_reference
+    r400, r7500 = ratios(x.to(torch.float32).contiguous(), power_trig,
+                         dims.n_power, dims.d_pcm)
+
+    def row(x, r400, r7500, n_valid):
+        s1 = demod_core(x, sos, bit_trig, dims, fs, bitrate, bit_inset,
+                        edge_pad, n_valid)
+        return back_half_core(r400, r7500, s1["edge_samples"], s1["n_edges"],
+                              s1["c0"], n_valid, trig_i, trig_f, hdr_rel,
+                              calib_off, dims, fs, overflow0=s1["overflow"])
+
+    if x.dim() == 1:
+        return row(x, r400, r7500, n_valid)
+    return torch.stack([row(x[b], r400[b], r7500[b], n_valid[b])
+                        for b in range(x.shape[0])])
 
 
 TABLE_NAMES = ("power_trig", "bit_trig", "sos", "trig_i", "trig_f", "hdr_rel",
                "calib_off")
 
 
+def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `dev`, without a host sync: on a GPU it
+    goes through pinned memory with a non-blocking copy (a pageable copy
+    waits for the device's queue to drain)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def register_tables(module: nn.Module, tables: dict, decimate2: bool,
+                    dev: torch.device) -> None:
+    """The constant tables (``engine_tables``) as the module's buffers."""
+    names = TABLE_NAMES + (("decim_sos",) if decimate2 else ())
+    for name in names:
+        module.register_buffer(name, to_device(tables[name], dev))
+
+
 class FusedDecoder(nn.Module):
     """The fused decode as a module: the constant tables are its buffers
     (its "weights"), ``forward(pcm, n_valid)`` returns the packed int32
-    vector.  One module per static shape (``EngineDims``) and rate."""
+    vector, or a (B, L) matrix for a (B, N) batch.  One module per static
+    shape (``EngineDims``) and rate."""
 
     def __init__(self, dims: EngineDims, fs: float, bitrate: float,
                  bit_inset: int, edge_pad: int = 100, decimate2: bool = False,
@@ -516,10 +579,7 @@ class FusedDecoder(nn.Module):
         """Build the buffers from exactly the numpy arrays the JAX program
         is given (``engine_tables``)."""
         m = cls(dims, fs, bitrate, bit_inset, edge_pad, decimate2, use_kernel)
-        names = TABLE_NAMES + (("decim_sos",) if decimate2 else ())
-        for name in names:
-            m.register_buffer(name, torch.from_numpy(
-                np.ascontiguousarray(tables[name])).to(device))
+        register_tables(m, tables, decimate2, torch.device(device))
         return m
 
     def forward(self, pcm: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
@@ -676,6 +736,7 @@ def lossy_retry_worthy(res: DecodeResult, n: int, fs: float,
 
 
 BUCKET_SECONDS = 15  # decode-length granularity: one shape per bucket
+AUTO_SEGMENT_SECONDS = 300  # "auto" sends longer waveforms to the segmented engine
 
 
 def resolve_device(device) -> torch.device:
@@ -704,16 +765,20 @@ def decode_waveform(pcm, fs, *, device, config: DecoderConfig | None = None,
                     use_kernel: bool = True) -> DecodeResult:
     """Decode a conditioned float or raw-integer waveform on `device`.
 
-    Waveforms are zero-padded up to 15 s buckets; the true length rides
-    along as ``n_valid`` (exact conditioning, no crossings in the padding,
-    trigger grid clipped to real windows).  Integer PCM ships as the
-    `wire` format and is conditioned on the device; >50 kHz input is
-    decimated by 2 on the device.  ``mode`` "auto" and "monolithic" both
-    decode the whole waveform in one program (an 80 GB card holds a 600 s
-    drop); "segmented" is not ported yet.  An int4-wire decode that comes
-    back degenerate is retried once at int8 (``lossy_retry``).
-    ``use_kernel=False`` takes the plain tone-ratio version on a GPU
-    (comparison runs only).
+    ``mode`` routes as the JAX engine does: "auto" sends waveforms longer
+    than ``AUTO_SEGMENT_SECONDS`` (counted at the raw rate) to the
+    segmented engine (``models.segmented``) and decodes shorter ones in
+    one program; "segmented" and "monolithic" force a path.
+
+    The monolithic program: waveforms are zero-padded up to 15 s buckets;
+    the true length rides along as ``n_valid`` (exact conditioning, no
+    crossings in the padding, trigger grid clipped to real windows).
+    Integer PCM ships as the `wire` format and is conditioned on the
+    device; >50 kHz input is decimated by 2 on the device.  An int4-wire
+    decode that comes back degenerate is retried once at int8
+    (``lossy_retry``).  ``use_kernel=False`` takes the plain tone-ratio
+    version on a GPU (comparison runs only; the segmented engine has no
+    kernel).
     """
     dev = resolve_device(device)
     cfg = config or DecoderConfig()
@@ -722,11 +787,14 @@ def decode_waveform(pcm, fs, *, device, config: DecoderConfig | None = None,
     if pcm.dtype == np.uint8:
         raise ValueError("pass unpacked integer PCM with wire='int4'; "
                          "pre-packed nibble streams lose the sample count")
-    if mode == "segmented":
-        raise NotImplementedError(
-            "segmented decode is not ported yet (ROADMAP.md, Queue 1, item 9)")
-    if mode not in ("auto", "monolithic"):
+    if mode not in ("auto", "monolithic", "segmented"):
         raise ValueError(f"mode must be 'auto', 'monolithic' or 'segmented', got {mode!r}")
+    if mode == "segmented" or (
+            mode == "auto" and len(pcm) > AUTO_SEGMENT_SECONDS * float(fs)):
+        from .segmented import decode_waveform_segmented
+
+        return decode_waveform_segmented(pcm, fs, device=dev, config=cfg,
+                                         wire=wire, lossy_retry=lossy_retry)
     n_raw = int(len(pcm))
     if np.issubdtype(pcm.dtype, np.integer):
         wire_used = resolve_wire(wire)
@@ -754,17 +822,17 @@ def decode_waveform(pcm, fs, *, device, config: DecoderConfig | None = None,
     elif n_padded != n_raw:
         pcm = np.concatenate([pcm, np.zeros(n_padded - n_raw, pcm.dtype)])
     n = (n_raw + 1) // 2 if decimate2 else n_raw
-    npcm = int(np.round(fs / cfg.bitrate * (1 - cfg.phase_error / 100))) - 2 * cfg.bit_inset
-    dims = EngineDims.for_waveform(n_padded // rate_mult, fs, cfg.bitrate, npcm)
+    dims = EngineDims.for_waveform(n_padded // rate_mult, fs, cfg.bitrate,
+                                   probe_window(cfg, fs))
     model = FusedDecoder.from_numpy_tables(
         engine_tables(cfg, fs, dims, decimate2), dims, fs,
         bitrate=float(cfg.bitrate), bit_inset=cfg.bit_inset, edge_pad=100,
         decimate2=decimate2, use_kernel=use_kernel, device=dev)
     if not np.issubdtype(pcm.dtype, np.integer):
         pcm = pcm.astype(np.float32)
-    x = torch.from_numpy(np.ascontiguousarray(pcm)).to(dev)
+    x = to_device(pcm, dev)
     with torch.inference_mode():
-        out = model(x, torch.tensor(n_raw, device=dev))
+        out = model(x, torch.full((), n_raw, dtype=torch.int64, device=dev))
     host = out.cpu().numpy()  # the decode's one device-to-host transfer
     res = finish_result(host, fs_report, n, fs, cfg, wire_used=wire_used)
     if lossy_retry and lossy_retry_worthy(res, n, fs, cfg):
@@ -776,17 +844,18 @@ def decode_waveform(pcm, fs, *, device, config: DecoderConfig | None = None,
 
 def decode_wav(path: str, timerange=(0, -1), settings: dict | None = None,
                compat: str = "strict", wire: str = "auto", *, device,
-               use_kernel: bool = True) -> DecodeResult:
-    """Read and decode a WAV on `device`.  int16 mono WAVs ship raw and are
-    conditioned (and, above 50 kHz, decimated) on the device; other
-    encodings take the host conditioning path."""
+               mode: str = "auto", use_kernel: bool = True) -> DecodeResult:
+    """Read and decode a WAV on `device` (``mode`` as in
+    ``decode_waveform``).  int16 mono WAVs ship raw and are conditioned
+    (and, above 50 kHz, decimated) on the device; other encodings take the
+    host conditioning path."""
     from axctdprocessor_tpu.utils.wavio import read_wav, read_wav_raw16
 
     cfg = resolve_settings(settings, compat=compat)
     raw = read_wav_raw16(path, timerange, allow_highrate=True)
     if raw is not None:
         return decode_waveform(raw[0], raw[1], device=device, config=cfg,
-                               wire=wire, use_kernel=use_kernel)
+                               wire=wire, mode=mode, use_kernel=use_kernel)
     pcm, fs = read_wav(path, timerange)
-    return decode_waveform(pcm, fs, device=device, config=cfg,
+    return decode_waveform(pcm, fs, device=device, config=cfg, mode=mode,
                            use_kernel=use_kernel)

@@ -83,8 +83,9 @@ def chain_enumerate(next_idx: torch.Tensor, start: int, length: int,
     jumps = next_idx.to(torch.int64)
     first = min(1 << (k - 1).bit_length(), 1 << max_level)
     span = 1
-    chain0 = torch.zeros((first,), dtype=torch.int64, device=jumps.device)
-    chain0[0] = start
+    # every slot past 0 is written below; a full() and not chain0[0] = start,
+    # which copies the scalar from the host and waits for the device
+    chain0 = torch.full((first,), start, dtype=torch.int64, device=jumps.device)
     while span < first:
         chain0[span: 2 * span] = jumps[chain0[:span]]
         if 2 * span < k:  # skip the squaring no later step will use
@@ -138,8 +139,7 @@ def chain_enumerate_strided(next_idx: torch.Tensor, start: int, length: int,
         span *= 2
         hi *= 2
 
-    chain0 = torch.zeros((first,), dtype=torch.int64, device=dev)
-    chain0[0] = start
+    chain0 = torch.full((first,), start, dtype=torch.int64, device=dev)
     s2 = 1
     for d in deltas:
         if s2 >= first:
@@ -169,7 +169,7 @@ def bit_edge_successors(crossings: torch.Tensor, n_valid, fs: float,
     big = torch.iinfo(torch.int32).max // 2
     padded = torch.cat([crossings, torch.full((5,), big, dtype=crossings.dtype,
                                               device=dev)])
-    target = torch.tensor(fs / bitrate, dtype=torch.float32, device=dev)
+    target = torch.full((), fs / bitrate, dtype=torch.float32, device=dev)
     pick = torch.zeros((m,), dtype=torch.int64, device=dev)
     # distances on small integer gaps: absolute positions in f32 would
     # quantize by ~2 samples on long files

@@ -33,35 +33,36 @@ def tone_matrix(window: int, freqs, fs: float, dtype=np.float64) -> np.ndarray:
 
 
 def _magnitudes(proj: torch.Tensor) -> torch.Tensor:
-    re, im = proj[:, 0::2], proj[:, 1::2]
+    re, im = proj[..., 0::2], proj[..., 1::2]
     return torch.sqrt(re * re + im * im)
 
 
 def framed_tone_power_tiled(x: torch.Tensor, window: int, stride: int,
                             trig: torch.Tensor) -> torch.Tensor:
-    """Tone power of every length-`window` frame at `stride`: (n_win, F).
+    """Tone power of every length-`window` frame at `stride`: (..., n_win, F).
 
-    n_win = ceil((len(x) - window) / stride).  The waveform is cut into
+    n_win = ceil((len(x) - window) / stride), over the last dimension of
+    `x` (leading dimensions are rows of a batch).  The waveform is cut into
     stride-length tiles; window w is ``sum_j tiles[w + j] @ trig_j`` over
     the ceil(window/stride) zero-padded table segments.  The final 1-2
     windows may read the zero padding past the waveform.
     """
     trig = trig.to(x.dtype)
-    n = x.shape[0]
+    *lead, n = x.shape
     n_win = max(math.ceil((n - window) / stride), 0)
     n_seg = math.ceil(window / stride)
     n_tiles = math.ceil(n / stride)
     tiles = torch.nn.functional.pad(x, (0, n_tiles * stride - n)).reshape(
-        n_tiles, stride)
+        *lead, n_tiles, stride)
     proj = None
     for j in range(n_seg):
         seg = trig[j * stride: min((j + 1) * stride, window)]
         seg = torch.nn.functional.pad(seg, (0, 0, 0, stride - seg.shape[0]))
         p_j = tiles @ seg
-        shifted = p_j[j: j + n_win]
-        if shifted.shape[0] < n_win:
+        shifted = p_j[..., j: j + n_win, :]
+        if shifted.shape[-2] < n_win:
             shifted = torch.nn.functional.pad(
-                shifted, (0, 0, 0, n_win - shifted.shape[0]))
+                shifted, (0, 0, 0, n_win - shifted.shape[-2]))
         proj = shifted if proj is None else proj + shifted
     return _magnitudes(proj)
 

@@ -91,7 +91,7 @@ def parse_header_frames(bits: torch.Tensor, n_bits):
     w8 = 1 << torch.arange(7, -1, -1, device=dev)
     plain = (counter_bits * w8).sum(dim=1)
     high = counter_bits[:, :5].sum(dim=1) == 5
-    w3 = torch.tensor([4, 2, 1], device=dev)
+    w3 = 1 << torch.arange(2, -1, -1, device=dev)
     counter = torch.where(high, (counter_bits[:, 5:] * w3).sum(dim=1) + 64, plain)
     counter_ok = frame_ok & (counter <= 71)
     saw71 = counter_ok & (counter == 71)
@@ -100,7 +100,7 @@ def parse_header_frames(bits: torch.Tensor, n_bits):
 
     # integer matmuls have no CUDA kernel: multiply and sum
     nib = (fwin[:, 10:26].reshape(-1, 4, 4)
-           * torch.tensor([8, 4, 2, 1], device=dev)).sum(dim=2)
+           * (1 << torch.arange(3, -1, -1, device=dev))).sum(dim=2)
     slot = torch.where(counter_ok, counter, HEADER_FRAMES)
     # last-wins: the highest frame index per slot, then one gather
     winner = torch.full((HEADER_FRAMES + 1,), -1, dtype=torch.int64, device=dev)

@@ -27,6 +27,13 @@
 // and the ratios take no epsilon: a window whose dead-tone mean is 0 (the
 // zero-padded tail of a bucket) gives NaN or inf, as the plain version
 // does; callers mask it.
+//
+// Batch: a (rows, n) input is one launch with grid (ceil(n_win/64), rows),
+// blockIdx.y the row, as the Pallas kernel under vmap gets a batch grid
+// axis.  A block reads only its own row, with the per-window work and its
+// order unchanged, so every row of a batched call is bitwise equal to the
+// 1-D call on that row; a 1-D input is the rows = 1 case.  Row offsets are
+// 64-bit (64 rows of 60 s at 44.1 kHz are 169M samples).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,6 +56,10 @@ tone_ratios_kernel(const float* __restrict__ x, long long n,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long w0 = static_cast<long long>(blockIdx.x) * kRun;
+  const long long row = blockIdx.y;
+  x += row * n;
+  r400 += row * n_win;
+  r7500 += row * n_win;
 
   // powers of windows w0-kSmooth .. w0+kRun-1 (the left halo recomputed)
   for (int j = warp; j < kRun + kSmooth; j += kWarps) {
@@ -97,13 +108,13 @@ tone_ratios_kernel(const float* __restrict__ x, long long n,
 
 }  // namespace
 
-extern "C" int axctd_tone_ratios_launch(const float* x, long long n,
+extern "C" int axctd_tone_ratios_launch(const float* x, int rows, long long n,
                                         const float* tm, int window,
                                         int stride, int n_win, float* r400,
                                         float* r7500, void* stream) {
-  if (n_win <= 0) return static_cast<int>(cudaSuccess);
-  const int blocks = (n_win + kRun - 1) / kRun;
-  tone_ratios_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n_win <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((n_win + kRun - 1) / kRun, rows);
+  tone_ratios_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, n, tm, window, stride, n_win, r400, r7500);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,10 +8,13 @@ axctdprocessor_tpu/ops/pallas/tonepower.py (``fused_tone_ratios``).
   (``ops/kernels/tone_ratios.cu``) and adds one to ``tone_ratios.launches``.
   A build or launch failure raises; nothing falls back.
 
-Both take the (window, 6) ``tone_matrix`` for [400 Hz, 7500 Hz, dead] with
-interleaved cos/sin columns, and return (r400, r7500), each of length
-``ceil((len(x) - window) / stride)``.  A window whose dead-tone mean is 0
-(the zero-padded tail of a bucket) gives NaN or inf: no epsilon is added.
+Both take one signal ``x`` of shape (n,) or a batch (B, n), and the
+(window, 6) ``tone_matrix`` for [400 Hz, 7500 Hz, dead] with interleaved
+cos/sin columns, and return (r400, r7500), each of shape (n_win,) or
+(B, n_win) with ``n_win = ceil((n - window) / stride)``.  A batch is one
+kernel launch, as the Pallas kernel under ``vmap`` is one ``pallas_call``
+with a batch grid axis.  A window whose dead-tone mean is 0 (the
+zero-padded tail of a bucket) gives NaN or inf: no epsilon is added.
 """
 
 from __future__ import annotations
@@ -29,13 +32,19 @@ def n_windows(n: int, window: int, stride: int) -> int:
     return max(math.ceil((n - window) / stride), 0)
 
 
+def ratios_from_powers(powers: torch.Tensor):
+    """(r400, r7500) from raw (..., n_win, 3) tone powers: the causal box
+    mean of each tone over the windows, then the log10 ratios to the dead
+    tone.  The segmented decode smooths its per-segment powers with it."""
+    p400, p7500, pdead = (iir.boxsmooth_lag(powers[..., c], SMOOTH)
+                          for c in range(3))
+    return torch.log10(p400 / pdead), torch.log10(p7500 / pdead)
+
+
 def tone_ratios_reference(x: torch.Tensor, tm: torch.Tensor, window: int,
                           stride: int):
     """Plain version: (r400, r7500) from tiled powers + box mean + log10."""
-    powers = goertzel.framed_tone_power_tiled(x, window, stride, tm)
-    p400, p7500, pdead = (iir.boxsmooth_lag(powers[:, c], SMOOTH)
-                          for c in range(3))
-    return torch.log10(p400 / pdead), torch.log10(p7500 / pdead)
+    return ratios_from_powers(goertzel.framed_tone_power_tiled(x, window, stride, tm))
 
 
 def tone_ratios(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int):
@@ -49,7 +58,7 @@ def tone_ratios(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int):
     from .kernels import extension
 
     ext = extension()
-    n_win = n_windows(x.shape[0], window, stride)
+    n_win = n_windows(x.shape[-1], window, stride)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         r400, r7500 = ext.tone_ratios(x, tm, window, stride, n_win, stream)

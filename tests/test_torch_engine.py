@@ -273,9 +273,12 @@ def test_device_and_mode_are_explicit():
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             engine.resolve_device("cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mode"):
         engine.decode_waveform(np.zeros(44100, np.int16), 44100, device="cpu",
-                               mode="segmented")
+                               mode="sharded")
+    res = engine.decode_waveform(np.zeros(44100, np.int16), 44100, device="cpu",
+                                 mode="segmented")
+    assert res.status == 0 and res.numpoints == 44100
     assert engine.resolve_wire("auto") == "int16"
 
 

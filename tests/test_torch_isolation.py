@@ -1,7 +1,8 @@
 """The port runs without jax: the machine with the GPU has none.
 
 A fresh interpreter imports ``axctdprocessor_tpu_torch`` and decodes a
-short drop on the CPU; jax must never enter ``sys.modules``.  The port's
+short drop on the CPU through each path (monolithic, segmented, prestaged,
+stream and batch); jax must never enter ``sys.modules``.  The port's
 jax-free simulator copy must synthesize the JAX package's drops exactly.
 """
 
@@ -23,15 +24,23 @@ import torch
 torch.set_num_threads(2)
 import axctdprocessor_tpu_torch
 from axctdprocessor_tpu_torch import cli
-from axctdprocessor_tpu_torch.models import engine, simulator
+from axctdprocessor_tpu_torch.models import engine, segmented, simulator
+from axctdprocessor_tpu_torch.models.stream_device import DeviceStreamDecoder
+from axctdprocessor_tpu_torch.parallel import batch
 from axctdprocessor_tpu_torch.utils import report
 spec = simulator.SimSpec(duration=40.0, profile_start=33.0, seed=3)
 pcm, truth = simulator.synthesize(spec)
 raw = (pcm * (28000 / abs(pcm).max())).astype("int16")
 res = engine.decode_waveform(raw, spec.fs, device="cpu")
-assert res.status == 2, res.status
-assert res.metadata["serial_no"] == truth["serial_no"]
-assert len(res.hexframes) > 100
+seg = engine.decode_waveform(raw, spec.fs, device="cpu", mode="segmented")
+staged = segmented.prestage_waveform(raw, spec.fs, device="cpu", fused=True).decode()
+stream = DeviceStreamDecoder(spec.fs, device="cpu")
+stream.feed(pcm / abs(pcm).max())
+rows = batch.decode_batch(raw[None], spec.fs, device="cpu")
+for r in (res, seg, staged, stream.finalize(), rows[0]):
+    assert r.status == 2, r.status
+    assert r.metadata["serial_no"] == truth["serial_no"]
+    assert len(r.hexframes) > 100
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
 """
