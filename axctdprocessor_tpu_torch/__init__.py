@@ -7,10 +7,12 @@ NVIDIA H100: the fused single-drop decode (``models.engine.decode_wav`` /
 (``models.stream_device``) and the batch path (``parallel.batch``).  It
 follows the JAX package's layout module for module; the JAX package stays
 the reference it is tested against.  This package imports ``torch`` and
-never ``jax``: it uses only the JAX package's jax-free modules
-(``utils.config``, ``utils.lut``, ``utils.wavio``, ``utils.timeparse``,
-``models.metadata`` and ``ops.wire``'s encoders) and carries its own copies
-of the few host pieces that load jax there.
+nothing of ``jax`` or of the JAX package: it carries its own copy of each
+host module it needs (``utils.config``, ``utils.lut`` with ``data/
+temp_LUT.txt``, ``utils.wavio``, ``utils.timeparse``, ``utils.profiling``,
+``utils.native`` with ``native/wavio.cpp``, ``models.metadata``,
+``ops.wire``, and the others that name their source).  Every entry point
+runs on the card unless it is given ``device="cpu"``.
 
 The one TPU kernel of the decode paths, the Pallas tone-ratio kernel, is a
 hand-written sm_90a CUDA kernel here (``ops/kernels/tone_ratios.cu``), for

@@ -18,10 +18,9 @@ import argparse
 import os
 import sys
 
-from axctdprocessor_tpu.utils.config import resolve_settings
-from axctdprocessor_tpu.utils.timeparse import parse_time_string
-
+from .utils.config import resolve_settings
 from .utils.report import write_report
+from .utils.timeparse import parse_time_string
 
 
 def build_parser() -> argparse.ArgumentParser:

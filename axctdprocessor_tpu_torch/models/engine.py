@@ -47,16 +47,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from axctdprocessor_tpu.models import metadata as md
-from axctdprocessor_tpu.ops import wire as wire_ops
-from axctdprocessor_tpu.utils.config import DecoderConfig, resolve_settings
-from axctdprocessor_tpu.utils.lut import load_temp_lut
-
 from ..ops import chain as chain_ops
 from ..ops import crc as crc_ops
 from ..ops import goertzel, iir, tonepower
 from ..ops import header_device as hdr_ops
+from ..ops import wire as wire_ops
+from ..utils.config import DecoderConfig, resolve_settings
+from ..utils.lut import load_temp_lut
 from . import frames as frames_host
+from . import metadata as md
 from .result import DecodeResult
 
 
@@ -759,7 +758,7 @@ def resolve_wire(wire: str) -> str:
     return "int16" if wire == "auto" else wire
 
 
-def decode_waveform(pcm, fs, *, device, config: DecoderConfig | None = None,
+def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = None,
                     wire: str = "auto", mode: str = "auto",
                     lossy_retry: bool = True,
                     use_kernel: bool = True) -> DecodeResult:
@@ -843,14 +842,15 @@ def decode_waveform(pcm, fs, *, device, config: DecoderConfig | None = None,
 
 
 def decode_wav(path: str, timerange=(0, -1), settings: dict | None = None,
-               compat: str = "strict", wire: str = "auto", *, device,
+               compat: str = "strict", wire: str = "auto", *, device="cuda",
                mode: str = "auto", use_kernel: bool = True) -> DecodeResult:
     """Read and decode a WAV on `device` (``mode`` as in
     ``decode_waveform``).  int16 mono WAVs ship raw and are conditioned
     (and, above 50 kHz, decimated) on the device; other encodings take the
     host conditioning path."""
-    from axctdprocessor_tpu.utils.wavio import read_wav, read_wav_raw16
+    from ..utils.wavio import read_wav, read_wav_raw16
 
+    device = resolve_device(device)
     cfg = resolve_settings(settings, compat=compat)
     raw = read_wav_raw16(path, timerange, allow_highrate=True)
     if raw is not None:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from axctdprocessor_tpu.models import metadata as md
+from . import metadata as md
 
 HEADER_FRAMES = 72
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from axctdprocessor_tpu.models import metadata as md
+from . import metadata as md
 
 
 @dataclasses.dataclass

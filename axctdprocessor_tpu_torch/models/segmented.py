@@ -39,12 +39,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from axctdprocessor_tpu.ops import wire as wire_ops
-from axctdprocessor_tpu.utils.config import DecoderConfig
-from axctdprocessor_tpu.utils.profiling import StageTimer
-
 from ..ops import chain as chain_ops
 from ..ops import goertzel, iir, tonepower
+from ..ops import wire as wire_ops
+from ..utils.config import DecoderConfig
+from ..utils.profiling import StageTimer
 from . import engine as eng
 from .result import DecodeResult
 
@@ -261,6 +260,7 @@ def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
     """Resolve the wire and encode on the host, take the conditioning
     statistics (host float64, as the WAV reader's), fix the geometry, and
     build the module on the device."""
+    dev = eng.resolve_device(device)
     cfg = config or DecoderConfig()
     pcm = np.asarray(pcm)
     if pcm.dtype == np.uint8:
@@ -308,7 +308,6 @@ def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
             dc, peak = 0.0, 1.0
             pcm = pcm.astype(np.float32)
 
-    dev = eng.resolve_device(device)
     n_seg = max(-(-n // seg_len), 1)
     dims = eng.EngineDims.for_waveform(_bucket_count(n_seg) * seg_len, fs,
                                        cfg.bitrate, eng.probe_window(cfg, fs))
@@ -358,7 +357,7 @@ def _upload(host: np.ndarray, dev: torch.device, copy_stream) -> torch.Tensor:
     return ext
 
 
-def decode_waveform_segmented(pcm, fs, *, device,
+def decode_waveform_segmented(pcm, fs, *, device="cuda",
                               config: DecoderConfig | None = None,
                               wire: str = "auto", timer=None,
                               lossy_retry: bool = True,
@@ -444,7 +443,7 @@ class PrestagedDrop:
         return self.finish(self.dispatch())
 
 
-def prestage_waveform(pcm, fs, *, device, config: DecoderConfig | None = None,
+def prestage_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = None,
                       wire: str = "int8", fused: bool = False,
                       group: int = GROUP) -> PrestagedDrop:
     """Encode and upload every group of ``pcm`` to the device and wait

@@ -42,7 +42,7 @@ import numpy as np
 
 from ..ops import crc
 from ..ops.bits import bits_to_hex_np, int_to_bits_np
-from axctdprocessor_tpu.utils.lut import load_temp_lut
+from ..utils.lut import load_temp_lut
 
 FRAME_BITS = 32
 HEADER_FRAMES = 72

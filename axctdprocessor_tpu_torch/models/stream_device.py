@@ -26,8 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from axctdprocessor_tpu.utils.config import DecoderConfig
-
+from ..utils.config import DecoderConfig
 from . import engine as eng
 from . import segmented as seg
 from .result import DecodeResult
@@ -40,7 +39,7 @@ class DeviceStreamDecoder:
     `device`."""
 
     def __init__(self, fs, config: DecoderConfig | None = None,
-                 max_duration: float | None = None, *, device):
+                 max_duration: float | None = None, *, device="cuda"):
         """``max_duration`` (seconds) pins every ``results()`` snapshot to
         one assemble size, the bucket of a stream that long, and runs that
         assemble once here.  On a GPU nothing compiles, but the first run

@@ -26,6 +26,8 @@ def extension():
     """The compiled extension module (built on the first call; raises if
     the build fails — there is no fallback)."""
     global _ext
+    if _ext is not None:
+        return _ext
     with _lock:
         if _ext is None:
             from torch.utils.cpp_extension import load

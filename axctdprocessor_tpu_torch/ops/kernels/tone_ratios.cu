@@ -6,104 +6,378 @@
 // a causal box mean over the trailing SMOOTH+1 = 6 windows (count
 // min(w+1, 6)), then r400 = log10(p400/pdead), r7500 = log10(p7500/pdead).
 //
-// Work: each window is 6 dot products of length `window` (4410 at
-// 44.1 kHz) against the (window, 6) cos/sin table, ~12 flop per sample per
-// window at ~2.5 windows per sample.  Every sample is read by ~2.5 windows
-// and every table entry by every window, so both should come from cache;
-// what bounds the kernel on the card is not measured yet.
+// Bound: each sample must be read once (4 bytes) and each window does six
+// dot products of length `window`: at 44.1 kHz (window 4410, stride 1764)
+// that is 30 flop per sample (the third table segment is half zeros and is
+// skipped), so 4 bytes per 30 flop.  At 3.35 TB/s and 66.9 TFLOP/s (f32,
+// CUDA cores) the bytes take 2.6x as long as the arithmetic: the kernel is
+// bound by reading the samples once.
 //
-// Design: the TPU kernel carries tail tiles and five power rows in VMEM
-// scratch from one grid step to the next, which is legal only because a
-// TPU grid runs in order.  CUDA blocks run concurrently, so each block owns
-// a run of RUN windows and recomputes the powers of the SMOOTH windows
-// before its run itself (its left halo).  One warp reduces one window's
-// six dot products in f32 (lanes stride over the samples, then a shuffle
-// tree); powers go to shared memory; after one barrier each thread forms
-// the box mean and the two ratios of one owned window.  The table is read
-// through the read-only cache; sin/cos are never evaluated on the device
-// (fast intrinsics at arguments up to ~4700 rad would break the tolerance).
+// Design: the TPU kernel's tiles-times-segments decomposition.  A row is
+// viewed as (n_tiles, stride) tiles and the (window, 6) table as n_seg =
+// ceil(window/stride) stride-aligned segments (segment j, row r is table
+// row j*stride + r); window w = sum_j tile[w+j] . seg[j].
+//  * Blocks own fixed runs.  A block owns kRun windows (a compile-time
+//    constant, independent of rows, n and the card) and computes the powers
+//    of kLocal = kRun + 5 windows: its own and the 5 before them (the box
+//    mean's halo), from kLocal + n_seg - 1 tiles.  Nothing carries between
+//    blocks, which run in no order.
+//  * The table lives in shared memory, copied once per block as it lies in
+//    device memory and zero past `window` (107 KB at 44.1 kHz, 121 KB at
+//    50 kHz, the highest rate the kernel sees: faster input is decimated
+//    first).  With the ring that is one block per SM (213 / 228 KB).
+//  * The tiles stream through shared memory in a ring of kStages = 3 stages
+//    of kKc = 64 samples of every tile, with cp.async 16-byte copies that
+//    overlap the arithmetic.  A tile's start is 16-byte aligned only when n
+//    and stride are multiples of 4 (not for stride 882, or a ragged n), so
+//    every copy starts at the 16-byte boundary at or below it and the
+//    reader offsets inside the staged row: one code path.  Samples past n
+//    are zero-filled by the copy (its source size), as are tiles before 0.
+//  * Register blocking.  A warp owns kWpw = 16 consecutive windows.  In a
+//    step of 32 samples, lane l takes sample l of every tile: it reads the
+//    kWpw + n_seg - 1 tiles the warp's windows touch once from shared
+//    memory and feeds each to the n_seg windows that use it, with one
+//    8-byte table read per tone and segment (conflict-free at a 24-byte
+//    lane stride): 288 FMAs per 27 shared loads.  The next step's operands
+//    are loaded while this step's FMAs run.  The third segment is skipped
+//    past its last nonzero row.  f32 FMAs on the CUDA cores: no TF32.  The
+//    kWpw x 6 partial sums are then reduced across the warp by halving
+//    exchanges (each lane keeps half of what it holds and sends the other
+//    half), a fixed tree.
 //
-// Samples past n read as 0, powers of windows with index < 0 count as 0,
+// Measured on an H100 SXM (scripts/tone_ratios_variants.py, PERF.md): at
+// 600 s the kernel reads the samples at about 2.2 TB/s (a device-to-device
+// copy of the same bytes runs at about 2.5 TB/s); on small grids one
+// block's walk (about 45 us for 128 windows) sets the time.
+//
+// The arithmetic of a window depends only on its index, the row's samples,
+// and the constants above, so every row of a (rows, n) call is bitwise
+// equal to the 1-D call on that row.  Samples past n read as 0, powers of
+// windows with index < 0 count as 0, the box mean is summed oldest first
 // and the ratios take no epsilon: a window whose dead-tone mean is 0 (the
 // zero-padded tail of a bucket) gives NaN or inf, as the plain version
-// does; callers mask it.
+// does; callers mask it.  Samples are assumed finite: a zero table entry
+// times a non-finite sample is skipped here in the third segment's zero
+// half, where the plain version's matmul would propagate it.
 //
-// Batch: a (rows, n) input is one launch with grid (ceil(n_win/64), rows),
-// blockIdx.y the row, as the Pallas kernel under vmap gets a batch grid
-// axis.  A block reads only its own row, with the per-window work and its
-// order unchanged, so every row of a batched call is bitwise equal to the
-// 1-D call on that row; a 1-D input is the rows = 1 case.  Row offsets are
-// 64-bit (64 rows of 60 s at 44.1 kHz are 169M samples).
+// Batch: grid (ceil(n_win / kRun), rows), blockIdx.y the row, 64-bit row
+// offsets (64 rows of 60 s at 44.1 kHz are 169M samples).  x must lie in a
+// 16-byte aligned allocation (every CUDA tensor's storage does): a copy
+// may start up to 12 bytes before a row, never before its storage.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;              // warps per block
+constexpr int kWpw = 16;                // windows per warp (register block)
+constexpr int kWarps = 8;               // warps per block
 constexpr int kThreads = kWarps * 32;
-constexpr int kRun = 64;               // windows owned by one block
-constexpr int kSmooth = 5;             // trailing windows in the box mean
+constexpr int kSmooth = 5;              // trailing windows in the box mean
 constexpr int kTaps = kSmooth + 1;
-constexpr int kCols = 6;               // cos/sin for 400, 7500, dead
+constexpr int kCols = 6;                // cos/sin for 400, 7500, dead
+constexpr int kLocal = kWarps * kWpw;   // windows whose powers a block computes
+constexpr int kRun = kLocal - kSmooth;  // windows a block owns
+constexpr int kKc = 64;                 // samples of every tile per stage
+constexpr int kPitch = kKc + 4;         // staged row: a 16-byte aligned span
+constexpr int kChunks = kPitch / 4;     // 16-byte copies per staged row
+constexpr int kStages = 3;              // stages in the copy ring
+constexpr int kMaxSeg = 3;
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kThreads)
-tone_ratios_kernel(const float* __restrict__ x, long long n,
-                   const float* __restrict__ tm, int window, int stride,
-                   int n_win, float* __restrict__ r400,
-                   float* __restrict__ r7500) {
-  __shared__ float pw[kRun + kSmooth][3];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long w0 = static_cast<long long>(blockIdx.x) * kRun;
-  const long long row = blockIdx.y;
-  x += row * n;
-  r400 += row * n_win;
-  r7500 += row * n_win;
+static_assert(kLocal > kSmooth, "a block must own at least one window");
+static_assert(kStages >= 2, "a ring of at least two stages");
+static_assert(kKc == 64, "a stage is two steps of one sample per lane");
+static_assert(kLocal * (kCols + 3) <= kStages * kLocal * kPitch,
+              "the epilogue reuses the stage ring");
 
-  // powers of windows w0-kSmooth .. w0+kRun-1 (the left halo recomputed)
-  for (int j = warp; j < kRun + kSmooth; j += kWarps) {
-    const long long w = w0 - kSmooth + j;
-    float acc[kCols] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (w >= 0 && w < n_win) {
-      const long long base = w * stride;
-      for (int k = lane; k < window; k += 32) {
-        const long long s = base + k;
-        const float v = s < n ? __ldg(x + s) : 0.f;
-        const float* t = tm + kCols * k;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Values a lane holds after reduce_lanes<V, 16>.
+__host__ __device__ constexpr int held_count(int v, int off) {
+  return off == 0 ? v : (v % 2 == 0 ? held_count(v / 2, off / 2) : held_count(v, off / 2));
+}
+
+// Sums V values over the 32 lanes of a warp.  While V is even, a lane keeps
+// one half (by its bit OFF) and adds its partner's copy of that half; an
+// odd V is summed whole.  On return the lane holds the totals of values
+// base .. base + held_count(V, OFF) - 1; `writer` is false on the lanes
+// whose totals another lane also holds.
+template <int V, int OFF>
+__device__ __forceinline__ void reduce_lanes(float* v, int lane, int& base, bool& writer) {
+  if constexpr (OFF > 0) {
+    if constexpr (V % 2 == 0) {
+      const bool up = lane & OFF;
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[c] = fmaf(v, __ldg(t + c), acc[c]);
+      for (int i = 0; i < V / 2; ++i) {
+        const float send = up ? v[i] : v[i + V / 2];
+        const float keep = up ? v[i + V / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      if (up) base += V / 2;
+      reduce_lanes<V / 2, OFF / 2>(v, lane, base, writer);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], OFF);
+      if (lane & OFF) writer = false;
+      reduce_lanes<V, OFF / 2>(v, lane, base, writer);
+    }
+  }
+}
+
+template <int NSEG>
+__host__ __device__ constexpr int tiles_per_block() {
+  return kLocal + NSEG - 1;
+}
+
+// Floats of the shared table: rows up to window + kKc - 1 (a stage reads up
+// to kKc - 1 rows past the end of a segment, or of the table), rounded up to
+// 16 bytes.
+__host__ __device__ inline int table_floats(int window) {
+  return ((window + kKc) * kCols + 3) & ~3;
+}
+
+template <int NSEG>
+__global__ void __launch_bounds__(kThreads, 1)
+tone_ratios_kernel(const float* __restrict__ x, long long n, const float* __restrict__ tm,
+                   int window, int stride, int n_win, float* __restrict__ r400,
+                   float* __restrict__ r7500) {
+  constexpr int kTiles = tiles_per_block<NSEG>();
+  constexpr int kXs = kWpw + NSEG - 1;  // tiles one warp reads
+  constexpr int kStageFloats = kTiles * kPitch;
+  constexpr int kCopies = (kTiles * kChunks + kThreads - 1) / kThreads;
+  extern __shared__ float4 smem4[];
+  float* tab = reinterpret_cast<float*>(smem4);
+  const int tab_floats = table_floats(window);
+  float* ring = tab + tab_floats;
+  const uint32_t tab_s = static_cast<uint32_t>(__cvta_generic_to_shared(tab));
+  const uint32_t ring_s = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long row = blockIdx.y;
+  const float* xr = x + row * n;
+  const long long w0 = static_cast<long long>(blockIdx.x) * kRun;
+  const long long tile0 = w0 - kSmooth;  // tile of local window 0
+  const uintptr_t xr_word = reinterpret_cast<uintptr_t>(xr) >> 2;
+
+  // the table, as it lies in device memory, then zeros
+  const int tab_bytes = window * kCols * 4;
+  const int tab_chunks = (tab_bytes + 15) / 16;
+  for (int c = tid; c < tab_chunks; c += kThreads)
+    cp_async16(tab_s + 16 * c, reinterpret_cast<const char*>(tm) + 16 * c,
+               min(16, tab_bytes - 16 * c));
+  for (int i = 4 * tab_chunks + tid; i < tab_floats; i += kThreads) tab[i] = 0.f;
+
+  // this thread's copies of every stage: staged row u, 16-byte chunk c, at
+  // sample off[i] from the block's first tile at stage 0 (16-byte aligned:
+  // up to 3 samples before the tile).  avail[i] samples from there exist in
+  // the row (clamped to +-2^30), so the chunk's valid samples at stage s are
+  // clamp(avail[i] - s*kKc, 0, 4).
+  const float* xb = xr + tile0 * stride;  // before the row in block 0: never read there
+  int off[kCopies], avail[kCopies];
+  uint32_t dst[kCopies];
+#pragma unroll
+  for (int i = 0; i < kCopies; ++i) {
+    const int q = tid + i * kThreads;
+    const int u = q / kChunks;
+    const int c = q - u * kChunks;
+    const long long t = tile0 + u;
+    const int o = static_cast<int>((xr_word + t * stride) & 3);
+    off[i] = u * stride - o + 4 * c;
+    avail[i] = 0;  // tiles before 0, and copies past the last row, fill nothing
+    if (q < kTiles * kChunks && t >= 0) {
+      const long long a = n - (t * stride - o + 4 * c);
+      constexpr long long kCap = 1LL << 30;
+      avail[i] = static_cast<int>(a < -kCap ? -kCap : (a > kCap ? kCap : a));
+    }
+    dst[i] = q < kTiles * kChunks ? ring_s + 4u * (u * kPitch + 4 * c) : 0xffffffffu;
+  }
+  auto issue = [&](int s, int buf) {
+    const int kc = s * kKc;
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      if (dst[i] == 0xffffffffu) continue;
+      const int bytes = 4 * min(max(avail[i] - kc, 0), 4);
+      const float* src = bytes ? xb + (off[i] + kc) : xr;
+      cp_async16(dst[i] + 4u * buf * kStageFloats, src, bytes);
+    }
+  };
+
+  // where lane `lane` reads tile i0 + u of a stage
+  const int i0 = warp * kWpw;
+  int rd[kXs];
+#pragma unroll
+  for (int u = 0; u < kXs; ++u) {
+    const long long t = tile0 + i0 + u;
+    rd[u] = (i0 + u) * kPitch + static_cast<int>((xr_word + t * stride) & 3) + lane;
+  }
+  int len[NSEG];  // nonzero table rows of each segment
+#pragma unroll
+  for (int j = 0; j < NSEG; ++j) len[j] = min(stride, window - j * stride);
+  const int n_kst = (min(stride, window) + kKc - 1) / kKc;
+
+  float acc[kWpw * kCols];
+#pragma unroll
+  for (int i = 0; i < kWpw * kCols; ++i) acc[i] = 0.f;
+
+  // One step is 32 samples of every tile, one per lane; a stage is two
+  // steps.  The operands of the next step are loaded into registers while
+  // the FMAs of this one run (two register sets, fa and fb), and the
+  // barrier for the next stage comes before this stage's second step, whose
+  // operands are already in registers.
+  struct Frag {
+    float x[kXs];
+    float2 b[NSEG][3];
+  };
+  auto load = [&](const float* buf, int h, int kc, Frag& f) {
+#pragma unroll
+    for (int u = 0; u < kXs; ++u) f.x[u] = buf[rd[u] + 32 * h];
+    if (kc + 32 > stride) {  // warp-uniform: lanes past the tile hold the next tile's samples
+      const bool past = kc + lane >= stride;
+#pragma unroll
+      for (int u = 0; u < kXs; ++u) f.x[u] = past ? 0.f : f.x[u];
+    }
+#pragma unroll
+    for (int j = 0; j < NSEG; ++j) {
+      if (kc < len[j]) {  // warp-uniform
+        const float2* b = reinterpret_cast<const float2*>(tab + (j * stride + kc + lane) * kCols);
+        f.b[j][0] = b[0];
+        f.b[j][1] = b[1];
+        f.b[j][2] = b[2];
       }
     }
+  };
+  auto step = [&](const Frag& f, int kc) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+    for (int j = 0; j < NSEG; ++j) {
+      if (kc < len[j]) {
 #pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        acc[c] += __shfl_down_sync(0xffffffffu, acc[c], off);
+        for (int i = 0; i < kWpw; ++i) {
+          const float xs = f.x[i + j];
+          float* a = acc + i * kCols;
+          a[0] = fmaf(xs, f.b[j][0].x, a[0]);
+          a[1] = fmaf(xs, f.b[j][0].y, a[1]);
+          a[2] = fmaf(xs, f.b[j][1].x, a[2]);
+          a[3] = fmaf(xs, f.b[j][1].y, a[3]);
+          a[4] = fmaf(xs, f.b[j][2].x, a[4]);
+          a[5] = fmaf(xs, f.b[j][2].y, a[5]);
+        }
+      }
     }
-    if (lane == 0) {
+  };
+
 #pragma unroll
-      for (int f = 0; f < 3; ++f)
-        pw[j][f] = sqrtf(acc[2 * f] * acc[2 * f] + acc[2 * f + 1] * acc[2 * f + 1]);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kst) issue(s, s);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  if (kStages - 1 < n_kst) issue(kStages - 1, kStages - 1);
+  cp_async_commit();
+  Frag fa, fb;
+  load(ring, 0, 0, fa);
+  for (int s = 0; s < n_kst; ++s) {
+    const float* buf = ring + (s % kStages) * kStageFloats;
+    const int kc = s * kKc;
+    load(buf, 1, kc + 32, fb);
+    step(fa, kc);
+    if (s + 1 < n_kst) {
+      cp_async_wait<kStages - 2>();  // stage s + 1 has landed
+      __syncthreads();               // and every warp is done reading stage s
+      if (s + kStages < n_kst) issue(s + kStages, s % kStages);
+      cp_async_commit();
+      load(ring + ((s + 1) % kStages) * kStageFloats, 0, kc + kKc, fa);
+    }
+    step(fb, kc + 32);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the epilogue reuses it
+
+  float* proj = ring;                   // (kLocal, 6) dot products
+  float* pw = ring + kLocal * kCols;    // (kLocal, 3) powers
+  int base = 0;
+  bool writer = true;
+  reduce_lanes<kWpw * kCols, 16>(acc, lane, base, writer);
+  constexpr int kHeld = held_count(kWpw * kCols, 16);
+  if (writer) {
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i) proj[i0 * kCols + base + i] = acc[i];
+  }
+  __syncthreads();
+
+  for (int i = tid; i < kLocal; i += kThreads) {
+    const bool live = w0 - kSmooth + i >= 0;
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      const float re = proj[i * kCols + 2 * f], im = proj[i * kCols + 2 * f + 1];
+      pw[i * 3 + f] = live ? sqrtf(re * re + im * im) : 0.f;
     }
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < kRun; i += kThreads) {
+  for (int i = tid; i < kRun; i += kThreads) {
     const long long w = w0 + i;
     if (w >= n_win) break;
     float s400 = 0.f, s7500 = 0.f, sdead = 0.f;
 #pragma unroll
     for (int t = kSmooth; t >= 0; --t) {  // oldest first, as a running sum would
-      s400 += pw[i + kSmooth - t][0];
-      s7500 += pw[i + kSmooth - t][1];
-      sdead += pw[i + kSmooth - t][2];
+      const float* p = pw + (i + kSmooth - t) * 3;
+      s400 += p[0];
+      s7500 += p[1];
+      sdead += p[2];
     }
     const float cnt = static_cast<float>(w + 1 < kTaps ? w + 1 : kTaps);
     const float m400 = s400 / cnt, m7500 = s7500 / cnt, mdead = sdead / cnt;
-    r400[w] = log10f(m400 / mdead);
-    r7500[w] = log10f(m7500 / mdead);
+    r400[row * n_win + w] = log10f(m400 / mdead);
+    r7500[row * n_win + w] = log10f(m7500 / mdead);
   }
+}
+
+template <int NSEG>
+int launch(const float* x, int rows, long long n, const float* tm, int window, int stride,
+           int n_win, float* r400, float* r7500, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(float)) *
+                   (table_floats(window) + kStages * tiles_per_block<NSEG>() * kPitch);
+  // the opt-in above 48 KB, set once per device and size (host calls that
+  // cost more than a small launch)
+  static int optin[kMaxDevices];
+  static int granted[kMaxDevices][kMaxSeg + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (optin[dev] == 0) {
+    err = cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (smem > optin[dev]) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > granted[dev][NSEG]) {
+    err = cudaFuncSetAttribute(tone_ratios_kernel<NSEG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted[dev][NSEG] = smem;
+  }
+  const dim3 grid((n_win + kRun - 1) / kRun, rows);
+  tone_ratios_kernel<NSEG><<<grid, kThreads, smem, stream>>>(x, n, tm, window, stride, n_win,
+                                                            r400, r7500);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -113,10 +387,13 @@ extern "C" int axctd_tone_ratios_launch(const float* x, int rows, long long n,
                                         int stride, int n_win, float* r400,
                                         float* r7500, void* stream) {
   if (n_win <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((n_win + kRun - 1) / kRun, rows);
-  tone_ratios_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, n, tm, window, stride, n_win, r400, r7500);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((window + stride - 1) / stride) {
+    case 1: return launch<1>(x, rows, n, tm, window, stride, n_win, r400, r7500, s);
+    case 2: return launch<2>(x, rows, n, tm, window, stride, n_win, r400, r7500, s);
+    case 3: return launch<3>(x, rows, n, tm, window, stride, n_win, r400, r7500, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* axctd_cuda_error_string(int code) {

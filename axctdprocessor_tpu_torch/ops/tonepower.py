@@ -5,8 +5,9 @@ axctdprocessor_tpu/ops/pallas/tonepower.py (``fused_tone_ratios``).
   powers, the causal 6-window box mean, then ``log10`` ratios.
 * :func:`tone_ratios` — the dispatcher: on a CPU tensor it returns the plain
   version; on a CUDA tensor it launches the hand-written sm_90a kernel
-  (``ops/kernels/tone_ratios.cu``) and adds one to ``tone_ratios.launches``.
-  A build or launch failure raises; nothing falls back.
+  (``ops/kernels/tone_ratios.cu``) and adds one to ``tone_ratios.launches``
+  (a call with no window launches nothing).  A build or launch failure
+  raises; nothing falls back.
 
 Both take one signal ``x`` of shape (n,) or a batch (B, n), and the
 (window, 6) ``tone_matrix`` for [400 Hz, 7500 Hz, dead] with interleaved
@@ -57,12 +58,10 @@ def tone_ratios(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int):
         raise ValueError(f"tone_ratios: unsupported device {x.device}")
     from .kernels import extension
 
-    ext = extension()
     n_win = n_windows(x.shape[-1], window, stride)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        r400, r7500 = ext.tone_ratios(x, tm, window, stride, n_win, stream)
-    tone_ratios.launches += 1
+    r400, r7500 = extension().tone_ratios(x, tm, window, stride, n_win)
+    if r400.numel():  # no window, no launch
+        tone_ratios.launches += 1
     return r400, r7500
 
 

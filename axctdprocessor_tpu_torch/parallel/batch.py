@@ -19,11 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from axctdprocessor_tpu.ops import wire as wire_ops
-from axctdprocessor_tpu.utils.config import DecoderConfig
-
 from ..models import engine as eng
 from ..models.result import DecodeResult
+from ..ops import wire as wire_ops
+from ..utils.config import DecoderConfig
 
 
 def pad_batch(pcms: list[np.ndarray], dtype=None) -> np.ndarray:
@@ -87,7 +86,7 @@ def run_back_half_batched(s1: dict, cfg: DecoderConfig, fs: float,
     return finish_batch(host, cfg, fs, fs_report, lengths)
 
 
-def dispatch_batch(pcms, fs, config: DecoderConfig | None = None, *, device,
+def dispatch_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cuda",
                    lengths=None, wire: str = "auto"):
     """Queue a (B, N) batch decode on `device`; returns (out, ctx) for
     :func:`finish_dispatched`.
@@ -133,7 +132,7 @@ def finish_dispatched(out: torch.Tensor, ctx) -> list[DecodeResult]:
                         wire_used=wire_used)
 
 
-def decode_batch(pcms, fs, config: DecoderConfig | None = None, *, device,
+def decode_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cuda",
                  lengths=None, wire: str = "auto",
                  lossy_retry: bool = True) -> list[DecodeResult]:
     """Decode a (B, N) batch of waveforms on `device`; returns B results.

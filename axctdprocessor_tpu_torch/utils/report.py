@@ -8,9 +8,8 @@ processAXCTD.py:144-183; row format
 
 from __future__ import annotations
 
-from axctdprocessor_tpu.utils.config import DecoderConfig
-
 from ..models.result import DecodeResult
+from .config import DecoderConfig
 
 
 def format_report(result: DecodeResult, wavfile: str, timerange,

@@ -23,18 +23,36 @@ def _need_cuda():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU or interpret mode")
 
 
+def _signal(fs, n, tail, rng):
+    t = np.arange(n) / fs
+    x = (0.4 * np.sin(2 * np.pi * 400 * t) + 0.2 * np.sin(2 * np.pi * 7500 * t)
+         + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    x[int(n * (1 - tail)):] = 0.0
+    return x
+
+
+def _assert_close(got, want, shape):
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        assert g.shape == w.shape == shape
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("fs,seconds,tail", [(44100.0, 600.0, 0.0),
-                                             (44100.0, 60.0, 0.25),
-                                             (16000.0, 45.0, 0.1)])
-def test_kernel_vs_plain(fs, seconds, tail):
+@pytest.mark.parametrize("fs,n,tail", [
+    (44100.0, 600 * 44100, 0.0),
+    (44100.0, 60 * 44100, 0.25),
+    (16000.0, 45 * 16000, 0.1),
+    (22050.0, 120 * 22050 + 3, 0.1),   # stride 882: tiles not 16-byte aligned
+    (44100.0, 2 * 44100, 0.0),         # shorter than one block's run of windows
+    (44100.0, 4410 + 1, 0.0),          # one window
+    (50000.0, 30 * 50000, 0.0),        # the highest rate the kernel sees
+])
+def test_kernel_vs_plain(fs, n, tail):
     """rtol/atol 2e-4 (the Pallas kernel's tolerance), equal NaN positions."""
     _need_cuda()
-    rng = np.random.default_rng(5)
-    t = np.arange(int(fs * seconds)) / fs
-    x = (0.4 * np.sin(2 * np.pi * 400 * t) + 0.2 * np.sin(2 * np.pi * 7500 * t)
-         + 0.05 * rng.standard_normal(len(t))).astype(np.float32)
-    x[int(len(x) * (1 - tail)):] = 0.0
+    x = _signal(fs, n, tail, np.random.default_rng(5))
     window, stride = int(fs / 10), int(round(fs / 25))
     xd = torch.from_numpy(x).cuda()
     tm = torch.from_numpy(goertzel.tone_matrix(window, FREQS, fs, np.float32)).cuda()
@@ -43,11 +61,41 @@ def test_kernel_vs_plain(fs, seconds, tail):
     want = tonepower.tone_ratios_reference(xd, tm, window, stride)
     torch.cuda.synchronize()
     assert tonepower.tone_ratios.launches == before + 1
-    for g, w in zip(got, want):
-        g, w = g.cpu().numpy(), w.cpu().numpy()
-        assert g.shape == w.shape == (tonepower.n_windows(len(x), window, stride),)
-        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
-        np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4)
+    _assert_close(got, want, (tonepower.n_windows(len(x), window, stride),))
+
+
+@pytest.mark.cuda
+def test_kernel_with_no_window_launches_nothing():
+    """n_win = 0 (a signal no longer than one window): empty outputs, no launch."""
+    _need_cuda()
+    tm = torch.from_numpy(goertzel.tone_matrix(4410, FREQS, 44100.0, np.float32)).cuda()
+    before = tonepower.tone_ratios.launches
+    for x in (torch.zeros(4410, device="cuda"), torch.zeros((3, 100), device="cuda")):
+        got = tonepower.tone_ratios(x, tm, 4410, 1764)
+        assert got[0].shape == got[1].shape == x.shape[:-1] + (0,)
+    assert tonepower.tone_ratios.launches == before
+
+
+@pytest.mark.cuda
+def test_ragged_batch_rows_bitwise():
+    """A batch whose n is no multiple of 4 (rows not 16-byte aligned): one
+    launch, within 2e-4 of the plain version, rows bitwise equal to the 1-D
+    kernel on each row (a view that starts mid-allocation)."""
+    _need_cuda()
+    fs, window, stride = 44100.0, 4410, 1764
+    n = 20 * 44100 + 777
+    rng = np.random.default_rng(8)
+    xd = torch.from_numpy(np.stack([_signal(fs, n, tail, rng) for tail in (0.0, 0.2, 0.5)])).cuda()
+    tm = torch.from_numpy(goertzel.tone_matrix(window, FREQS, fs, np.float32)).cuda()
+    before = tonepower.tone_ratios.launches
+    got = tonepower.tone_ratios(xd, tm, window, stride)
+    assert tonepower.tone_ratios.launches == before + 1
+    for b in range(3):
+        one = tonepower.tone_ratios(xd[b], tm, window, stride)
+        for g, o in zip(got, one):
+            assert torch.equal(torch.nan_to_num(g[b], nan=7.0), torch.nan_to_num(o, nan=7.0))
+    want = tonepower.tone_ratios_reference(xd, tm, window, stride)
+    _assert_close(got, want, (3, tonepower.n_windows(n, window, stride)))
 
 
 @pytest.mark.cuda
@@ -101,6 +149,8 @@ def test_kernel_rejects_what_it_does_not_take():
     with pytest.raises(RuntimeError, match="float32"):
         tonepower.tone_ratios(torch.zeros((4, 50000), dtype=torch.int16, device="cuda"),
                               tm, 4410, 1764)
+    with pytest.raises(RuntimeError, match="at most 3 strides"):
+        tonepower.tone_ratios(x, tm, 4410, 1000)
 
 
 @pytest.mark.cuda

@@ -267,12 +267,31 @@ def test_short_drops_equal_jax(kind, cfg, status):
     assert ours.hexframes == ref.hexframes
 
 
-def test_device_and_mode_are_explicit():
+def test_device_and_mode_are_explicit(tmp_path):
     if torch.cuda.is_available():
         assert engine.resolve_device("cuda").type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             engine.resolve_device("cuda")
+        # every entry point runs on the card unless asked for the CPU: here,
+        # without a GPU, a call that names no device raises before any work
+        from axctdprocessor_tpu_torch.models import segmented
+        from axctdprocessor_tpu_torch.models.stream_device import DeviceStreamDecoder
+        from axctdprocessor_tpu_torch.parallel import batch
+
+        pcm = np.zeros(44100, np.int16)
+        calls = [
+            lambda: engine.decode_wav(str(tmp_path / "absent.wav")),
+            lambda: engine.decode_waveform(pcm, 44100),
+            lambda: segmented.decode_waveform_segmented(pcm, 44100),
+            lambda: segmented.prestage_waveform(pcm, 44100),
+            lambda: DeviceStreamDecoder(44100),
+            lambda: batch.dispatch_batch(pcm[None], 44100),
+            lambda: batch.decode_batch(pcm[None], 44100),
+        ]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="cuda"):
+                call()
     with pytest.raises(ValueError, match="mode"):
         engine.decode_waveform(np.zeros(44100, np.int16), 44100, device="cpu",
                                mode="sharded")

@@ -1,11 +1,19 @@
-"""The port runs without jax: the machine with the GPU has none.
+"""The port stands alone: the machine with the GPU has no jax, and the port
+imports nothing of the JAX package.
 
 A fresh interpreter imports ``axctdprocessor_tpu_torch`` and decodes a
 short drop on the CPU through each path (monolithic, segmented, prestaged,
-stream and batch); jax must never enter ``sys.modules``.  The port's
-jax-free simulator copy must synthesize the JAX package's drops exactly.
+stream and batch, the int4 wire through the port's C encoder); neither jax
+nor any module of ``axctdprocessor_tpu`` may enter ``sys.modules``.  A scan
+of every ``.py`` of the port and of ``chip_smoke.py`` finds no import of
+the JAX package, the port's native library builds only under its own
+``_build/``, and the port's simulator copy synthesizes the JAX package's
+drops exactly.
 """
 
+import ast
+import glob
+import json
 import os
 import subprocess
 import sys
@@ -37,22 +45,100 @@ staged = segmented.prestage_waveform(raw, spec.fs, device="cpu", fused=True).dec
 stream = DeviceStreamDecoder(spec.fs, device="cpu")
 stream.feed(pcm / abs(pcm).max())
 rows = batch.decode_batch(raw[None], spec.fs, device="cpu")
-for r in (res, seg, staged, stream.finalize(), rows[0]):
+int4 = engine.decode_waveform(raw, spec.fs, device="cpu", wire="int4", lossy_retry=False)
+for r in (res, seg, staged, stream.finalize(), rows[0], int4):
     assert r.status == 2, r.status
     assert r.metadata["serial_no"] == truth["serial_no"]
     assert len(r.hexframes) > 100
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
+loaded = sorted(m for m in sys.modules
+                if m == "axctdprocessor_tpu" or m.startswith("axctdprocessor_tpu."))
+print("JAX_PACKAGE_MODULES", loaded)
 """
 
 
-def test_port_decodes_without_loading_jax():
+def _child_env():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    out = subprocess.run([sys.executable, "-c", _CHILD], env=env, cwd=REPO,
+    return env
+
+
+def test_port_decodes_without_loading_jax():
+    out = subprocess.run([sys.executable, "-c", _CHILD], env=_child_env(), cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "JAX_MODULES []" in out.stdout, out.stdout[-2000:]
+    assert "JAX_PACKAGE_MODULES []" in out.stdout, out.stdout[-2000:]
+
+
+def _imports(path):
+    """Every module name a file imports, relative imports resolved."""
+    rel = os.path.relpath(path, REPO)
+    package = os.path.dirname(rel).replace(os.sep, ".")
+    for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = package.split(".")[: len(package.split(".")) - node.level + 1]
+                yield ".".join(base + ([node.module] if node.module else []))
+            else:
+                yield node.module
+
+
+PORT_FILES = sorted(glob.glob(os.path.join(REPO, "axctdprocessor_tpu_torch", "**", "*.py"),
+                              recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, REPO))
+def test_no_file_of_the_port_imports_the_jax_package(path):
+    bad = [m for m in _imports(path)
+           if m == "jax" or m.startswith("jax.")
+           or m == "axctdprocessor_tpu" or m.startswith("axctdprocessor_tpu.")]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+_BUILD_CHILD = """
+import json, os, subprocess
+from axctdprocessor_tpu_torch.utils import native
+written = []
+real_run = subprocess.run
+def run(cmd, *a, **k):
+    written.append(cmd[cmd.index("-o") + 1])
+    return real_run(cmd, *a, **k)
+native.subprocess.run = run
+if os.path.exists(native.LIB_PATH):
+    os.utime(native.SOURCE)  # the source is newer: the loader rebuilds
+lib = native.get_library()
+print("BUILT " + json.dumps(dict(loaded=lib is not None, written=written)))
+"""
+
+
+def test_native_library_builds_only_under_the_port_build_dir():
+    """The loader compiles the port's copy of wavio.cpp into
+    ``axctdprocessor_tpu_torch/_build/`` (through a temporary name there),
+    loads it from there, and leaves the JAX package's directory alone."""
+    from axctdprocessor_tpu_torch.utils import native
+
+    build = os.path.join(REPO, "axctdprocessor_tpu_torch", "_build")
+    assert native.BUILD_DIR == build
+    assert os.path.dirname(native.LIB_PATH) == build
+    assert native.SOURCE == os.path.join(REPO, "axctdprocessor_tpu_torch", "native", "wavio.cpp")
+    jax_native = os.path.join(REPO, "axctdprocessor_tpu", "native")
+    before = {p: os.stat(p).st_mtime_ns for p in glob.glob(os.path.join(jax_native, "*"))}
+    out = subprocess.run([sys.executable, "-c", _BUILD_CHILD], env=_child_env(), cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = next(ln for ln in out.stdout.splitlines() if ln.startswith("BUILT "))
+    built = json.loads(line[len("BUILT "):])
+    if not built["loaded"]:
+        pytest.skip("no C++ compiler for the native library")
+    written = built["written"]
+    assert written and all(os.path.dirname(p) == build for p in written), written
+    assert os.path.exists(native.LIB_PATH)
+    after = {p: os.stat(p).st_mtime_ns for p in glob.glob(os.path.join(jax_native, "*"))}
+    assert after == before
 
 
 @pytest.mark.parametrize("spec", [
