@@ -206,7 +206,8 @@ def demod_core(x: torch.Tensor, sos: torch.Tensor, bit_trig: torch.Tensor,
                dims: EngineDims, fs: float, bitrate: float, bit_inset: int,
                edge_pad: int, n_valid) -> dict:
     """Whole-waveform demod front end: FFT-domain filter, crossings, the
-    bit-edge chain and per-bit confidence ratios over the inset window."""
+    bit-edge chain and per-bit mark (``s1``) and space (``s2``) powers over
+    the inset window."""
     nfft = iir.next_pow2(dims.n + 4096)
     filtered = fft_filter(x, sos, nfft)[: dims.n].to(x.dtype)
     crossings, n_cross, rovf = find_crossings(
@@ -214,10 +215,11 @@ def demod_core(x: torch.Tensor, sos: torch.Tensor, bit_trig: torch.Tensor,
     edge_idx, n_edges = chain_ops.enumerate_bit_edges(
         crossings, n_cross, fs, bitrate, dims.max_edges)
     edge_samples = crossings[torch.clamp(edge_idx, 0, dims.max_crossings - 1)]
-    c0 = probe_ratio(filtered, edge_samples + bit_inset, dims.npcm, bit_trig)
+    probes = goertzel.tone_power_at(filtered, edge_samples + bit_inset,
+                                    dims.npcm, bit_trig)
     overflow = (n_cross > dims.max_crossings).to(torch.int32) | rovf
-    return dict(edge_samples=edge_samples, n_edges=n_edges, c0=c0,
-                overflow=overflow)
+    return dict(edge_samples=edge_samples, n_edges=n_edges, s1=probes[:, 0],
+                s2=probes[:, 1], overflow=overflow)
 
 
 # ---------------------------------------------------------------------------
@@ -492,46 +494,87 @@ def back_half_core(r400, r7500, edge_samples, n_edges, c0p, n_valid,
     return torch.cat(parts)
 
 
+def conditioned(pcm: torch.Tensor, n_valid) -> torch.Tensor:
+    """Wire-format PCM as the float signal the decode runs on: packed int4
+    unpacked, integers conditioned on the device, floats as they are."""
+    if pcm.dtype == torch.uint8:  # packed int4 wire
+        pcm = unpack_int4(pcm, 2 * pcm.shape[-1])
+    if not pcm.is_floating_point():
+        pcm = condition_integer(pcm, pcm.shape[-1], n_valid)
+    return pcm
+
+
+def stage1_core(pcm, n_valid, power_trig, sos, bit_trig, dims: EngineDims,
+                fs: float, bitrate: float, bit_inset: int, edge_pad: int,
+                use_kernel: bool = True) -> dict:
+    """The front half of the decode at the decode rate: conditioning of
+    integer PCM, smoothed tone ratios on the uniform whole-file grid (the
+    CUDA kernel on a GPU, the plain version on a CPU tensor;
+    ``use_kernel=False`` takes the plain version on a GPU too, for
+    comparison runs only) and the demod front end.
+
+    Returns ``r400``, ``r7500``, ``edge_samples``, ``n_edges``, the per-bit
+    mark and space powers ``s1`` and ``s2``, and ``overflow``: what
+    :func:`batched_back_half` takes.  A (B, N) batch with (B,) ``n_valid``
+    is conditioned as one tensor and its tone ratios are ONE kernel launch;
+    the demod front end then runs row by row, with no host sync, and every
+    output gains a leading batch dimension."""
+    x = conditioned(pcm, n_valid)
+    ratios = tonepower.tone_ratios if use_kernel else tonepower.tone_ratios_reference
+    r400, r7500 = ratios(x.to(torch.float32).contiguous(), power_trig,
+                         dims.n_power, dims.d_pcm)
+    if x.dim() == 1:
+        return dict(r400=r400, r7500=r7500, **demod_core(
+            x, sos, bit_trig, dims, fs, bitrate, bit_inset, edge_pad, n_valid))
+    rows = [demod_core(x[b], sos, bit_trig, dims, fs, bitrate, bit_inset,
+                       edge_pad, n_valid[b]) for b in range(x.shape[0])]
+    return dict(r400=r400, r7500=r7500,
+                **{k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+
+
+def back_half(s1: dict, n_valid, trig_i, trig_f, hdr_rel, calib_off,
+              dims: EngineDims, fs: float) -> torch.Tensor:
+    """The back half over one row of stage-1 outputs (``stage1_core``): the
+    packed int32 vector."""
+    ovf0 = s1.get("overflow")
+    if ovf0 is None:
+        ovf0 = torch.zeros_like(s1["n_edges"], dtype=torch.int32)
+    c0 = s1["s2"] / torch.clamp(s1["s1"], min=1e-30)  # see stage15_core
+    return back_half_core(s1["r400"], s1["r7500"], s1["edge_samples"],
+                          s1["n_edges"], c0, n_valid, trig_i, trig_f, hdr_rel,
+                          calib_off, dims, fs, overflow0=ovf0)
+
+
+def batched_back_half(s1: dict, n_valid, trig_i, trig_f, hdr_rel, calib_off,
+                      dims: EngineDims, fs: float) -> torch.Tensor:
+    """The back half over a batch of stage-1 outputs, row by row on the
+    device with no host sync: the (B, L) packed matrix."""
+    return torch.stack([
+        back_half({k: v[b] for k, v in s1.items()}, n_valid[b], trig_i, trig_f,
+                  hdr_rel, calib_off, dims, fs)
+        for b in range(n_valid.shape[0])])
+
+
 def fused_core(pcm, n_valid, power_trig, sos, bit_trig, trig_i, trig_f,
                hdr_rel, calib_off, dims: EngineDims, fs: float,
                bitrate: float, bit_inset: int, edge_pad: int,
                use_kernel: bool = True, decimate2: bool = False,
                decim_sos=None) -> torch.Tensor:
-    """The whole decode: conditioning, smoothed tone ratios on the uniform
-    whole-file grid (the CUDA kernel on a GPU, the plain version on a CPU
-    tensor; ``use_kernel=False`` takes the plain version on a GPU too, for
-    comparison runs only), the demod front end and the back half -> packed
-    int32 vector.
+    """The whole decode: :func:`stage1_core` followed by the back half ->
+    packed int32 vector, or the (B, L) matrix of a (B, N) batch with (B,)
+    ``n_valid`` (the batch path; one tone-ratio launch for the batch).
 
-    A (B, N) batch with (B,) ``n_valid`` (the batch path) is conditioned
-    as one tensor and its tone ratios are one kernel launch; the front end
-    and back half then run row by row, with no host sync, into a (B, L)
-    matrix.  With ``decimate2`` (one waveform only) the input is at twice
-    the decode rate (>50 kHz WAVs): conditioning and zero-phase decimation
-    run first at the raw rate.  ``dims``/``fs`` describe the
-    post-decimation stream."""
-    if pcm.dtype == torch.uint8:  # packed int4 wire
-        pcm = unpack_int4(pcm, 2 * pcm.shape[-1])
-    x = pcm
-    if not x.is_floating_point():
-        x = condition_integer(x, x.shape[-1], n_valid)
+    With ``decimate2`` (one waveform only) the input is at twice the
+    decode rate (>50 kHz WAVs): conditioning and zero-phase decimation run
+    first at the raw rate.  ``dims``/``fs`` describe the post-decimation
+    stream."""
     if decimate2:
-        x, n_valid = decimate2_on_device(x, n_valid, decim_sos)
-    ratios = tonepower.tone_ratios if use_kernel else tonepower.tone_ratios_reference
-    r400, r7500 = ratios(x.to(torch.float32).contiguous(), power_trig,
-                         dims.n_power, dims.d_pcm)
-
-    def row(x, r400, r7500, n_valid):
-        s1 = demod_core(x, sos, bit_trig, dims, fs, bitrate, bit_inset,
-                        edge_pad, n_valid)
-        return back_half_core(r400, r7500, s1["edge_samples"], s1["n_edges"],
-                              s1["c0"], n_valid, trig_i, trig_f, hdr_rel,
-                              calib_off, dims, fs, overflow0=s1["overflow"])
-
-    if x.dim() == 1:
-        return row(x, r400, r7500, n_valid)
-    return torch.stack([row(x[b], r400[b], r7500[b], n_valid[b])
-                        for b in range(x.shape[0])])
+        pcm, n_valid = decimate2_on_device(conditioned(pcm, n_valid), n_valid,
+                                           decim_sos)
+    s1 = stage1_core(pcm, n_valid, power_trig, sos, bit_trig, dims, fs,
+                     bitrate, bit_inset, edge_pad, use_kernel=use_kernel)
+    finish = back_half if pcm.dim() == 1 else batched_back_half
+    return finish(s1, n_valid, trig_i, trig_f, hdr_rel, calib_off, dims, fs)
 
 
 TABLE_NAMES = ("power_trig", "bit_trig", "sos", "trig_i", "trig_f", "hdr_rel",
@@ -580,6 +623,18 @@ class FusedDecoder(nn.Module):
         m = cls(dims, fs, bitrate, bit_inset, edge_pad, decimate2, use_kernel)
         register_tables(m, tables, decimate2, torch.device(device))
         return m
+
+    def stage1(self, pcm: torch.Tensor, n_valid: torch.Tensor) -> dict:
+        """The front half alone (``stage1_core``), for callers that run the
+        two halves apart (``parallel.pipeline``); no decimation."""
+        return stage1_core(pcm, n_valid, self.power_trig, self.sos, self.bit_trig,
+                           self.dims, self.fs, self.bitrate, self.bit_inset,
+                           self.edge_pad, use_kernel=self.use_kernel)
+
+    def back_half(self, s1: dict, n_valid: torch.Tensor) -> torch.Tensor:
+        """The back half of a batch of ``stage1`` outputs: the (B, L) matrix."""
+        return batched_back_half(s1, n_valid, self.trig_i, self.trig_f,
+                                 self.hdr_rel, self.calib_off, self.dims, self.fs)
 
     def forward(self, pcm: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
         return fused_core(

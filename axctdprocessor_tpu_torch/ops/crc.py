@@ -58,6 +58,19 @@ def parity_matrix() -> np.ndarray:
 
 _PARITY = parity_matrix()
 
+
+def check_crc_all_windows_np(bitstream: np.ndarray) -> np.ndarray:
+    """CRC validity of every 32-bit sliding window of `bitstream` (numpy,
+    the host parity engine's): a bool array of length ``len(bitstream) - 31``."""
+    bits = np.asarray(bitstream, dtype=np.uint8)
+    n = len(bits) - FRAME_BITS + 1
+    if n <= 0:
+        return np.zeros(0, dtype=bool)
+    windows = np.lib.stride_tricks.sliding_window_view(bits, FRAME_BITS)
+    rem = (windows.astype(np.int32) @ _PARITY.astype(np.int32)) & 1
+    return ~rem.any(axis=1)
+
+
 # parity row i packed into one int: bit j is _PARITY[i, j]
 _PACKED = (_PARITY.astype(np.int64) << np.arange(CRC_BITS)).sum(axis=1)
 

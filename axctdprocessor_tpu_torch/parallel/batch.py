@@ -6,9 +6,11 @@ The archive path: a (B, N) batch of drops through the fused decode
 tensor and its tone ratios are ONE launch of the tone-ratio kernel, as the
 JAX engine's vmapped Pallas kernel is one ``pallas_call`` with a batch grid
 axis; the demod front end and the back half then run row by row on the
-device.  ``dispatch_batch`` queues all of it without a host sync;
-``finish_dispatched`` makes the batch's one device-to-host copy of the
-(B, L) packed matrix, and the host finishes each row.
+device.  ``dispatch_batch`` queues all of it without a host sync, and
+behind it the batch's one device-to-host copy of the (B, L) packed matrix,
+on a side stream; ``finish_dispatched`` waits for that copy alone and the
+host finishes each row.  ``BatchPlan`` holds what the batches of one shape
+share; ``parallel.pipeline`` runs on it too.
 
 Data parallelism over several GPUs (the JAX ``mesh`` argument and
 ``pad_to_multiple``) belongs with the time-sharded and multi-host paths.
@@ -52,25 +54,6 @@ def finish_batch(out_host, cfg: DecoderConfig, fs: float, fs_report, lengths,
             for i in range(out_host.shape[0])]
 
 
-def batched_back_half(s1: dict, n_valid: torch.Tensor, tables: dict,
-                      dims: eng.EngineDims, fs: float) -> torch.Tensor:
-    """The device back half over a batch of externally computed stage-1
-    outputs (rows of ``r400``, ``r7500``, ``edge_samples``, ``n_edges``,
-    mark powers ``s1``, space powers ``s2`` and, optionally,
-    ``overflow``): the (B, L) packed matrix."""
-    ovf0 = s1.get("overflow")
-    if ovf0 is None:
-        ovf0 = torch.zeros_like(s1["n_edges"], dtype=torch.int32)
-    rows = []
-    for b in range(n_valid.shape[0]):
-        c0 = s1["s2"][b] / torch.clamp(s1["s1"][b], min=1e-30)
-        rows.append(eng.back_half_core(
-            s1["r400"][b], s1["r7500"][b], s1["edge_samples"][b], s1["n_edges"][b],
-            c0, n_valid[b], tables["trig_i"], tables["trig_f"], tables["hdr_rel"],
-            tables["calib_off"], dims, fs, overflow0=ovf0[b]))
-    return torch.stack(rows)
-
-
 def run_back_half_batched(s1: dict, cfg: DecoderConfig, fs: float,
                           dims: eng.EngineDims, lengths, fs_report, *,
                           device) -> list[DecodeResult]:
@@ -78,58 +61,109 @@ def run_back_half_batched(s1: dict, cfg: DecoderConfig, fs: float,
     (tensors on `device`): one device-to-host copy for the batch."""
     dev = eng.resolve_device(device)
     t = eng.engine_tables(cfg, fs, dims)
-    tables = {k: eng.to_device(t[k], dev) for k in ("trig_i", "trig_f", "hdr_rel", "calib_off")}
+    tables = [eng.to_device(t[k], dev) for k in ("trig_i", "trig_f", "hdr_rel", "calib_off")]
     n_valid = eng.to_device(np.asarray(lengths, np.int64), dev)
     with torch.inference_mode():
-        out = batched_back_half(s1, n_valid, tables, dims, float(fs))
+        out = eng.batched_back_half(s1, n_valid, *tables, dims, float(fs))
         host = out.cpu().numpy()
     return finish_batch(host, cfg, fs, fs_report, lengths)
 
 
+class BatchPlan:
+    """What every batch of one (dtype, N, fs, config, wire) shares: the wire
+    format, the decoder module with its tables on the device, and the side
+    stream that fetches packed results (a GPU only)."""
+
+    def __init__(self, dtype, n: int, fs, config: DecoderConfig | None, wire: str,
+                 device):
+        self.dev = eng.resolve_device(device)
+        self.cfg = config or DecoderConfig()
+        self.fs_report = float(fs) if isinstance(fs, float) else int(fs)
+        self.fs = float(fs)
+        if dtype == np.uint8:
+            raise ValueError("pass unpacked integer rows with wire='int4'; "
+                             "pre-packed nibble streams lose the sample count")
+        self.integer = np.issubdtype(dtype, np.integer)
+        self.wire_used = eng.resolve_wire(wire) if self.integer else "float32"
+        if self.wire_used == "int4":
+            n += n % 2  # packed int4 rows carry an even sample count
+        cfg = self.cfg
+        dims = eng.EngineDims.for_waveform(n, self.fs, cfg.bitrate,
+                                           eng.probe_window(cfg, self.fs))
+        self.model = eng.FusedDecoder.from_numpy_tables(
+            eng.engine_tables(cfg, self.fs, dims), dims, self.fs,
+            bitrate=float(cfg.bitrate), bit_inset=cfg.bit_inset, edge_pad=100,
+            device=self.dev)
+        self.on_card = self.dev.type == "cuda"
+        self.fetch_stream = torch.cuda.Stream(self.dev) if self.on_card else None
+
+    def encode(self, pcms: np.ndarray) -> np.ndarray:
+        """The rows as they go to the device: the wire format of integer
+        rows, float32 otherwise."""
+        if self.integer:
+            return wire_ops.encode_rows(pcms, self.wire_used)
+        return pcms.astype(np.float32)
+
+    def start_fetch(self, out: torch.Tensor):
+        """Queue the copy of a packed matrix to pinned host memory behind
+        the work queued so far, on the fetch stream, so that waiting for it
+        does not wait for work queued later.  Returns (host tensor, the
+        copy's event); on the CPU the matrix itself and None."""
+        if not self.on_card:
+            return out, None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.dev))
+        self.fetch_stream.wait_event(done)
+        with torch.cuda.stream(self.fetch_stream):
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self.fetch_stream)
+        out.record_stream(self.fetch_stream)
+        return host, copied
+
+    def finish(self, host: torch.Tensor, copied, lengths) -> list[DecodeResult]:
+        """Wait for one batch's fetch (its one host wait) and host-finish
+        its rows."""
+        if copied is not None:
+            copied.synchronize()
+        return finish_batch(host.numpy(), self.cfg, self.fs, self.fs_report,
+                            lengths, wire_used=self.wire_used)
+
+
+def row_lengths(pcms: np.ndarray, lengths) -> np.ndarray:
+    """True samples per row; the full width where none are given."""
+    if lengths is None:
+        return np.full(pcms.shape[0], pcms.shape[1], np.int32)
+    return np.asarray(lengths, np.int32)
+
+
 def dispatch_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cuda",
                    lengths=None, wire: str = "auto"):
-    """Queue a (B, N) batch decode on `device`; returns (out, ctx) for
-    :func:`finish_dispatched`.
+    """Queue a (B, N) batch decode on `device`, and the fetch of its packed
+    result behind it; returns (out, ctx) for :func:`finish_dispatched`.
 
     The upload is pinned and non-blocking and nothing reads the device, so
     the call returns while the device works and the caller can overlap the
     next batch's host work.  Integer rows ship as the `wire` format and
     are conditioned on the device (``"auto"`` is int16); ``lengths`` are
     the true samples per row of a zero-padded ragged batch."""
-    dev = eng.resolve_device(device)
-    cfg = config or DecoderConfig()
-    fs_report = float(fs) if isinstance(fs, float) else int(fs)
-    fs = float(fs)
     pcms = np.asarray(pcms)
-    if pcms.dtype == np.uint8:
-        raise ValueError("pass unpacked integer rows with wire='int4'; "
-                         "pre-packed nibble streams lose the sample count")
-    b, n = pcms.shape
-    lengths = np.full(b, n, np.int32) if lengths is None else np.asarray(lengths, np.int32)
-    if np.issubdtype(pcms.dtype, np.integer):
-        wire_used = eng.resolve_wire(wire)
-        pcms = wire_ops.encode_rows(pcms, wire_used)
-        if pcms.dtype == np.uint8:
-            n += n % 2  # packed int4 rows carry an even sample count
-    else:
-        wire_used = "float32"
-        pcms = pcms.astype(np.float32)
-    dims = eng.EngineDims.for_waveform(n, fs, cfg.bitrate, eng.probe_window(cfg, fs))
-    model = eng.FusedDecoder.from_numpy_tables(
-        eng.engine_tables(cfg, fs, dims), dims, fs, bitrate=float(cfg.bitrate),
-        bit_inset=cfg.bit_inset, edge_pad=100, device=dev)
+    plan = BatchPlan(pcms.dtype, pcms.shape[1], fs, config, wire, device)
+    lengths = row_lengths(pcms, lengths)
     with torch.inference_mode():
-        out = model(eng.to_device(pcms, dev),
-                    eng.to_device(lengths.astype(np.int64), dev))
-    return out, (cfg, fs, fs_report, lengths, wire_used)
+        out = plan.model(eng.to_device(plan.encode(pcms), plan.dev),
+                         eng.to_device(lengths.astype(np.int64), plan.dev))
+        fetch = plan.start_fetch(out)
+    return out, (plan, fetch, lengths)
 
 
 def finish_dispatched(out: torch.Tensor, ctx) -> list[DecodeResult]:
-    """Fetch (the batch's one device-to-host copy) and host-finish a
-    ``dispatch_batch`` result."""
-    cfg, fs, fs_report, lengths, wire_used = ctx
-    return finish_batch(out.cpu().numpy(), cfg, fs, fs_report, lengths,
-                        wire_used=wire_used)
+    """Wait for the fetch of a ``dispatch_batch`` result (the batch's one
+    device-to-host copy, which does not wait for batches queued after it)
+    and host-finish its rows."""
+    plan, fetch, lengths = ctx
+    return plan.finish(*fetch, lengths)
 
 
 def decode_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cuda",
@@ -147,26 +181,37 @@ def decode_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cuda"
     return results
 
 
+def redo_at_int8(rows, lengths, width: int, fs, config: DecoderConfig | None, *,
+                 device) -> list[DecodeResult]:
+    """Decode `rows` (equal-width waveforms with their true lengths) again
+    at int8, in batches of `width` rows, the last padded by repeating its
+    first row (the shape of a first-class int8 decode of such a batch)."""
+    redone = []
+    for g in range(0, len(rows), width):
+        idx = list(range(g, min(g + width, len(rows))))
+        pad = idx + [g] * (width - len(idx))
+        redo = decode_batch(np.stack([rows[i] for i in pad]), fs, config=config,
+                            device=device, lengths=[int(lengths[i]) for i in pad],
+                            wire="int8", lossy_retry=False)
+        redone += redo[: len(idx)]
+    return redone
+
+
 def retry_lossy_rows(results: list[DecodeResult], pcms, fs,
                      config: DecoderConfig | None = None, *, device,
                      lengths=None) -> list[DecodeResult]:
-    """Decode the degenerate int4-wire rows of ``results`` again at int8.
-
-    All flagged rows go in one batch, padded to the original batch size by
-    repeating the first flagged row (the shape of a first-class int8 decode
-    of this batch)."""
+    """Decode the degenerate int4-wire rows of ``results`` again at int8,
+    all in one batch of the original batch size."""
     cfg = config or DecoderConfig()
     pcms = np.asarray(pcms)
-    b, n = pcms.shape
-    lengths = np.full(b, n, np.int32) if lengths is None else np.asarray(lengths)
+    lengths = row_lengths(pcms, lengths)
     flagged = [i for i, r in enumerate(results)
                if eng.lossy_retry_worthy(r, int(lengths[i]), float(fs), cfg)]
     if not flagged:
         return results
-    idx = flagged + [flagged[0]] * (b - len(flagged))
-    redo = decode_batch(pcms[idx], fs, config=cfg, device=device,
-                        lengths=lengths[idx], wire="int8", lossy_retry=False)
+    redo = redo_at_int8([pcms[i] for i in flagged], lengths[flagged], len(pcms), fs,
+                        cfg, device=device)
     out = list(results)
-    for k, i in enumerate(flagged):
-        out[i] = redo[k]
+    for i, r in zip(flagged, redo):
+        out[i] = r
     return out

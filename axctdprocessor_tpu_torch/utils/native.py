@@ -3,9 +3,10 @@
 A copy of axctdprocessor_tpu.utils.native that builds the port's own copy of
 the C++ source (``axctdprocessor_tpu_torch/native/wavio.cpp``) into
 ``axctdprocessor_tpu_torch/_build/`` (git-ignored), never into the JAX
-package: the port imports nothing of the JAX package.  Only the wire
-encoders' wrappers are copied (``ops.wire`` calls them); the port reads WAVs
-with ``utils.wavio``.
+package: the port imports nothing of the JAX package.  Copied are the wire
+encoders' wrappers (``ops.wire`` calls them) and the archive runner's WAV
+header parser and conditioned reader (``wav_info``,
+``read_wav_conditioned_f32``).
 
 The shared library is compiled on demand with g++ at first use (no build
 step to forget), into a temporary name that is then renamed, so that two
@@ -126,6 +127,43 @@ def get_library():
         lib.axctd_quantize_int4_ns_chunk.restype = None
         _lib = lib
         return _lib
+
+
+def wav_info(path: str):
+    """(fs, n_frames, n_channels, bits) via the native parser, or None."""
+    lib = get_library()
+    if lib is None:
+        return None
+    fs = ctypes.c_int32()
+    n = ctypes.c_int64()
+    nch = ctypes.c_int32()
+    bits = ctypes.c_int32()
+    rc = lib.axctd_wav_info(path.encode(), ctypes.byref(fs), ctypes.byref(n),
+                            ctypes.byref(nch), ctypes.byref(bits))
+    if rc != 0:
+        return None
+    return int(fs.value), int(n.value), int(nch.value), int(bits.value)
+
+
+def read_wav_conditioned_f32(path: str):
+    """Fast path: (conditioned float32 pcm, fs) via the native reader.
+
+    Returns None if the native library or the WAV encoding is unsupported
+    (caller falls back to utils.wavio.read_wav).  Note: does not apply
+    the >50 kHz decimation — callers needing it use the fallback.
+    """
+    info = wav_info(path)
+    if info is None:
+        return None
+    fs, n_frames, _, _ = info
+    if fs > 50000:
+        return None  # decimation path stays on scipy for exactness
+    lib = get_library()
+    out = np.empty(n_frames, dtype=np.float32)
+    rc = lib.axctd_wav_read_conditioned(path.encode(), out, n_frames)
+    if rc != 0:
+        return None
+    return out, fs
 
 
 def quantize_int8_native(x: np.ndarray):

@@ -33,8 +33,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
    version, and (on the 50 s default drop) to the CPU decode; the kernel's
    launch count is read around the first decode only;
 4. a 42 s drop at 88.2 kHz (on-card decimation), metadata against truth;
-5. the port's CLI in a subprocess on the 600 s WAV (``"auto"``: the
-   segmented engine);
+5. the port's CLI in a subprocess on the 600 s WAV with its defaults (the
+   device engine on the card; ``"auto"``: the segmented engine), and the
+   same command with no card visible, which must fail;
 6. the segmented engine: the 600 s WAV through ``decode_wav`` (``"auto"``
    routes it there), the same gates, agreement with the monolithic decode,
    warm walls and host syncs;
@@ -45,10 +46,23 @@ Phases, one line each or more (any failure raises and exits non-zero):
 9. the batch path: the archive batch through ``decode_batch`` as one batch
    of 64 and as 8 of 8; every row's status and serial, one kernel launch
    per call, walls, peak device memory and host syncs;
+9a. the pipeline: the 64 rows as 8 batches of 8 through
+   ``decode_batches_pipelined``; every row equal to phase 9's 8 x 8 row
+   (hexframes, metadata, ``time``), one kernel launch per batch, the warm
+   wall in turns with ``decode_batch`` batch by batch;
+9b. the archive runner: the 64 rows as int16 WAVs plus one truncated file
+   through ``reprocess_corpus(batch_size=8)``: 64 ``done``, 1 ``failed``,
+   every report's bytes equal to ``write_report`` of phase 9a's row, one
+   kernel launch per batch; ``resume=True`` decodes nothing; wall, drops
+   per second and stage times; then the CLI's ``--corpus`` in a subprocess;
+9c. the host parity engine: the CLI with ``--engine parity`` on the 50 s
+   default drop in a subprocess, and hexframe agreement >= 0.99 of the
+   card's monolithic decode with the parity decode, on that drop and on the
+   600 s drop (the bench's gate, ``bench.py:207-215``);
 10. ``torch.profiler`` last, after every wall (a process that has run the
    profiler launches more slowly from then on): one segmented decode and
-   one batch of 64 (launches, device idle share, the upload), then the
-   kernel's device time at each phase-2 shape.
+   one batch of 64 (launches, device idle share, the upload), one pipelined
+   run of 8 x 8, then the kernel's device time at each phase-2 shape.
 
 Each path is driven with the kernel's launch count set to 0 just before
 and read just after.  At the end neither jax nor any module of the JAX
@@ -380,11 +394,12 @@ def phase2_kernel(drops: dict) -> dict:
 def phase10_profiles(drops: dict, seg: dict, k: dict) -> None:
     """``torch.profiler`` runs, after every wall: a process that has run the
     profiler launches kernels more slowly from then on, which would load the
-    walls of phases 3-9.  One segmented decode and one batch of 64, then the
-    kernel's device time at each phase-2 shape."""
+    walls of phases 3-9.  One segmented decode, one batch of 64 and one
+    pipelined run of 8 x 8, then the kernel's device time at each phase-2
+    shape."""
     from axctdprocessor_tpu_torch.models import segmented
     from axctdprocessor_tpu_torch.ops import tonepower
-    from axctdprocessor_tpu_torch.parallel import batch
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
 
     raw, fs = seg["raw"], seg["fs"]
     log("[10] 600 s segmented decode: "
@@ -392,6 +407,10 @@ def phase10_profiles(drops: dict, seg: dict, k: dict) -> None:
     log("[10] batch 1 x 64 x 60 s: "
         + profile_run(lambda: batch.decode_batch(drops["batch"], drops["batch_fs"],
                                                  device="cuda")))
+    batches = [(sub, None) for sub in np.split(drops["batch"], 8)]
+    log("[10] pipeline 8 x 8 x 60 s: "
+        + profile_run(lambda: pipeline.decode_batches_pipelined(batches, drops["batch_fs"],
+                                                                device="cuda")))
     for rec, (_, xd, fs) in zip(k["shapes"], _kernel_cases(drops)):
         window, stride, tm = _table(fs)
         rec["device_ms"] = _device_ms(lambda: tonepower.tone_ratios(xd, tm, window, stride),
@@ -510,13 +529,19 @@ def phase5_cli(tmp: str, wav: str) -> None:
     engine."""
     out = os.path.join(tmp, "report.txt")
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-m", "axctdprocessor_tpu_torch.cli", "-i", wav,
-                    "-o", out, "--device", "cuda", "--quiet"],
-                   cwd=ROOT, check=True, timeout=600)
+    cmd = [sys.executable, "-m", "axctdprocessor_tpu_torch.cli", "-i", wav, "-o", out, "--quiet"]
+    subprocess.run(cmd, cwd=ROOT, check=True, timeout=600)
+    cli_s = time.perf_counter() - t0
     text = open(out).read()
     assert "Probe Serial: 00123456" in text
-    log(f"[5] CLI subprocess (segmented engine under \"auto\"): report of {text.count(chr(10))} lines, serial found, "
-        f"{time.perf_counter() - t0:.1f} s")
+    # the defaults are the card's: with no card visible the same command fails
+    blind = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+                           capture_output=True, text=True, timeout=600)
+    assert blind.returncode != 0 and "cuda" in blind.stderr, blind.stderr[-500:]
+    log(f"[5] CLI subprocess with its defaults (the device engine on the card; segmented "
+        f"engine under \"auto\"): report of {text.count(chr(10))} lines, serial found, "
+        f"{cli_s:.1f} s; with CUDA_VISIBLE_DEVICES empty the same command exits "
+        f"{blind.returncode}")
 
 
 def phase6_segmented(drops: dict, mono: dict) -> dict:
@@ -624,17 +649,19 @@ def phase9_batch(drops: dict) -> dict:
             assert r.status == 2, r.status
             assert r.metadata["serial_no"] == truth["serial_no"]
 
-    out = {}
+    out, kept = {}, {}
     for name, subs in (("1 x 64", [rows]), ("8 x 8", np.split(rows, 8))):
         batch.decode_batch(subs[0], fs, device="cuda")  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        kept[name] = []
         t0 = time.perf_counter()
         for sub in subs:
             tonepower.tone_ratios.launches = 0
-            check(batch.decode_batch(sub, fs, device="cuda"), len(sub))
+            kept[name] += batch.decode_batch(sub, fs, device="cuda")
             assert tonepower.tone_ratios.launches == 1, tonepower.tone_ratios.launches
         wall = time.perf_counter() - t0
+        check(kept[name], len(rows))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out[name] = wall
         log(f"[9] batch {name} x 60 s int16: every row status 2 and serial = truth, one "
@@ -644,9 +671,178 @@ def phase9_batch(drops: dict) -> dict:
         res_out, ctx = batch.dispatch_batch(rows, fs, device="cuda")
     n_dispatch = syncs["n"]
     check(batch.finish_dispatched(res_out, ctx), 64)
-    log(f"[9] host syncs in dispatch_batch of 64: {n_dispatch} (the fetch in "
-        f"finish_dispatched is the batch's one device-to-host copy)")
-    return dict(launches=1)
+    log(f"[9] host syncs in dispatch_batch of 64: {n_dispatch} (it queues the batch's one "
+        f"device-to-host copy on a side stream; finish_dispatched waits on that copy's event)")
+    return dict(launches=1, rows_8x8=kept["8 x 8"], wall_8x8=out["8 x 8"])
+
+
+def phase9a_pipeline(drops: dict, bat: dict) -> dict:
+    """The 64 rows as 8 batches of 8 through the two-stage pipeline; every
+    row against the same row of phase 9's ``decode_batch`` 8 x 8 (the same
+    card, kernel and arithmetic: equal)."""
+    from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
+
+    rows, fs, truth = drops["batch"], drops["batch_fs"], drops["batch_truth"]
+    n_b = len(rows) // 8
+    batches = [(sub, None) for sub in np.split(rows, n_b)]
+
+    def run():
+        return pipeline.decode_batches_pipelined(batches, fs, device="cuda")
+
+    tonepower.tone_ratios.launches = 0
+    t0 = time.perf_counter()
+    out = run()
+    first_s = time.perf_counter() - t0
+    launches = tonepower.tone_ratios.launches
+    assert launches == n_b, f"{launches} tone_ratios launches for {n_b} pipelined batches"
+    flat = [r for b in out for r in b]
+    assert [len(b) for b in out] == [8] * n_b
+    for i, (r, ref) in enumerate(zip(flat, bat["rows_8x8"])):
+        assert r.status == 2 and r.overflow == 0, (i, r.status, r.overflow)
+        assert r.metadata["serial_no"] == truth["serial_no"], i
+        assert r.hexframes == ref.hexframes and r.metadata == ref.metadata, i
+        assert r.time == ref.time, i
+
+    def plain():
+        for sub, _ in batches:
+            batch.decode_batch(sub, fs, device="cuda")
+
+    walls, plain_walls = [], []
+    for _ in range(3):  # in turns: decode_batch batch by batch, then the pipeline
+        plain_walls += _walls(plain, 1)
+        walls += _walls(run, 1)
+    wall, plain_wall = statistics.median(walls), statistics.median(plain_walls)
+    with count_syncs() as syncs:
+        run()
+    log(f"[9a] pipeline {n_b} x 8 x 60 s int16 (decode_batches_pipelined): {len(flat)} rows "
+        f"status 2, serial = truth, overflow 0, hexframes, metadata and time equal to decode_batch "
+        f"8 x 8 row for row; tone_ratios launches {launches} (one per batch)")
+    log(f"[9a] first run {first_s:.3f} s, warm wall (median of 3) {wall:.3f} s "
+        f"{[round(w, 3) for w in walls]} ({len(flat) * 60.0 / wall:.1f}x realtime) beside "
+        f"decode_batch batch by batch in turns with it {plain_wall:.3f} s "
+        f"{[round(w, 3) for w in plain_walls]} ({bat['wall_8x8']:.3f} s in phase 9); host "
+        f"syncs seen by torch's sync debug mode in one run of {n_b} batches: {syncs['n']} "
+        f"(the fetch waits on one CUDA event per batch, which that mode does not count)")
+    return dict(launches=launches, rows=flat, wall=wall)
+
+
+ECHO_DEAD = b"Dead frequency: 3000.0\n", b"Dead frequency: 3000\n"  # the CLI's -d is a float
+
+
+def phase9b_archive(tmp: str, drops: dict, piped: dict) -> dict:
+    """The 64 rows as WAVs plus one truncated file through the archive
+    runner, against phase 9a's results; then resume, then the CLI."""
+    from scipy.io import wavfile
+
+    from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.parallel.archive import reprocess_corpus
+    from axctdprocessor_tpu_torch.utils.config import resolve_settings
+    from axctdprocessor_tpu_torch.utils.profiling import StageTimer
+    from axctdprocessor_tpu_torch.utils.report import write_report
+
+    rows, fs = drops["batch"], int(drops["batch_fs"])
+    corpus = os.path.join(tmp, "corpus")
+    os.makedirs(corpus)
+    paths = []
+    for i, row in enumerate(rows):
+        paths.append(os.path.join(corpus, f"row{i:02d}.wav"))
+        wavfile.write(paths[-1], fs, row)
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    cut = os.path.join(corpus, "truncated.wav")
+    with open(paths[0], "rb") as f, open(cut, "wb") as g:
+        g.write(f.read(30))  # ends inside the format chunk
+    out_dir = os.path.join(tmp, "archive_out")
+    timer = StageTimer()
+    tonepower.tone_ratios.launches = 0
+    with count_syncs() as syncs:
+        t0 = time.perf_counter()
+        manifest = reprocess_corpus(paths + [cut], out_dir, batch_size=8, device="cuda",
+                                    timer=timer)
+        wall = time.perf_counter() - t0
+    launches = tonepower.tone_ratios.launches
+    n = len(rows)
+    assert launches == n // 8, f"{launches} tone_ratios launches for {n // 8} archive batches"
+    status = {k: v["status"] for k, v in manifest["files"].items()}
+    assert status.pop("truncated.wav") == "failed", manifest["files"]["truncated.wav"]
+    assert len(status) == n and set(status.values()) == {"done"}, status
+    cfg = resolve_settings(None)
+    echo = {"minR400": cfg.min_r400, "mindR7500": cfg.min_dr7500, "deadfreq": cfg.dead_freq,
+            "pointsperloop": 100000, "triggerrange": list(cfg.trigger_range)}
+    want = os.path.join(tmp, "want.txt")
+    for path, res in zip(paths, piped["rows"]):
+        write_report(want, res, path, [0, -1], echo, cfg)
+        got = os.path.join(out_dir, os.path.basename(path)[:-4] + ".txt")
+        assert open(got, "rb").read() == open(want, "rb").read(), path
+        assert manifest["files"][os.path.basename(path)]["wire"] == "int16"
+
+    again = StageTimer()
+    tonepower.tone_ratios.launches = 0
+    m2 = reprocess_corpus(paths, out_dir, batch_size=8, device="cuda", timer=again)
+    assert tonepower.tone_ratios.launches == 0 and not again.counts, again.counts
+    assert all(m2["files"][k]["finished_at"] == manifest["files"][k]["finished_at"]
+               for k in status)
+
+    cli_out = os.path.join(tmp, "archive_cli_out")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "axctdprocessor_tpu_torch.cli", "--corpus", corpus,
+                    "-o", cli_out, "--batch-size", "8", "--device", "cuda", "--quiet"],
+                   cwd=ROOT, check=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    cli_manifest = json.load(open(os.path.join(cli_out, "manifest.json")))
+    assert sorted(v["status"] for v in cli_manifest["files"].values()) == \
+        ["done"] * n + ["failed"]
+    for path in paths:
+        name = os.path.basename(path)[:-4] + ".txt"
+        assert open(os.path.join(cli_out, name), "rb").read().replace(*ECHO_DEAD) == \
+            open(os.path.join(out_dir, name), "rb").read(), name
+    stages = {k: round(v, 4) for k, v in timer.totals.items()}
+    log(f"[9b] archive: {n} int16 WAVs of 60 s ({nbytes / 1e6:.0f} MB) + 1 truncated file, "
+        f"reprocess_corpus(batch_size=8, device=\"cuda\"): {n} done, 1 failed, every report "
+        f"byte-equal to write_report of the pipeline's row; tone_ratios launches {launches} "
+        f"(one per batch); resume=True decoded nothing")
+    log(f"[9b] wall {wall:.3f} s, {n / wall:.2f} drops/s ({n * 60.0 / wall:.1f}x realtime); "
+        f"stage times (s) {stages}; host syncs seen by torch's sync debug mode in the whole "
+        f"run: {syncs['n']} ({n // 8} batches; each fetch waits on one CUDA event, which that "
+        f"mode does not count)")
+    log(f"[9b] CLI subprocess (--corpus, --batch-size 8, --device cuda): {n} done, 1 failed, "
+        f"reports equal to the API run's, {cli_s:.1f} s with interpreter start and kernel load")
+    return dict(launches=launches, wall=wall)
+
+
+def phase9c_parity(tmp: str, drops: dict, mono: dict) -> None:
+    """The host parity engine through the CLI, and the bench's correctness
+    gate: the card's decode against the parity decode."""
+    from axctdprocessor_tpu_torch.models import engine, parity_engine, simulator
+
+    pcm, truth = simulator.synthesize()
+    wav = os.path.join(tmp, "default_50s.wav")
+    simulator.write_wav(wav, pcm, truth["spec"].fs)
+    out = os.path.join(tmp, "parity_report.txt")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "axctdprocessor_tpu_torch.cli", "-i", wav, "-o", out,
+                    "--engine", "parity", "--quiet"], cwd=ROOT, check=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    text = open(out).read()
+    assert "Probe Serial: 00123456" in text and text.count("\n") > 200
+    par = parity_engine.decode_wav(wav)
+    assert par.status == 2 and par.wire is None
+    gpu = engine.decode_wav(wav, device="cuda", mode="monolithic")
+    agree = _agreement(gpu.hexframes, par.hexframes)
+    assert agree >= 0.99 and gpu.metadata == par.metadata, agree
+    log(f"[9c] CLI subprocess (--engine parity, 50 s default drop, host only): report of "
+        f"{text.count(chr(10))} lines, serial found, {cli_s:.1f} s; hexframe agreement of the "
+        f"card's monolithic decode with the parity decode {agree:.4f} "
+        f"({len(gpu.hexframes)}/{len(par.hexframes)} frames), metadata equal")
+    t0 = time.perf_counter()
+    par600 = parity_engine.decode_wav(drops["wav"])
+    par_s = time.perf_counter() - t0
+    assert par600.status == 2 and len(par600.hexframes) > 1000
+    agree600 = _agreement(mono["hexframes"], par600.hexframes)
+    assert agree600 >= 0.99, agree600
+    log(f"[9c] 600 s bench drop: parity decode on the host {par_s:.1f} s, "
+        f"{len(par600.hexframes)} frames; hexframe agreement of phase 3's monolithic decode "
+        f"with it {agree600:.4f} (gate 0.99)")
 
 
 def main() -> int:
@@ -662,6 +858,9 @@ def main() -> int:
         phase7_prestaged(drops, seg)
         phase8_stream(drops)
         bat = phase9_batch(drops)
+        piped = phase9a_pipeline(drops, bat)
+        arch = phase9b_archive(tmp, drops, piped)
+        phase9c_parity(tmp, drops, mono)
         phase10_profiles(drops, seg, k)
     assert "jax" not in sys.modules, "the port loaded jax"
     loaded = [m for m in sys.modules
@@ -672,6 +871,8 @@ def main() -> int:
         "name": "tone_ratios", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": mono["launches"],
         "launches_per_decode_batch": bat["launches"],
+        "launches_pipeline_8_batches": piped["launches"],
+        "launches_archive_8_batches": arch["launches"],
         "max_abs_err": k["max_abs_err"], "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_us"] / 1e3,
         "bound_by": main_shape["bound_by"], "library_ms": None,

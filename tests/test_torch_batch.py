@@ -4,7 +4,8 @@ A small ragged int16 batch (three drops of 42-50 s, zero-padded, with
 ``lengths``) through JAX ``decode_batch`` (one vmapped program) and the
 port's: the packed (B, L) matrices row for row and every row's
 ``DecodeResult``.  Also ``pad_batch``, the batched back half given JAX's
-stage-1 outputs, and ``retry_lossy_rows``.
+stage-1 outputs, ``retry_lossy_rows``, and the pipelined decode of the same
+batch against the same JAX results.
 """
 
 import numpy as np
@@ -84,6 +85,27 @@ def test_batch_results_equal_jax(packed, ragged):
         assert r.wire == j.wire == "int16"
 
 
+def test_pipelined_rows_equal_jax_decode_batch(packed, ragged):
+    """``decode_batches_pipelined`` against the JAX package directly: the
+    ragged batch given twice, every row equal to JAX ``decode_batch``'s
+    (the program the ``packed`` fixture has compiled)."""
+    from axctdprocessor_tpu_torch.parallel import pipeline
+
+    pcms, lengths = ragged
+    _, _, _, jres = packed
+    out = pipeline.decode_batches_pipelined([(pcms, lengths)] * 2, FS, device="cpu")
+    assert [len(b) for b in out] == [3, 3]
+    for rows in out:
+        for b, (r, j) in enumerate(zip(rows, jres)):
+            assert r.status == j.status == 2, b
+            assert r.numpoints == j.numpoints == lengths[b]
+            assert r.metadata == j.metadata
+            assert (r.firstpulse400, r.profstartind) == (j.firstpulse400, j.profstartind)
+            assert r.hexframes == j.hexframes and len(r.hexframes) > 100
+            assert r.time == j.time and r.temperature == j.temperature
+            assert r.wire == j.wire == "int16"
+
+
 def test_batched_back_half_equals_jax(ragged):
     """Both back halves, given JAX's vmapped stage-1 outputs."""
     pcms, lengths = ragged
@@ -107,10 +129,11 @@ def test_batched_back_half_equals_jax(ragged):
         fi["calib_off"], fi["coeff_defaults"], fi["temp_lut"], fi["limits"]))
     t1 = {k: torch.from_numpy(np.array(v)) for k, v in s1.items()}
     t1["edge_samples"], t1["n_edges"] = t1["edge_samples"].long(), t1["n_edges"].long()
-    tables = {k: torch.from_numpy(v) for k, v in engine.engine_tables(cfg, float(FS), dims).items()}
+    t = engine.engine_tables(cfg, float(FS), dims)
+    tables = [torch.from_numpy(t[k]) for k in ("trig_i", "trig_f", "hdr_rel", "calib_off")]
     with torch.inference_mode():
-        got = batch.batched_back_half(t1, torch.from_numpy(lengths.astype(np.int64)),
-                                      tables, dims, float(FS)).numpy()
+        got = engine.batched_back_half(t1, torch.from_numpy(lengths.astype(np.int64)),
+                                       *tables, dims, float(FS)).numpy()
     np.testing.assert_array_equal(got, want)
     res = batch.run_back_half_batched(t1, cfg, float(FS), dims, lengths, FS, device="cpu")
     assert [r.status for r in res] == [2, 2, 2]

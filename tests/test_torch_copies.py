@@ -3,8 +3,9 @@ outputs as their sources.
 
 The port imports nothing of the JAX package, so it carries copies of
 ``utils.config``, ``utils.lut`` (with its data file), ``utils.timeparse``,
-``utils.wavio``, ``utils.native`` (with its C++ source), ``models.metadata``
-and ``ops.wire``'s encoders.  Each case feeds both the same input and asks
+``utils.wavio``, ``utils.native`` (with its C++ source), ``models.metadata``,
+``ops.wire``'s encoders and the host parity engine's ``models.demod`` and
+``models.frames``.  Each case feeds both the same input and asks
 for equal results: arrays bitwise, dataclasses field by field, wire bytes
 with the C library and with ``AXCTD_NO_NATIVE=1`` (the numpy encoders).
 """
@@ -16,14 +17,18 @@ import numpy as np
 import pytest
 from scipy.io import wavfile
 
+from axctdprocessor_tpu.models import demod as jdemod
+from axctdprocessor_tpu.models import frames as jframes
 from axctdprocessor_tpu.models import metadata as jmd
+from axctdprocessor_tpu.ops import crc as jcrc
 from axctdprocessor_tpu.ops import wire as jwire
 from axctdprocessor_tpu.utils import config as jconfig
 from axctdprocessor_tpu.utils import lut as jlut
 from axctdprocessor_tpu.utils import timeparse as jtimeparse
+from axctdprocessor_tpu.utils import native as jnative
 from axctdprocessor_tpu.utils import wavio as jwavio
-from axctdprocessor_tpu_torch.models import metadata
-from axctdprocessor_tpu_torch.ops import wire
+from axctdprocessor_tpu_torch.models import demod, frames, metadata, simulator
+from axctdprocessor_tpu_torch.ops import crc, wire
 from axctdprocessor_tpu_torch.utils import config, lut, native, timeparse, wavio
 
 
@@ -178,3 +183,100 @@ def test_read_wav_raw16_equals_source(wavs, name, allow_highrate):
     if ref is not None:
         assert ours[1] == ref[1]
         np.testing.assert_array_equal(ours[0], ref[0])
+
+
+def test_wav_info_equals_source(wavs, encoder):
+    """``wav_info`` with the C library (the source's answer) and without
+    (None from both: the archive runner then asks scipy)."""
+    for name, path in wavs.items():
+        ours, ref = native.wav_info(path), jnative.wav_info(path)
+        assert ours == ref, name
+        assert (ours is None) == (encoder == "numpy")
+    assert native.wav_info(wavs["int16_44k"] + ".missing") is None
+
+
+@pytest.mark.parametrize("name", ["int16_44k", "int16_88k", "float32_44k"])
+def test_read_wav_conditioned_f32_equals_source(wavs, encoder, name):
+    ours = native.read_wav_conditioned_f32(wavs[name])
+    ref = jnative.read_wav_conditioned_f32(wavs[name])
+    assert (ours is None) == (ref is None)
+    if encoder == "numpy" or name == "int16_88k":  # no library; or the decimation path
+        assert ours is None
+    if ours is not None:
+        assert ours[1] == ref[1] and ours[0].dtype == np.float32
+        np.testing.assert_array_equal(ours[0], ref[0])
+
+
+@pytest.fixture(scope="module")
+def chunk():
+    """Two seconds of a simulated drop's header transmission, conditioned."""
+    pcm, _ = simulator.synthesize(simulator.SimSpec(duration=20.0, seed=4))
+    x = (pcm - np.mean(pcm)) / np.max(np.abs(pcm))
+    return x[int(11.0 * 44100): int(13.0 * 44100)]
+
+
+@pytest.mark.parametrize("use_bandpass", [False, True])
+def test_demodulate_chunk_equals_source(chunk, use_bandpass):
+    fs, npcm = 44100, 51
+    np.testing.assert_array_equal(demod.design_filter(fs, use_bandpass),
+                                  jdemod.design_filter(fs, use_bandpass))
+    trig, jtrig = (m.make_bit_trig(fs, 400.0, 800.0, npcm) for m in (demod, jdemod))
+    for a, b in zip(trig, jtrig):
+        np.testing.assert_array_equal(a, b)
+    sos = demod.design_filter(fs, use_bandpass)
+    ours = demod.demodulate_chunk(chunk, fs, 100, sos, 800.0, trig, npcm, 2, 1.5)
+    ref = jdemod.demodulate_chunk(chunk, fs, 100, sos, 800.0, jtrig, npcm, 2, 1.5)
+    assert ours.bits == ref.bits and len(ours.bits) > 1000
+    assert ours.conf == ref.conf  # float64, same accumulation order
+    assert list(ours.bit_edges) == list(ref.bit_edges)
+    assert ours.next_start == ref.next_start
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_calibrate_scale_factor_equals_source(seed):
+    rng = np.random.default_rng(seed)
+    confs = np.concatenate([rng.normal(0.4, 0.1, 400), rng.normal(1.9, 0.3, 400)])
+    rng.shuffle(confs)
+    assert demod.calibrate_scale_factor(list(confs), 1.5) == \
+        jdemod.calibrate_scale_factor(list(confs), 1.5)
+
+
+@pytest.fixture(scope="module")
+def header_bits():
+    """A header capture window as the parity engine cuts it: the 400 Hz
+    pulse's run of ones, then the 72 header frames twice, a few bits wrong."""
+    _, truth = simulator.synthesize(simulator.SimSpec(duration=20.0, seed=4))
+    frames_bits = np.asarray(truth["header_frames"]).reshape(-1)
+    rng = np.random.default_rng(5)
+    bits = np.concatenate([np.ones(500, np.int64), frames_bits, frames_bits,
+                           rng.integers(0, 2, 300)])
+    bits[rng.integers(600, len(bits), 6)] ^= 1
+    return bits
+
+
+def test_trim_and_parse_header_equal_source(header_bits):
+    ours, ref = frames.trim_header(header_bits), jframes.trim_header(header_bits)
+    np.testing.assert_array_equal(ours, ref)
+    assert len(ours) == 32 * 75
+    got, want = frames.parse_header(ours), jframes.parse_header(ref)
+    assert got == want
+    assert got["serial_no"] == "00123456" and all(got["tcoeff_valid"])
+    short = header_bits[:450]  # no end of pulse inside the window
+    np.testing.assert_array_equal(frames.trim_header(short), jframes.trim_header(short))
+
+
+@pytest.mark.parametrize("n", [20, 33, 5000])
+def test_sync_profile_frames_and_crc_windows_equal_source(n):
+    rng = np.random.default_rng(n)
+    _, truth = simulator.synthesize(simulator.SimSpec(duration=20.0, seed=4))
+    hdr = np.asarray(truth["header_frames"]).reshape(-1)
+    bits = np.concatenate([rng.integers(0, 2, 7), hdr, rng.integers(0, 2, 40), hdr])[:n]
+    r7500 = rng.standard_normal(len(bits))
+    np.testing.assert_array_equal(crc.check_crc_all_windows_np(bits),
+                                  jcrc.check_crc_all_windows_np(bits))
+    (starts, used), (jstarts, jused) = (m.sync_profile_frames(bits, r7500)
+                                        for m in (frames, jframes))
+    np.testing.assert_array_equal(starts, jstarts)
+    assert used == jused
+    if n == 5000:
+        assert len(starts) > 50

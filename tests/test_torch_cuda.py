@@ -184,3 +184,58 @@ def test_segmented_decode_on_card_equals_cpu_decode():
     assert gpu.metadata == cpu.metadata
     a, b = set(gpu.hexframes), set(cpu.hexframes)
     assert len(a & b) / max(len(a | b), 1) >= 0.99
+
+
+def _three_drops():
+    return np.stack([np.round(p * 28000 / np.max(np.abs(p))).astype(np.int16) for p in (
+        simulator.synthesize(simulator.SimSpec(duration=42.0, profile_start=33.0, seed=s))[0]
+        for s in (20, 21, 22))])
+
+
+@pytest.mark.cuda
+def test_pipelined_batches_on_card_equal_decode_batch():
+    """Three batches through the pipeline (stager thread, upload and fetch
+    streams): one kernel launch per batch, every row equal to
+    ``decode_batch`` of the same batch on the card."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
+
+    rows = _three_drops()
+    batches = [(rows, None), (rows[::-1].copy(), None),
+               (rows[[1, 2, 0]], [1852200, 1800000, 1852200])]
+    before = tonepower.tone_ratios.launches
+    out = pipeline.decode_batches_pipelined(batches, 44100, device="cuda")
+    assert tonepower.tone_ratios.launches == before + 3
+    for (pcms, lengths), got in zip(batches, out):
+        want = batch.decode_batch(pcms, 44100, device="cuda", lengths=lengths)
+        for g, w in zip(got, want):
+            assert g.status == w.status == 2 and g.overflow == 0
+            assert g.metadata == w.metadata and g.hexframes == w.hexframes
+            assert g.time == w.time and g.numpoints == w.numpoints
+
+
+@pytest.mark.cuda
+def test_corpus_on_card(tmp_path):
+    """Three WAVs and a corrupt file through ``reprocess_corpus`` on the card
+    in batches of 2: two kernel launches, reports equal to the CPU run's but
+    for frames a device difference may move (hexframe agreement >= 0.99)."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.parallel.archive import reprocess_corpus
+
+    paths = []
+    for i in range(3):
+        spec = simulator.SimSpec(duration=40.0, profile_start=33.0, seed=50 + i)
+        paths.append(str(tmp_path / f"drop{i}.wav"))
+        simulator.write_wav(paths[-1], simulator.synthesize(spec)[0], spec.fs)
+    bad = str(tmp_path / "corrupt.wav")
+    open(bad, "wb").write(b"RIFFgarbage_that_is_not_a_wav")
+    before = tonepower.tone_ratios.launches
+    manifest = reprocess_corpus(paths + [bad], str(tmp_path / "gpu"), batch_size=2, device="cuda")
+    assert tonepower.tone_ratios.launches == before + 2
+    reprocess_corpus(paths, str(tmp_path / "cpu"), batch_size=2, device="cpu")
+    assert manifest["files"]["corrupt.wav"]["status"] == "failed"
+    for i in range(3):
+        assert manifest["files"][f"drop{i}.wav"]["status"] == "done"
+        gpu, cpu = (set(ln.split(",")[1] for ln in open(tmp_path / d / f"drop{i}.txt")
+                        if ln.count(",") == 5) for d in ("gpu", "cpu"))
+        assert len(gpu) > 100 and len(gpu & cpu) / len(gpu | cpu) >= 0.99

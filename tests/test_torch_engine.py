@@ -156,16 +156,23 @@ def test_whole_decode_report_identical(decoded_pair):
     assert a.count("\n") > 300
 
 
-def test_cli_report_bytes_equal_jax_cli(decoded_pair, tmp_path):
-    """The port's CLI (--device cpu) writes the JAX CLI's report bytes."""
+@pytest.mark.parametrize("ours_args, jax_args", [
+    (["--engine", "cuda", "--device", "cpu"], ["--engine", "tpu", "--wire", "int16"]),
+    (["--engine", "parity"], ["--engine", "parity"]),
+    (["--device", "cpu"], ["--engine", "tpu", "--wire", "int16"]),  # default: the device engine
+], ids=["cuda_on_cpu", "parity", "default"])
+def test_cli_report_bytes_equal_jax_cli(decoded_pair, tmp_path, ours_args, jax_args):
+    """The port's CLI writes the JAX CLI's report bytes: its fused engine
+    (--engine cuda --device cpu) against --engine tpu, its parity engine
+    against the JAX parity engine, and its default engine (the device one,
+    here on the CPU) against --engine tpu."""
     from axctdprocessor_tpu import cli as jcli
     from axctdprocessor_tpu_torch import cli
 
     _, _, wav, _ = decoded_pair
     ours, ref = tmp_path / "torch.txt", tmp_path / "jax.txt"
-    assert cli.main(["-i", wav, "-o", str(ours), "--device", "cpu", "--quiet"]) == 0
-    assert jcli.main(["-i", wav, "-o", str(ref), "--engine", "tpu",
-                      "--wire", "int16", "--quiet"]) == 0
+    assert cli.main(["-i", wav, "-o", str(ours), "--quiet"] + ours_args) == 0
+    assert jcli.main(["-i", wav, "-o", str(ref), "--quiet"] + jax_args) == 0
     assert ours.read_bytes() == ref.read_bytes()
     assert "Probe Serial: 00123456" in ours.read_text()
 
@@ -277,9 +284,13 @@ def test_device_and_mode_are_explicit(tmp_path):
         # without a GPU, a call that names no device raises before any work
         from axctdprocessor_tpu_torch.models import segmented
         from axctdprocessor_tpu_torch.models.stream_device import DeviceStreamDecoder
+        import axctdprocessor_tpu_torch as ax
+        from axctdprocessor_tpu_torch import cli
         from axctdprocessor_tpu_torch.parallel import batch
 
         pcm = np.zeros(44100, np.int16)
+        wav = str(tmp_path / "silence.wav")
+        simulator.write_wav(wav, pcm.astype(np.float64), 44100)
         calls = [
             lambda: engine.decode_wav(str(tmp_path / "absent.wav")),
             lambda: engine.decode_waveform(pcm, 44100),
@@ -288,6 +299,13 @@ def test_device_and_mode_are_explicit(tmp_path):
             lambda: DeviceStreamDecoder(44100),
             lambda: batch.dispatch_batch(pcm[None], 44100),
             lambda: batch.decode_batch(pcm[None], 44100),
+            lambda: ax.decode_wav(wav),
+            lambda: ax.decode_waveform(pcm, 44100),
+            lambda: ax.decode_batches_pipelined([(pcm[None], None)], 44100),
+            lambda: ax.reprocess_corpus([wav], str(tmp_path / "out")),
+            lambda: cli.main(["-i", wav, "-o", str(tmp_path / "o.txt"), "--quiet"]),
+            lambda: cli.main(["--corpus", str(tmp_path), "-o", str(tmp_path / "out"),
+                              "--quiet"]),
         ]
         for call in calls:
             with pytest.raises(RuntimeError, match="cuda"):

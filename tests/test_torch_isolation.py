@@ -3,7 +3,10 @@ imports nothing of the JAX package.
 
 A fresh interpreter imports ``axctdprocessor_tpu_torch`` and decodes a
 short drop on the CPU through each path (monolithic, segmented, prestaged,
-stream and batch, the int4 wire through the port's C encoder); neither jax
+stream and batch, the int4 wire through the port's C encoder, the host parity
+engine and its push decoder, a two-batch pipeline and a two-file corpus), and
+resolves every lazy top-level name; importing the package alone loads no
+torch; neither jax
 nor any module of ``axctdprocessor_tpu`` may enter ``sys.modules``.  A scan
 of every ``.py`` of the port and of ``chip_smoke.py`` finds no import of
 the JAX package, the port's native library builds only under its own
@@ -27,10 +30,11 @@ from axctdprocessor_tpu_torch.models import simulator
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = """
-import sys
+import os, sys, tempfile
+import axctdprocessor_tpu_torch
+print("TORCH_AFTER_PACKAGE_IMPORT", "torch" in sys.modules)
 import torch
 torch.set_num_threads(2)
-import axctdprocessor_tpu_torch
 from axctdprocessor_tpu_torch import cli
 from axctdprocessor_tpu_torch.models import engine, segmented, simulator
 from axctdprocessor_tpu_torch.models.stream_device import DeviceStreamDecoder
@@ -46,10 +50,30 @@ stream = DeviceStreamDecoder(spec.fs, device="cpu")
 stream.feed(pcm / abs(pcm).max())
 rows = batch.decode_batch(raw[None], spec.fs, device="cpu")
 int4 = engine.decode_waveform(raw, spec.fs, device="cpu", wire="int4", lossy_retry=False)
-for r in (res, seg, staged, stream.finalize(), rows[0], int4):
+cond = (pcm - pcm.mean()) / abs(pcm).max()
+parity = axctdprocessor_tpu_torch.decode_waveform_parity(cond, spec.fs)
+host_stream = axctdprocessor_tpu_torch.AXCTDStreamDecoder(spec.fs)
+host_stream.feed(cond)
+piped = axctdprocessor_tpu_torch.decode_batches_pipelined(
+    [(raw[None], None), (raw[None], None)], spec.fs, device="cpu")
+with tempfile.TemporaryDirectory() as d:
+    wavs = [os.path.join(d, f"drop{i}.wav") for i in range(2)]
+    for w in wavs:
+        simulator.write_wav(w, pcm, spec.fs)
+    manifest = axctdprocessor_tpu_torch.reprocess_corpus(
+        wavs, os.path.join(d, "out"), batch_size=2, device="cpu")
+    assert [e["status"] for e in manifest["files"].values()] == ["done", "done"]
+    assert cli.main(["-i", wavs[0], "-o", os.path.join(d, "parity.txt"), "--quiet",
+                     "--engine", "parity"]) == 0
+for r in (res, seg, staged, stream.finalize(), rows[0], int4, parity,
+          host_stream.finalize(), piped[0][0], piped[1][0]):
     assert r.status == 2, r.status
     assert r.metadata["serial_no"] == truth["serial_no"]
     assert len(r.hexframes) > 100
+for name in axctdprocessor_tpu_torch._EXPORTS:
+    assert getattr(axctdprocessor_tpu_torch, name).__name__
+assert axctdprocessor_tpu_torch.decode_wav is engine.decode_wav
+assert axctdprocessor_tpu_torch.DeviceStreamDecoder is DeviceStreamDecoder
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
 loaded = sorted(m for m in sys.modules
@@ -68,6 +92,7 @@ def test_port_decodes_without_loading_jax():
     out = subprocess.run([sys.executable, "-c", _CHILD], env=_child_env(), cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+    assert "TORCH_AFTER_PACKAGE_IMPORT False" in out.stdout, out.stdout[-2000:]
     assert "JAX_MODULES []" in out.stdout, out.stdout[-2000:]
     assert "JAX_PACKAGE_MODULES []" in out.stdout, out.stdout[-2000:]
 

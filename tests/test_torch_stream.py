@@ -1,4 +1,10 @@
-"""The port's push-style stream decoder (``DeviceStreamDecoder``), on the CPU.
+"""The port's push-style stream decoders, on the CPU.
+
+``DeviceStreamDecoder`` first; at the end the host ``AXCTDStreamDecoder``
+(over the port's parity engine), with the cases of tests/test_stream.py: fed
+in pieces it equals the port's whole-file parity decode exactly, rows arrive
+incrementally, a checkpoint resumes mid-stream, and one ragged chunking is
+held against the JAX package's ``AXCTDStreamDecoder`` feed by feed.
 
 Fed piecewise, ``finalize()`` must equal the port's offline segmented
 decode of the concatenated samples exactly (README's stream contract), for
@@ -124,3 +130,114 @@ def test_stream_equals_jax_stream(stream_drop130):
     assert a.profstartind == b.profstartind
     assert a.hexframes == b.hexframes
     assert a.time == b.time
+
+
+# ---------------------------------------------------------------------------
+# the host push decoder (models.stream) over the port's parity engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def host_drop():
+    """The default 50 s drop, conditioned as ``read_wav`` conditions it, and
+    the port's whole-file parity decode of it."""
+    from axctdprocessor_tpu_torch.models import parity_engine
+
+    pcm, _ = simulator.synthesize()
+    raw = np.round(pcm * (32767 * 0.9 / np.max(np.abs(pcm)))).astype(np.int16)
+    x = (raw.astype(np.float64) - np.mean(raw)) / np.max(np.abs(raw))
+    return x, 44100, parity_engine.decode_waveform(x, 44100)
+
+
+def _assert_host_same(res, ref):
+    assert res.status == ref.status == 2
+    assert res.firstpulse400 == ref.firstpulse400
+    assert res.profstartind == ref.profstartind
+    assert res.metadata == ref.metadata
+    assert res.hexframes == ref.hexframes and len(res.hexframes) > 100
+    np.testing.assert_array_equal(np.asarray(res.time), np.asarray(ref.time))
+    np.testing.assert_array_equal(np.asarray(res.salinity), np.asarray(ref.salinity))
+
+
+@pytest.mark.parametrize("chunking", ["uniform_1s", "ragged", "tiny_then_huge"])
+def test_host_stream_equals_whole_file_parity(host_drop, chunking):
+    from axctdprocessor_tpu_torch.models.stream import AXCTDStreamDecoder
+
+    x, fs, whole = host_drop
+    dec = AXCTDStreamDecoder(fs)
+    _feed(dec, x, chunking, np.random.default_rng(1234))
+    _assert_host_same(dec.finalize(), whole)
+
+
+def test_host_stream_latest_rows_incremental(host_drop):
+    from axctdprocessor_tpu_torch.models.stream import AXCTDStreamDecoder
+
+    x, fs, whole = host_drop
+    dec = AXCTDStreamDecoder(fs)
+    seen, midstream = 0, False
+    for pos in range(0, len(x), 2 * fs):
+        dec.feed(x[pos: pos + 2 * fs])
+        rows = dec.latest_rows()
+        seen += len(rows)
+        midstream |= bool(rows) and pos < len(x) - 4 * fs
+    dec.finalize()
+    seen += len(dec.latest_rows())
+    assert midstream, "rows should appear before end of stream"
+    assert seen == len(whole.time) and dec.latest_rows() == []
+
+
+def test_host_stream_feed_after_finalize_or_abort_raises(host_drop):
+    from axctdprocessor_tpu_torch.models.stream import AXCTDStreamDecoder
+
+    x, fs, _ = host_drop
+    for stop in ("finalize", "abort"):
+        dec = AXCTDStreamDecoder(fs)
+        dec.feed(x[: 5 * fs])
+        getattr(dec, stop)()
+        with pytest.raises(RuntimeError):
+            dec.feed(x[:100])
+
+
+def test_host_stream_checkpoint_resume(host_drop, tmp_path):
+    """Snapshot mid-stream, resume from disk: the uninterrupted decode."""
+    from axctdprocessor_tpu_torch.models.stream import AXCTDStreamDecoder
+
+    x, fs, whole = host_drop
+    cut = 20 * fs
+    dec = AXCTDStreamDecoder(fs)
+    dec.feed(x[:cut])
+    dec.latest_rows()
+    ckpt = str(tmp_path / "decoder.ckpt")
+    dec.save_checkpoint(ckpt)
+    del dec
+    resumed = AXCTDStreamDecoder.load_checkpoint(ckpt)
+    assert resumed.status >= 1
+    resumed.feed(x[cut:])
+    _assert_host_same(resumed.finalize(), whole)
+
+
+def test_host_stream_equals_jax_host_stream(host_drop):
+    """The same ragged pieces into the port's push decoder and the JAX
+    package's (both host numpy): the same rows after every feed and the
+    same final result."""
+    from axctdprocessor_tpu.models.stream import AXCTDStreamDecoder as JaxStream
+    from axctdprocessor_tpu_torch.models.stream import AXCTDStreamDecoder
+
+    x, fs, whole = host_drop
+    ours, ref = AXCTDStreamDecoder(fs), JaxStream(fs)
+    rng = np.random.default_rng(1234)
+    pos, n_rows = 0, 0
+    while pos < len(x):
+        step = int(rng.integers(1000, 150000))
+        ours.feed(x[pos: pos + step])
+        ref.feed(x[pos: pos + step])
+        pos += step
+        rows = ours.latest_rows()
+        assert rows == ref.latest_rows()
+        assert ours.status == ref.status
+        n_rows += len(rows)
+    a, b = ours.finalize(), ref.finalize()
+    _assert_host_same(a, b)
+    _assert_host_same(a, whole)
+    np.testing.assert_array_equal(np.asarray(a.temperature), np.asarray(b.temperature))
+    assert n_rows + len(ours.latest_rows()) == len(b.time)
