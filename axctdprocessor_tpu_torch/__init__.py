@@ -1,12 +1,14 @@
 """axctdprocessor_tpu_torch — the PyTorch/CUDA port of axctdprocessor_tpu.
 
 The AXCTD decode paths of the JAX package's TPU engine in PyTorch, for one
-NVIDIA H100: the fused single-drop decode (``models.engine.decode_wav`` /
+NVIDIA H100 (the mesh paths: several): the fused single-drop decode (``models.engine.decode_wav`` /
 ``decode_waveform``, and the ``cli``), the segmented and prestaged decode
 (``models.segmented``), the push-style stream decoder
 (``models.stream_device``), the batch path (``parallel.batch``), the
-two-stage pipeline (``parallel.pipeline``) and the archive runner
-(``parallel.archive``); and the host byte-parity engine with its push decoder
+two-stage pipeline (``parallel.pipeline``), the archive runner
+(``parallel.archive``) and the multi-device paths over a mesh of
+``torch.device``s (``parallel.mesh``, ``parallel.timeshard``, the ``mesh=`` of
+the batch and archive paths, ``parallel.multihost``); and the host byte-parity engine with its push decoder
 (``models.parity_engine``, ``models.stream``), the host reference, which
 touch no device and are asked for by name (``decode_wav_parity``,
 ``AXCTDStreamDecoder``, the CLI's ``--engine parity``).  It

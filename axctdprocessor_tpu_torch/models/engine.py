@@ -168,11 +168,16 @@ def decimate2_on_device(x: torch.Tensor, n_valid, decim_sos: torch.Tensor):
 BIG = torch.iinfo(torch.int32).max // 2  # fill of empty crossing slots
 
 
+def apply_response(x: torch.Tensor, response: torch.Tensor, nfft: int) -> torch.Tensor:
+    """`x` filtered in the FFT domain over `nfft` points by a response at
+    the rfft bins (``sos_response_on_device``)."""
+    return torch.fft.irfft(torch.fft.rfft(x, nfft) * response, nfft)
+
+
 def fft_filter(x: torch.Tensor, sos: torch.Tensor, nfft: int) -> torch.Tensor:
     """The demod filter (the SOS cascade's response) applied in the FFT
     domain over `nfft` points."""
-    spec = torch.fft.rfft(x, nfft) * sos_response_on_device(sos, nfft)
-    return torch.fft.irfft(spec, nfft)
+    return apply_response(x, sos_response_on_device(sos, nfft), nfft)
 
 
 def find_crossings(filtered: torch.Tensor, length: int, g_off, n_valid,

@@ -1,6 +1,6 @@
-"""Archive reprocessing: decode a corpus of WAV drops in batches on one device
-(port of axctdprocessor_tpu.parallel.archive; the JAX version's ``mesh=`` is
-``device=`` here).
+"""Archive reprocessing: decode a corpus of WAV drops in batches, on one device
+or with every batch data-parallel over a mesh (port of
+axctdprocessor_tpu.parallel.archive).
 
 Design:
 
@@ -71,12 +71,15 @@ def _read_and_condition(path: str):
 
 def reprocess_corpus(wav_paths: list[str], out_dir: str,
                      settings: dict | None = None, compat: str = "strict",
-                     *, device="cuda", batch_size: int = 8, resume: bool = True,
-                     timer: StageTimer | None = None,
+                     *, device="cuda", mesh=None, batch_size: int = 8,
+                     resume: bool = True, timer: StageTimer | None = None,
                      wire: str = "auto", diagnostics: bool = False) -> dict:
     """Decode every WAV on `device` into `out_dir`/<name>.txt; returns the
-    manifest.  Asking for a GPU that is not there raises before any work."""
-    device = resolve_device(device)
+    manifest.  Asking for a GPU that is not there raises before any work.
+    With a `mesh` (``parallel.mesh.make_mesh``) each batch runs data-parallel
+    over its ``dp`` axis (``batch.dispatch_batch``) and `device` is not read."""
+    if mesh is None:
+        device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     cfg = resolve_settings(settings, compat=compat)
     timer = timer or StageTimer()
@@ -222,14 +225,14 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
 
         with timer.stage("device.dispatch_batch"):
             lengths = [min(len(x[0][0]), bucket_n) for x in loaded]
-            out, ctx = dispatch_batch(pcms, fs, config=cfg, device=device,
+            out, ctx = dispatch_batch(pcms, fs, config=cfg, device=device, mesh=mesh,
                                       lengths=lengths, wire=wire)
         if inflight is not None:
             p_out, p_ctx, p_loaded, p_pcms, p_lens, p_fs = inflight
             with timer.stage("device.fetch_batch"):
                 results = finish_dispatched(p_out, p_ctx)
                 results = retry_lossy_rows(results, p_pcms, p_fs,
-                                           config=cfg, device=device,
+                                           config=cfg, device=device, mesh=mesh,
                                            lengths=p_lens)
             write_results(p_loaded, results)
         inflight = (out, ctx, loaded, pcms, lengths, fs)
@@ -239,7 +242,7 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
         with timer.stage("device.fetch_batch"):
             results = finish_dispatched(p_out, p_ctx)
             results = retry_lossy_rows(results, p_pcms, p_fs, config=cfg,
-                                       device=device, lengths=p_lens)
+                                       device=device, mesh=mesh, lengths=p_lens)
         write_results(p_loaded, results)
 
     executor.shutdown(wait=False)

@@ -1,5 +1,5 @@
-"""Batched multi-drop decode on one device (port of
-axctdprocessor_tpu.parallel.batch).
+"""Batched multi-drop decode, on one device or data-parallel over a mesh
+(port of axctdprocessor_tpu.parallel.batch).
 
 The archive path: a (B, N) batch of drops through the fused decode
 (``engine.FusedDecoder`` on a batch).  The batch is conditioned as one
@@ -12,8 +12,11 @@ on a side stream; ``finish_dispatched`` waits for that copy alone and the
 host finishes each row.  ``BatchPlan`` holds what the batches of one shape
 share; ``parallel.pipeline`` runs on it too.
 
-Data parallelism over several GPUs (the JAX ``mesh`` argument and
-``pad_to_multiple``) belongs with the time-sharded and multi-host paths.
+With a ``mesh`` (``parallel.mesh``) the rows are padded to a multiple of its
+``dp`` axis and cut into ``dp`` contiguous runs, each queued on its device as
+a batch of its own (one tone-ratio launch per run, its fetch behind it on
+that device's side stream); drops are independent, so no device waits for
+another.
 """
 
 from __future__ import annotations
@@ -25,6 +28,23 @@ from ..models import engine as eng
 from ..models.result import DecodeResult
 from ..ops import wire as wire_ops
 from ..utils.config import DecoderConfig
+
+
+def pad_to_multiple(batch_arrays: list[np.ndarray], m: int):
+    """Pad every array's leading dim up to a multiple of m (repeating row 0).
+
+    Returns (padded arrays, original batch size).  Used to satisfy mesh
+    divisibility; padded rows' outputs are discarded by the caller.
+    """
+    b = batch_arrays[0].shape[0]
+    b_pad = int(np.ceil(b / m)) * m
+    if b_pad == b:
+        return batch_arrays, b
+    out = []
+    for a in batch_arrays:
+        reps = np.repeat(a[:1], b_pad - b, axis=0)
+        out.append(np.concatenate([a, reps], axis=0))
+    return out, b
 
 
 def pad_batch(pcms: list[np.ndarray], dtype=None) -> np.ndarray:
@@ -54,19 +74,25 @@ def finish_batch(out_host, cfg: DecoderConfig, fs: float, fs_report, lengths,
             for i in range(out_host.shape[0])]
 
 
-def run_back_half_batched(s1: dict, cfg: DecoderConfig, fs: float,
-                          dims: eng.EngineDims, lengths, fs_report, *,
-                          device) -> list[DecodeResult]:
-    """Device back half and host finish for an externally computed stage 1
-    (tensors on `device`): one device-to-host copy for the batch."""
+def queue_back_half_batched(s1: dict, cfg: DecoderConfig, fs: float,
+                             dims: eng.EngineDims, lengths, *, device) -> torch.Tensor:
+    """Queue the device back half of an externally computed stage 1 (tensors
+    on `device`) without a host sync: the (B, L) packed matrix, on `device`."""
     dev = eng.resolve_device(device)
     t = eng.engine_tables(cfg, fs, dims)
     tables = [eng.to_device(t[k], dev) for k in ("trig_i", "trig_f", "hdr_rel", "calib_off")]
     n_valid = eng.to_device(np.asarray(lengths, np.int64), dev)
     with torch.inference_mode():
-        out = eng.batched_back_half(s1, n_valid, *tables, dims, float(fs))
-        host = out.cpu().numpy()
-    return finish_batch(host, cfg, fs, fs_report, lengths)
+        return eng.batched_back_half(s1, n_valid, *tables, dims, float(fs))
+
+
+def run_back_half_batched(s1: dict, cfg: DecoderConfig, fs: float,
+                          dims: eng.EngineDims, lengths, fs_report, *,
+                          device) -> list[DecodeResult]:
+    """Device back half and host finish for an externally computed stage 1
+    (tensors on `device`): one device-to-host copy for the batch."""
+    out = queue_back_half_batched(s1, cfg, fs, dims, lengths, device=device)
+    return finish_batch(out.cpu().numpy(), cfg, fs, fs_report, lengths)
 
 
 class BatchPlan:
@@ -139,7 +165,7 @@ def row_lengths(pcms: np.ndarray, lengths) -> np.ndarray:
 
 
 def dispatch_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cuda",
-                   lengths=None, wire: str = "auto"):
+                   mesh=None, lengths=None, wire: str = "auto"):
     """Queue a (B, N) batch decode on `device`, and the fetch of its packed
     result behind it; returns (out, ctx) for :func:`finish_dispatched`.
 
@@ -147,10 +173,30 @@ def dispatch_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cud
     the call returns while the device works and the caller can overlap the
     next batch's host work.  Integer rows ship as the `wire` format and
     are conditioned on the device (``"auto"`` is int16); ``lengths`` are
-    the true samples per row of a zero-padded ragged batch."""
+    the true samples per row of a zero-padded ragged batch.
+
+    With a `mesh` the batch is placed by the mesh alone and `device` is not
+    read: the rows, padded to a multiple of ``mesh.shape["dp"]`` by
+    repeating row 0, are cut into ``dp`` contiguous runs and run k is
+    queued on the k-th device along ``dp``, as a batch of its own.  `out` is
+    then the list of the runs' packed matrices, each on its device."""
     pcms = np.asarray(pcms)
-    plan = BatchPlan(pcms.dtype, pcms.shape[1], fs, config, wire, device)
     lengths = row_lengths(pcms, lengths)
+    if mesh is None:
+        out, run = _dispatch_run(pcms, lengths, fs, config, wire, device)
+        return out, ([run], len(pcms))
+    b_orig = len(pcms)
+    devices = mesh.devices_along("dp")
+    (pcms, lengths), _ = pad_to_multiple([pcms, lengths], len(devices))
+    per = len(pcms) // len(devices)
+    queued = [_dispatch_run(pcms[k * per: (k + 1) * per], lengths[k * per: (k + 1) * per],
+                            fs, config, wire, dev) for k, dev in enumerate(devices)]
+    return [out for out, _ in queued], ([run for _, run in queued], b_orig)
+
+
+def _dispatch_run(pcms: np.ndarray, lengths: np.ndarray, fs, config, wire: str, device):
+    """Queue one batch on one device: (its packed matrix, (plan, fetch, lengths))."""
+    plan = BatchPlan(pcms.dtype, pcms.shape[1], fs, config, wire, device)
     with torch.inference_mode():
         out = plan.model(eng.to_device(plan.encode(pcms), plan.dev),
                          eng.to_device(lengths.astype(np.int64), plan.dev))
@@ -158,31 +204,36 @@ def dispatch_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cud
     return out, (plan, fetch, lengths)
 
 
-def finish_dispatched(out: torch.Tensor, ctx) -> list[DecodeResult]:
-    """Wait for the fetch of a ``dispatch_batch`` result (the batch's one
-    device-to-host copy, which does not wait for batches queued after it)
-    and host-finish its rows."""
-    plan, fetch, lengths = ctx
-    return plan.finish(*fetch, lengths)
+def finish_dispatched(out, ctx) -> list[DecodeResult]:
+    """Wait for the fetch of a ``dispatch_batch`` result (per device the
+    batch's one device-to-host copy, which does not wait for batches queued
+    after it), in the order of the runs, and host-finish the rows; the rows
+    that padded the batch to the mesh are dropped."""
+    runs, b_orig = ctx
+    results = []
+    for plan, fetch, lengths in runs:
+        results += plan.finish(*fetch, lengths)
+    return results[:b_orig]
 
 
 def decode_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cuda",
-                 lengths=None, wire: str = "auto",
+                 mesh=None, lengths=None, wire: str = "auto",
                  lossy_retry: bool = True) -> list[DecodeResult]:
-    """Decode a (B, N) batch of waveforms on `device`; returns B results.
+    """Decode a (B, N) batch of waveforms on `device`, or data-parallel over
+    `mesh` (see :func:`dispatch_batch`); returns B results.
 
     Rows whose int4-wire decode comes back degenerate are decoded again at
     int8 in one batch (``lossy_retry``)."""
     results = finish_dispatched(*dispatch_batch(
-        pcms, fs, config=config, device=device, lengths=lengths, wire=wire))
+        pcms, fs, config=config, device=device, mesh=mesh, lengths=lengths, wire=wire))
     if lossy_retry:
         results = retry_lossy_rows(results, pcms, fs, config=config, device=device,
-                                   lengths=lengths)
+                                   mesh=mesh, lengths=lengths)
     return results
 
 
 def redo_at_int8(rows, lengths, width: int, fs, config: DecoderConfig | None, *,
-                 device) -> list[DecodeResult]:
+                 device, mesh=None) -> list[DecodeResult]:
     """Decode `rows` (equal-width waveforms with their true lengths) again
     at int8, in batches of `width` rows, the last padded by repeating its
     first row (the shape of a first-class int8 decode of such a batch)."""
@@ -191,14 +242,15 @@ def redo_at_int8(rows, lengths, width: int, fs, config: DecoderConfig | None, *,
         idx = list(range(g, min(g + width, len(rows))))
         pad = idx + [g] * (width - len(idx))
         redo = decode_batch(np.stack([rows[i] for i in pad]), fs, config=config,
-                            device=device, lengths=[int(lengths[i]) for i in pad],
+                            device=device, mesh=mesh,
+                            lengths=[int(lengths[i]) for i in pad],
                             wire="int8", lossy_retry=False)
         redone += redo[: len(idx)]
     return redone
 
 
 def retry_lossy_rows(results: list[DecodeResult], pcms, fs,
-                     config: DecoderConfig | None = None, *, device,
+                     config: DecoderConfig | None = None, *, device, mesh=None,
                      lengths=None) -> list[DecodeResult]:
     """Decode the degenerate int4-wire rows of ``results`` again at int8,
     all in one batch of the original batch size."""
@@ -210,7 +262,7 @@ def retry_lossy_rows(results: list[DecodeResult], pcms, fs,
     if not flagged:
         return results
     redo = redo_at_int8([pcms[i] for i in flagged], lengths[flagged], len(pcms), fs,
-                        cfg, device=device)
+                        cfg, device=device, mesh=mesh)
     out = list(results)
     for i, r in zip(flagged, redo):
         out[i] = r

@@ -1,12 +1,15 @@
-"""Two-stage pipeline for archive decoding on one device (port of
-axctdprocessor_tpu.parallel.pipeline).
+"""Two-stage pipeline for archive decoding, on one device or with the back
+half on a second (port of axctdprocessor_tpu.parallel.pipeline).
 
 The decode of a batch runs as its two halves, apart: stage 1
 (``engine.FusedDecoder.stage1``: conditioning, ONE launch of the tone-ratio
 kernel for the (B, n) batch, the demod front end) and the back half
 (``FusedDecoder.back_half``: trigger, bit decisions, headers, profile).  The
-JAX version places the halves on two devices; on one GPU both run on the
-card and what overlaps is host work and card work:
+JAX version places the halves on two devices, and so does ``devices=[front,
+back]`` here: a second decoder holds the back half's tables on ``back``, and
+each batch's stage-1 outputs are copied across without blocking before its
+back half is queued there.  On one GPU both halves run on the card and what
+overlaps is host work and card work:
 
 * batch k+1's wire encode and upload run in a one-worker stager thread while
   the main thread dispatches batch k.  On a GPU the upload leaves pinned
@@ -20,7 +23,6 @@ card and what overlaps is host work and card work:
   would wait for batch k too).
 
 Nothing in the loop reads the device besides that one event wait per batch.
-A second card for the back half belongs with the multi-GPU paths.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from .batch import BatchPlan, redo_at_int8, row_lengths
 
 
 def decode_batches_pipelined(batches, fs, config: DecoderConfig | None = None, *,
-                             device="cuda", wire: str = "auto",
+                             device="cuda", devices=None, wire: str = "auto",
                              lossy_retry: bool = True) -> list[list[DecodeResult]]:
     """Decode an iterable of (pcms, lengths) batches on `device` through the
     stage-1 / back-half pipeline.  Every batch must share (fs, shape).
@@ -45,9 +47,16 @@ def decode_batches_pipelined(batches, fs, config: DecoderConfig | None = None, *
     whose int4-wire decode comes back degenerate are decoded again at int8,
     grouped into full-width ``decode_batch`` calls.
 
+    With ``devices=[front, back]`` stage 1 runs on ``front`` and the back
+    half on ``back`` (a list of one is both), and `device` is not read.
+
     Returns one list of DecodeResults per input batch, in order.
     """
-    dev = eng.resolve_device(device)
+    if devices is None:
+        dev = d_back = eng.resolve_device(device)
+    else:
+        devs = [eng.resolve_device(d) for d in devices]
+        dev, d_back = devs[0], devs[1] if len(devs) > 1 else devs[0]
     batches = [(np.asarray(pcms), row_lengths(np.asarray(pcms), lengths))
                for pcms, lengths in batches]
     if not batches:
@@ -55,6 +64,10 @@ def decode_batches_pipelined(batches, fs, config: DecoderConfig | None = None, *
     first = batches[0][0]
     plan = BatchPlan(first.dtype, first.shape[1], fs, config, wire, dev)
     model = plan.model
+    # the back half's tables, and the stream that fetches its packed matrix,
+    # belong to the device that runs it
+    back = plan if devices is None else BatchPlan(first.dtype, first.shape[1], fs,
+                                                  config, wire, d_back)
     upload_stream = torch.cuda.Stream(dev) if plan.on_card else None
 
     def stage(item):
@@ -85,13 +98,18 @@ def decode_batches_pipelined(batches, fs, config: DecoderConfig | None = None, *
                 compute.wait_event(ready)
                 x.record_stream(compute)
                 nv.record_stream(compute)
-            out = model.back_half(model.stage1(x, nv), nv)
-            inflight.append(plan.start_fetch(out) + (batches[bi][1],))
+            s1 = model.stage1(x, nv)
+            if back is not plan:
+                # ordered against both devices' current streams by PyTorch
+                s1 = {k: v.to(d_back, non_blocking=True) for k, v in s1.items()}
+                nv = nv.to(d_back, non_blocking=True)
+            out = back.model.back_half(s1, nv)
+            inflight.append(back.start_fetch(out) + (batches[bi][1],))
             # keep one batch in flight: fetch k-1 while k computes
             if len(inflight) > 1:
-                results.append(plan.finish(*inflight.pop(0)))
+                results.append(back.finish(*inflight.pop(0)))
         while inflight:
-            results.append(plan.finish(*inflight.pop(0)))
+            results.append(back.finish(*inflight.pop(0)))
 
     if lossy_retry:
         flagged = [(bi, ri)

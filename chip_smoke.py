@@ -59,8 +59,20 @@ Phases, one line each or more (any failure raises and exits non-zero):
    default drop in a subprocess, and hexframe agreement >= 0.99 of the
    card's monolithic decode with the parity decode, on that drop and on the
    600 s drop (the bench's gate, ``bench.py:207-215``);
+9d. the multi-device paths on the one card: every mesh is built from an
+   explicit device list that repeats ``cuda:0``.  The 600 s drop as a (1, n)
+   int16 batch through ``decode_batch_timesharded`` on ``{"dp": 1, "sp": 4}``
+   (phase 3's gates, agreement with phase 3's monolithic decode >= 0.99, no
+   kernel launch: the time-sharded front end uses plain tone powers, as the
+   JAX one; warm walls, host syncs, peak memory); 4 archive rows on
+   ``{"dp": 2, "sp": 2}``; the first 16 archive rows through
+   ``decode_batch(mesh={"dp": 2})``, every row equal to phase 9's, one
+   kernel launch per ``dp`` run; 2 batches of 8 through
+   ``decode_batches_pipelined(devices=[cuda:0, cuda:0])``, rows equal to
+   phase 9a's;
 10. ``torch.profiler`` last, after every wall (a process that has run the
-   profiler launches more slowly from then on): one segmented decode and
+   profiler launches more slowly from then on): one segmented, one
+   monolithic and one time-sharded decode of the 600 s drop and
    one batch of 64 (launches, device idle share, the upload), one pipelined
    run of 8 x 8, then the kernel's device time at each phase-2 shape.
 
@@ -397,13 +409,20 @@ def phase10_profiles(drops: dict, seg: dict, k: dict) -> None:
     walls of phases 3-9.  One segmented decode, one batch of 64 and one
     pipelined run of 8 x 8, then the kernel's device time at each phase-2
     shape."""
-    from axctdprocessor_tpu_torch.models import segmented
+    from axctdprocessor_tpu_torch.models import engine, segmented
     from axctdprocessor_tpu_torch.ops import tonepower
-    from axctdprocessor_tpu_torch.parallel import batch, pipeline
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline, timeshard
+    from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
 
     raw, fs = seg["raw"], seg["fs"]
     log("[10] 600 s segmented decode: "
         + profile_run(lambda: segmented.decode_waveform_segmented(raw, fs, device="cuda")))
+    log("[10] 600 s monolithic decode: "
+        + profile_run(lambda: engine.decode_waveform(raw, fs, device="cuda",
+                                                     mode="monolithic")))
+    mesh = make_mesh({"dp": 1, "sp": 4}, [torch.device("cuda", 0)] * 4)
+    log("[10] 600 s time-sharded decode, dp 1 x sp 4 on the one card: "
+        + profile_run(lambda: timeshard.decode_batch_timesharded(raw[None], fs, mesh=mesh)))
     log("[10] batch 1 x 64 x 60 s: "
         + profile_run(lambda: batch.decode_batch(drops["batch"], drops["batch_fs"],
                                                  device="cuda")))
@@ -676,6 +695,15 @@ def phase9_batch(drops: dict) -> dict:
     return dict(launches=1, rows_8x8=kept["8 x 8"], wall_8x8=out["8 x 8"])
 
 
+def _rows_equal(got, want, truth, name) -> None:
+    assert len(got) == len(want), (name, len(got), len(want))
+    for i, (r, ref) in enumerate(zip(got, want)):
+        assert r.status == 2 and r.overflow == 0, (name, i, r.status, r.overflow)
+        assert r.metadata["serial_no"] == truth["serial_no"], (name, i)
+        assert r.hexframes == ref.hexframes and r.metadata == ref.metadata, (name, i)
+        assert r.time == ref.time, (name, i)
+
+
 def phase9a_pipeline(drops: dict, bat: dict) -> dict:
     """The 64 rows as 8 batches of 8 through the two-stage pipeline; every
     row against the same row of phase 9's ``decode_batch`` 8 x 8 (the same
@@ -698,11 +726,7 @@ def phase9a_pipeline(drops: dict, bat: dict) -> dict:
     assert launches == n_b, f"{launches} tone_ratios launches for {n_b} pipelined batches"
     flat = [r for b in out for r in b]
     assert [len(b) for b in out] == [8] * n_b
-    for i, (r, ref) in enumerate(zip(flat, bat["rows_8x8"])):
-        assert r.status == 2 and r.overflow == 0, (i, r.status, r.overflow)
-        assert r.metadata["serial_no"] == truth["serial_no"], i
-        assert r.hexframes == ref.hexframes and r.metadata == ref.metadata, i
-        assert r.time == ref.time, i
+    _rows_equal(flat, bat["rows_8x8"], truth, "pipeline")
 
     def plain():
         for sub, _ in batches:
@@ -845,6 +869,101 @@ def phase9c_parity(tmp: str, drops: dict, mono: dict) -> None:
         f"with it {agree600:.4f} (gate 0.99)")
 
 
+def phase9d_multi_device(drops: dict, mono: dict, bat: dict, piped: dict) -> dict:
+    """The mesh paths with every place of each mesh on the one card: what
+    they compute and what they cost there.  A speed-up over several cards
+    and the ordering of copies between two cards need more than one."""
+    from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline, timeshard
+    from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
+    from axctdprocessor_tpu_torch.utils.wavio import read_wav_raw16
+
+    card = torch.device("cuda", 0)
+    log("[9d] one card: every mesh here is make_mesh(shape, [cuda:0] * k), the same device "
+        "at every place, by the caller's explicit list")
+    mesh = make_mesh({"dp": 1, "sp": 4}, [card] * 4)
+
+    def long_drop():
+        # WAV read to DecodeResult, as phase 3's decode_wav walls are
+        raw, fs = read_wav_raw16(drops["wav"])
+        return timeshard.decode_batch_timesharded(raw[None], fs, mesh=mesh)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tonepower.tone_ratios.launches = 0
+    t0 = time.perf_counter()
+    res = long_drop()
+    first_s = time.perf_counter() - t0
+    ts_launches = tonepower.tone_ratios.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert ts_launches == 0, "the time-sharded front end has no tone-ratio kernel"
+    in_truth = _gates(res, drops["truth"])
+    agree_mono = _agreement(res.hexframes, mono["hexframes"])
+    assert agree_mono >= 0.99, agree_mono
+    from axctdprocessor_tpu_torch.models import engine
+
+    def mono_drop():
+        return engine.decode_wav(drops["wav"], device="cuda", mode="monolithic")
+
+    walls, mono_walls = [], []
+    for _ in range(3):  # in turns: walls drift within a process
+        mono_walls += _walls(mono_drop, 1)
+        walls += _walls(long_drop, 1)
+    wall, mono_wall = statistics.median(walls), statistics.median(mono_walls)
+    with count_syncs() as syncs:
+        again = long_drop()
+    assert again.hexframes == res.hexframes, "two time-sharded decodes differ"
+    log(f"[9d] 600 s int16 drop, decode_batch_timesharded on dp 1 x sp 4: status {res.status}, "
+        f"serial {res.metadata['serial_no']}, probe {res.metadata['probe_code']}, max depth "
+        f"{res.metadata['max_depth']}, overflow {res.overflow}, rows {len(res.time)}, frames "
+        f"{len(res.hexframes)}, in truth {in_truth:.4f}, agreement with the monolithic decode "
+        f"{agree_mono:.4f} (gate 0.99); tone_ratios launches {ts_launches}")
+    log(f"[9d] first decode {first_s:.3f} s, warm wall (median of 3) {wall:.4f} s "
+        f"{[round(w, 4) for w in walls]}, the WAV's read included, in turns with the "
+        f"monolithic decode {mono_wall:.4f} s {[round(w, 4) for w in mono_walls]} "
+        f"({wall / mono_wall:.2f}x; {mono['wall']:.4f} s in phase 3), realtime factor {600.0 / wall:.1f}x, peak device "
+        f"memory {peak_gib:.2f} GiB, host syncs per decode {syncs['n']}")
+
+    rows, bfs, truth = drops["batch"], drops["batch_fs"], drops["batch_truth"]
+    got = timeshard.decode_batch_timesharded(
+        rows[:4], bfs, mesh=make_mesh({"dp": 2, "sp": 2}, [card] * 4))
+    agrees = []
+    for i, (r, ref) in enumerate(zip(got, bat["rows_8x8"])):
+        assert r.status == 2 and r.overflow == 0, (i, r.status, r.overflow)
+        assert r.metadata["serial_no"] == truth["serial_no"], i
+        agrees.append(_agreement(r.hexframes, ref.hexframes))
+    assert len(got) == 4 and min(agrees) >= 0.99, agrees
+    log(f"[9d] 4 x 60 s int16 rows, decode_batch_timesharded on dp 2 x sp 2: every row status "
+        f"2, serial = truth, overflow 0; hexframe agreement with decode_batch's rows "
+        f"{[round(a, 4) for a in agrees]} (gate 0.99)")
+
+    dp2 = make_mesh({"dp": 2}, [card] * 2)
+    tonepower.tone_ratios.launches = 0
+    t0 = time.perf_counter()
+    got = batch.decode_batch(rows[:16], bfs, mesh=dp2)
+    dp_wall = time.perf_counter() - t0
+    dp_launches = tonepower.tone_ratios.launches
+    assert dp_launches == 2, f"{dp_launches} tone_ratios launches for 2 dp runs"
+    _rows_equal(got, bat["rows_8x8"][:16], truth, "dp batch")
+    log(f"[9d] 16 x 60 s rows, decode_batch(mesh=dp 2): every row equal to decode_batch's "
+        f"(hexframes, metadata, time); tone_ratios launches {dp_launches} (one per dp run); "
+        f"wall {dp_wall:.3f} s")
+
+    batches = [(sub, None) for sub in np.split(rows, 8)[:2]]
+    tonepower.tone_ratios.launches = 0
+    t0 = time.perf_counter()
+    out = pipeline.decode_batches_pipelined(batches, bfs, devices=[card, card])
+    pipe_wall = time.perf_counter() - t0
+    pipe_launches = tonepower.tone_ratios.launches
+    assert pipe_launches == 2, f"{pipe_launches} tone_ratios launches for 2 pipelined batches"
+    _rows_equal([r for b in out for r in b], piped["rows"][:16], truth, "two-device pipeline")
+    log(f"[9d] 2 x 8 x 60 s, decode_batches_pipelined(devices=[cuda:0, cuda:0]): every row "
+        f"equal to the one-device pipeline's; tone_ratios launches {pipe_launches} (one per "
+        f"batch); wall {pipe_wall:.3f} s")
+    return dict(timeshard_launches=ts_launches, dp_launches=dp_launches,
+                pipe_launches=pipe_launches)
+
+
 def main() -> int:
     smi, kind = phase0_device()
     phase1_build()
@@ -861,6 +980,7 @@ def main() -> int:
         piped = phase9a_pipeline(drops, bat)
         arch = phase9b_archive(tmp, drops, piped)
         phase9c_parity(tmp, drops, mono)
+        multi = phase9d_multi_device(drops, mono, bat, piped)
         phase10_profiles(drops, seg, k)
     assert "jax" not in sys.modules, "the port loaded jax"
     loaded = [m for m in sys.modules
@@ -873,6 +993,9 @@ def main() -> int:
         "launches_per_decode_batch": bat["launches"],
         "launches_pipeline_8_batches": piped["launches"],
         "launches_archive_8_batches": arch["launches"],
+        "launches_dp2_batch": multi["dp_launches"],
+        "launches_two_device_pipeline_2_batches": multi["pipe_launches"],
+        "launches_timeshard_decode": multi["timeshard_launches"],
         "max_abs_err": k["max_abs_err"], "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_us"] / 1e3,
         "bound_by": main_shape["bound_by"], "library_ms": None,

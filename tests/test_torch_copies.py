@@ -4,14 +4,17 @@ outputs as their sources.
 The port imports nothing of the JAX package, so it carries copies of
 ``utils.config``, ``utils.lut`` (with its data file), ``utils.timeparse``,
 ``utils.wavio``, ``utils.native`` (with its C++ source), ``models.metadata``,
-``ops.wire``'s encoders and the host parity engine's ``models.demod`` and
-``models.frames``.  Each case feeds both the same input and asks
+``ops.wire``'s encoders, the host parity engine's ``models.demod`` and
+``models.frames``, and the host-only helpers of the mesh paths
+(``batch.pad_to_multiple``, ``timeshard.pad_for_mesh``,
+``multihost.partition_corpus``).  Each case feeds both the same input and asks
 for equal results: arrays bitwise, dataclasses field by field, wire bytes
 with the C library and with ``AXCTD_NO_NATIVE=1`` (the numpy encoders).
 """
 
 import copy
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -22,6 +25,9 @@ from axctdprocessor_tpu.models import frames as jframes
 from axctdprocessor_tpu.models import metadata as jmd
 from axctdprocessor_tpu.ops import crc as jcrc
 from axctdprocessor_tpu.ops import wire as jwire
+from axctdprocessor_tpu.parallel import batch as jbatch
+from axctdprocessor_tpu.parallel import multihost as jmultihost
+from axctdprocessor_tpu.parallel import timeshard as jtimeshard
 from axctdprocessor_tpu.utils import config as jconfig
 from axctdprocessor_tpu.utils import lut as jlut
 from axctdprocessor_tpu.utils import timeparse as jtimeparse
@@ -29,6 +35,7 @@ from axctdprocessor_tpu.utils import native as jnative
 from axctdprocessor_tpu.utils import wavio as jwavio
 from axctdprocessor_tpu_torch.models import demod, frames, metadata, simulator
 from axctdprocessor_tpu_torch.ops import crc, wire
+from axctdprocessor_tpu_torch.parallel import batch, multihost, timeshard
 from axctdprocessor_tpu_torch.utils import config, lut, native, timeparse, wavio
 
 
@@ -280,3 +287,54 @@ def test_sync_profile_frames_and_crc_windows_equal_source(n):
     assert used == jused
     if n == 5000:
         assert len(starts) > 50
+
+
+@pytest.mark.parametrize("b,m", [(3, 2), (4, 2), (1, 4), (5, 8), (6, 3)])
+def test_pad_to_multiple_equals_source(b, m):
+    rng = np.random.default_rng(b * 10 + m)
+    rows = (rng.standard_normal((b, 37)) * 1000).astype(np.int16)
+    lengths = rng.integers(1, 37, b).astype(np.int32)
+    (got, got_len), got_b = batch.pad_to_multiple([rows, lengths], m)
+    (want, want_len), want_b = jbatch.pad_to_multiple([rows, lengths], m)
+    assert got_b == want_b == b and len(got) % m == 0
+    assert got.dtype == want.dtype and got_len.dtype == want_len.dtype
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_len, want_len)
+    if b % m:  # the padding repeats row 0
+        np.testing.assert_array_equal(got[b:], np.repeat(rows[:1], len(got) - b, axis=0))
+
+
+@pytest.mark.parametrize("fs,n,n_sp,dtype", [
+    (44100.0, 1852200, 4, np.float32), (44100.0, 1852201, 4, np.int16),
+    (44100.0, 1764 * 8, 8, np.int16), (16000.0, 672000, 8, np.float32),
+    (22050.0, 100001, 2, np.int32), (44100.0, 5000, 1, np.float32),
+])
+def test_pad_for_mesh_equals_source(fs, n, n_sp, dtype):
+    rng = np.random.default_rng(n % 1000)
+    rows = (rng.standard_normal((2, n)) * 100).astype(dtype)
+    got, want = timeshard.pad_for_mesh(rows, fs, n_sp), jtimeshard.pad_for_mesh(rows, fs, n_sp)
+    assert got.dtype == want.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+    assert got.shape[1] % (n_sp * int(round(fs / 25))) == 0 and got.shape[1] >= n
+    assert (got is rows) == (want is rows)  # nothing to pad: the input itself
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 5])
+def test_partition_corpus_equals_source(tmp_path, count):
+    """Files of different sizes, one missing (size 0): each host's slice is
+    the source's, and the slices are disjoint and cover the list."""
+    rng = np.random.default_rng(count)
+    paths = []
+    for i, size in enumerate(rng.integers(1, 5000, 11)):
+        paths.append(str(tmp_path / f"drop{i:02d}.wav"))
+        open(paths[-1], "wb").write(bytes(int(size)))
+    paths.append(str(tmp_path / "missing.wav"))
+    rng.shuffle(paths)
+    slices = [multihost.partition_corpus(paths, k, count) for k in range(count)]
+    for k in range(count):
+        assert slices[k] == jmultihost.partition_corpus(paths, k, count)
+    flat = [p for sl in slices for p in sl]
+    assert sorted(flat) == sorted(paths) and len(set(flat)) == len(paths)
+    if count > 1:
+        sizes = [sum(os.path.getsize(p) for p in sl if os.path.exists(p)) for sl in slices]
+        assert max(sizes) - min(sizes) <= 5000  # balanced to within one file

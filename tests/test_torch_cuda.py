@@ -239,3 +239,56 @@ def test_corpus_on_card(tmp_path):
         gpu, cpu = (set(ln.split(",")[1] for ln in open(tmp_path / d / f"drop{i}.txt")
                         if ln.count(",") == 5) for d in ("gpu", "cpu"))
         assert len(gpu) > 100 and len(gpu & cpu) / len(gpu | cpu) >= 0.99
+
+
+@pytest.mark.cuda
+def test_timesharded_decode_on_card():
+    """Two drops over a 2 x 2 mesh whose every place is the one card (the
+    caller's list repeats it): no kernel launch (plain tone powers), metadata
+    equal to the batch path's on the card and hexframe agreement >= 0.99."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.parallel import batch, timeshard
+    from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
+
+    rows = _three_drops()[:2]
+    mesh = make_mesh({"dp": 2, "sp": 2}, [torch.device("cuda", 0)] * 4)
+    before = tonepower.tone_ratios.launches
+    got = timeshard.decode_batch_timesharded(rows, 44100, mesh=mesh)
+    assert tonepower.tone_ratios.launches == before
+    want = batch.decode_batch(rows, 44100, device="cuda")
+    for g, w in zip(got, want):
+        assert g.status == w.status == 2 and g.overflow == 0
+        assert g.metadata == w.metadata
+        assert (g.firstpulse400, g.profstartind) == (w.firstpulse400, w.profstartind)
+        a, b = set(g.hexframes), set(w.hexframes)
+        assert len(a) > 100 and len(a & b) / len(a | b) >= 0.99
+
+
+@pytest.mark.cuda
+def test_dp_mesh_batch_on_card_equals_decode_batch():
+    """Three rows over ``dp = 2`` on the one card: one kernel launch per run
+    (two) and the padding row dropped; every row equal to ``decode_batch`` of
+    its run alone (rows 0-1, then row 2 with row 0 as padding).  The pipeline
+    with both halves' devices named: rows equal to ``decode_batch``'s."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
+    from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
+
+    def same(res, want):
+        assert len(res) == len(want) == 3
+        for g, w in zip(res, want):
+            assert g.status == w.status == 2 and g.overflow == 0
+            assert g.metadata == w.metadata and g.hexframes == w.hexframes
+            assert g.time == w.time
+
+    rows = _three_drops()
+    card = torch.device("cuda", 0)
+    runs = (batch.decode_batch(rows[:2], 44100, device="cuda")
+            + batch.decode_batch(rows[[2, 0]], 44100, device="cuda")[:1])
+    before = tonepower.tone_ratios.launches
+    got = batch.decode_batch(rows, 44100, mesh=make_mesh({"dp": 2}, [card] * 2))
+    assert tonepower.tone_ratios.launches == before + 2
+    same(got, runs)
+    piped = pipeline.decode_batches_pipelined([(rows, None)], 44100, devices=[card, card])
+    assert tonepower.tone_ratios.launches == before + 3
+    same(piped[0], batch.decode_batch(rows, 44100, device="cuda"))

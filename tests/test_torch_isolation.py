@@ -4,7 +4,9 @@ imports nothing of the JAX package.
 A fresh interpreter imports ``axctdprocessor_tpu_torch`` and decodes a
 short drop on the CPU through each path (monolithic, segmented, prestaged,
 stream and batch, the int4 wire through the port's C encoder, the host parity
-engine and its push decoder, a two-batch pipeline and a two-file corpus), and
+engine and its push decoder, a two-batch pipeline and a two-file corpus, a
+time-sharded decode on a 1 x 2 mesh and a batch over a ``dp`` mesh of the CPU,
+and the multi-host runner with one process), and
 resolves every lazy top-level name; importing the package alone loads no
 torch; neither jax
 nor any module of ``axctdprocessor_tpu`` may enter ``sys.modules``.  A scan
@@ -38,7 +40,8 @@ torch.set_num_threads(2)
 from axctdprocessor_tpu_torch import cli
 from axctdprocessor_tpu_torch.models import engine, segmented, simulator
 from axctdprocessor_tpu_torch.models.stream_device import DeviceStreamDecoder
-from axctdprocessor_tpu_torch.parallel import batch
+from axctdprocessor_tpu_torch.parallel import batch, multihost, timeshard
+from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
 from axctdprocessor_tpu_torch.utils import report
 spec = simulator.SimSpec(duration=40.0, profile_start=33.0, seed=3)
 pcm, truth = simulator.synthesize(spec)
@@ -56,6 +59,11 @@ host_stream = axctdprocessor_tpu_torch.AXCTDStreamDecoder(spec.fs)
 host_stream.feed(cond)
 piped = axctdprocessor_tpu_torch.decode_batches_pipelined(
     [(raw[None], None), (raw[None], None)], spec.fs, device="cpu")
+cpus = [torch.device("cpu")] * 2
+sharded = timeshard.decode_batch_timesharded(raw[None], spec.fs,
+                                             mesh=make_mesh({"dp": 1, "sp": 2}, cpus))
+meshed = batch.decode_batch(raw[None], spec.fs, mesh=make_mesh({"dp": 2}, cpus))
+assert meshed[0].hexframes == rows[0].hexframes
 with tempfile.TemporaryDirectory() as d:
     wavs = [os.path.join(d, f"drop{i}.wav") for i in range(2)]
     for w in wavs:
@@ -63,10 +71,13 @@ with tempfile.TemporaryDirectory() as d:
     manifest = axctdprocessor_tpu_torch.reprocess_corpus(
         wavs, os.path.join(d, "out"), batch_size=2, device="cpu")
     assert [e["status"] for e in manifest["files"].values()] == ["done", "done"]
+    hosted = multihost.reprocess_corpus_multihost(
+        wavs[:1], os.path.join(d, "hosted"), batch_size=2, device="cpu")
+    assert [e["status"] for e in hosted["files"].values()] == ["done"]
     assert cli.main(["-i", wavs[0], "-o", os.path.join(d, "parity.txt"), "--quiet",
                      "--engine", "parity"]) == 0
 for r in (res, seg, staged, stream.finalize(), rows[0], int4, parity,
-          host_stream.finalize(), piped[0][0], piped[1][0]):
+          host_stream.finalize(), piped[0][0], piped[1][0], sharded[0], meshed[0]):
     assert r.status == 2, r.status
     assert r.metadata["serial_no"] == truth["serial_no"]
     assert len(r.hexframes) > 100
