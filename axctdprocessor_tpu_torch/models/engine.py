@@ -54,6 +54,7 @@ from ..ops import header_device as hdr_ops
 from ..ops import wire as wire_ops
 from ..utils.config import DecoderConfig, resolve_settings
 from ..utils.lut import load_temp_lut
+from ..utils.profiling import StageTimer
 from . import frames as frames_host
 from . import metadata as md
 from .result import DecodeResult
@@ -108,11 +109,14 @@ def _f32_recip(d: float) -> float:
 # ---------------------------------------------------------------------------
 
 def sos_response_on_device(sos: torch.Tensor, nfft: int) -> torch.Tensor:
-    """SOS cascade frequency response at the rfft bins, complex64, computed
-    on the device from the raw coefficients (bin indices <= 2^24 stay exact
-    in float32)."""
-    k = torch.arange(nfft // 2 + 1, dtype=torch.float32, device=sos.device)
-    theta = k * float(np.float32(2.0 * np.pi / nfft))
+    """SOS cascade frequency response at the rfft bins, computed on the
+    device from the raw coefficients, in their precision: complex64 from
+    the float32 tables of every decode path (bin indices <= 2^24 stay exact
+    in float32), complex128 from float64 coefficients (``iir.sosfilt_fft``
+    of a float64 signal)."""
+    k = torch.arange(nfft // 2 + 1, dtype=sos.dtype, device=sos.device)
+    step = 2.0 * np.pi / nfft
+    theta = k * (step if sos.dtype == torch.float64 else float(np.float32(step)))
     z = torch.complex(torch.cos(theta), -torch.sin(theta))
     h = torch.complex(torch.ones_like(theta), torch.zeros_like(theta))
     for sec in range(sos.shape[0]):
@@ -125,11 +129,14 @@ def sos_response_on_device(sos: torch.Tensor, nfft: int) -> torch.Tensor:
 
 def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Unpack the 2-samples-per-byte int4 wire (even samples in the high
-    nibble, level + 8) to int32 PCM, along the last dimension."""
-    u = packed.to(torch.int32)
-    hi = (u >> 4) - 8
-    lo = (u & 15) - 8
-    return torch.stack([hi, lo], dim=-1).reshape(*u.shape[:-1], -1)[..., :n]
+    nibble, level + 8) to int32 PCM, along the last dimension.  The nibbles
+    are written straight into the interleaved int32 result: the only
+    waveform-sized temporaries are the two uint8 nibble planes."""
+    out = torch.empty(packed.shape + (2,), dtype=torch.int32, device=packed.device)
+    out[..., 0] = packed >> 4
+    out[..., 1] = packed & 15
+    out -= 8
+    return out.reshape(*packed.shape[:-1], -1)[..., :n]
 
 
 def condition_integer(pcm: torch.Tensor, n: int, n_valid) -> torch.Tensor:
@@ -664,6 +671,14 @@ def _designed_tables(key, fs: float, n_power: int, npcm: int):
     return power_trig, bit_trig, sos
 
 
+def back_half_tables(cfg: DecoderConfig, fs: float) -> dict:
+    """The back half's numpy tables: trigger thresholds, header window
+    offsets and the calibration offset."""
+    trig_i, trig_f = trigger_tables(cfg, fs)
+    return dict(trig_i=trig_i, trig_f=trig_f, hdr_rel=header_rel_offsets(fs),
+                calib_off=np.asarray(int(fs * 3.8), np.int32))
+
+
 def engine_tables(cfg: DecoderConfig, fs: float, dims: EngineDims,
                   decimate2: bool = False) -> dict:
     """The decode's constant numpy tables: tone matrices, demod SOS,
@@ -672,14 +687,36 @@ def engine_tables(cfg: DecoderConfig, fs: float, dims: EngineDims,
     what the JAX engine feeds its program."""
     key = (cfg.mark_freq, cfg.space_freq, cfg.dead_freq, cfg.use_bandpass)
     power_trig, bit_trig, sos = _designed_tables(key, fs, dims.n_power, dims.npcm)
-    trig_i, trig_f = trigger_tables(cfg, fs)
     tables = dict(power_trig=power_trig, bit_trig=bit_trig,
-                  sos=sos.astype(np.float32), trig_i=trig_i, trig_f=trig_f,
-                  hdr_rel=header_rel_offsets(fs),
-                  calib_off=np.asarray(int(fs * 3.8), np.int32))
+                  sos=sos.astype(np.float32), **back_half_tables(cfg, fs))
     if decimate2:
         tables["decim_sos"] = iir.design_decim_sos().astype(np.float32)
     return tables
+
+
+def qc_limits(cfg: DecoderConfig, dtype=np.float32) -> np.ndarray:
+    """The six in-profile QC limits as one array: min dR7500, min R400, the
+    temperature bounds, the salinity bounds."""
+    return np.asarray([cfg.min_dr7500_inprof, cfg.min_r400_inprof,
+                       cfg.tlims[0], cfg.tlims[1], cfg.slims[0], cfg.slims[1]],
+                      dtype=dtype)
+
+
+def fused_inputs(cfg: DecoderConfig, fs: float, dtype=np.float32, device="cpu") -> dict:
+    """The parameter arrays of one fused decode call as tensors on `device`,
+    under the JAX engine's names: the trigger, header-window and calibration
+    tables of :func:`engine_tables`, then the coefficient defaults (rows z,
+    t, c), the temperature LUT and the QC limits, which the device program
+    does not read (the host converts and filters in float64).
+    ``FusedDecoder`` registers the first four once, as buffers."""
+    dev = torch.device(device)
+    arrays = dict(
+        **back_half_tables(cfg, fs),
+        coeff_defaults=np.asarray(
+            [cfg.zcoeff_default, cfg.tcoeff_default, cfg.ccoeff_default], np.float32),
+        temp_lut=np.asarray(load_temp_lut(), dtype),
+        limits=qc_limits(cfg, dtype))
+    return {k: to_device(v, dev).reshape(np.shape(v)) for k, v in arrays.items()}
 
 
 def attach_profile(result: DecodeResult, out: dict, cfg: DecoderConfig,
@@ -794,6 +831,44 @@ def lossy_retry_worthy(res: DecodeResult, n: int, fs: float,
     return len(res.hexframes) < 0.25 * expected
 
 
+def trigger_scalars(r400: np.ndarray, r7500: np.ndarray, cfg: DecoderConfig,
+                    fs: float, d_pcm: int, n_valid: int | None = None):
+    """Host scalar logic over the 25 Hz power series (numpy): pulse
+    detection, 7500 Hz baseline, profile trigger; the host form of
+    :func:`trigger_core`.  Returns (firstpulse|-1, mean7500, profstart|-1).
+
+    ``n_valid`` is the true (pre-padding) sample count: decode inputs are
+    zero-padded to length buckets, and the hard-timeout trigger compares
+    against the *last* power window, so padding must not extend the grid."""
+    if n_valid is not None:
+        n_power = int(fs / 10)
+        n_win_true = max(int(math.ceil((n_valid - n_power) / d_pcm)), 1)
+        r400 = r400[:n_win_true]
+        r7500 = r7500[:n_win_true]
+    win_samples = np.arange(len(r400)) * d_pcm
+    pulse_hits = np.flatnonzero(r400 >= cfg.min_r400)
+    if pulse_hits.size == 0:
+        return -1, np.nan, -1
+    firstpulse = int(win_samples[int(pulse_hits[0])])
+
+    base_mask = (win_samples >= firstpulse + 4.5 * fs) & (
+        win_samples <= firstpulse + 5.5 * fs)
+    with np.errstate(invalid="ignore"):
+        mean7500 = float(np.nanmean(r7500[base_mask])) if base_mask.any() else np.nan
+
+    trig_mask = (win_samples > firstpulse + cfg.trigger_range[0] * fs) & (
+        r7500 - mean7500 >= cfg.min_dr7500)
+    profstart = -1
+    tone_path = not np.isnan(mean7500)
+    if tone_path and trig_mask.any():
+        profstart = int(win_samples[np.flatnonzero(trig_mask)[0]])
+    elif (cfg.trigger_range[1] > 0
+          and (cfg.compat == "fixed" or not tone_path)
+          and win_samples[-1] >= firstpulse + int(fs * cfg.trigger_range[1])):
+        profstart = firstpulse + int(fs * cfg.trigger_range[1])
+    return firstpulse, mean7500, profstart
+
+
 BUCKET_SECONDS = 15  # decode-length granularity: one shape per bucket
 AUTO_SEGMENT_SECONDS = 300  # "auto" sends longer waveforms to the segmented engine
 
@@ -809,19 +884,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def resolve_wire(wire: str) -> str:
-    """The wire for integer PCM.  ``"auto"`` is int16 until the card has
-    measured the lossy wires (the JAX package's ``default_wire`` asks
-    jax's backend and is never called here)."""
-    if wire not in wire_ops.WIRE_FORMATS:
-        raise ValueError(f"wire must be one of {wire_ops.WIRE_FORMATS}, got {wire!r}")
-    return "int16" if wire == "auto" else wire
+resolve_wire = wire_ops.resolve_wire  # the rule lives in ops.wire
 
 
 def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = None,
                     wire: str = "auto", mode: str = "auto",
                     lossy_retry: bool = True,
-                    use_kernel: bool = True) -> DecodeResult:
+                    use_kernel: bool = True, timer=None) -> DecodeResult:
     """Decode a conditioned float or raw-integer waveform on `device`.
 
     ``mode`` routes as the JAX engine does: "auto" sends waveforms longer
@@ -837,9 +906,12 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
     decode that comes back degenerate is retried once at int8
     (``lossy_retry``).  ``use_kernel=False`` takes the plain tone-ratio
     version on a GPU (comparison runs only; the segmented engine has no
-    kernel).
+    kernel).  ``timer`` (a ``StageTimer``) takes the host's wire encode
+    (``host_encode_stats``) and the padding, pinning and queueing of the
+    upload (``build_upload``), under the segmented engine's stage names.
     """
     dev = resolve_device(device)
+    timer = timer if timer is not None else StageTimer()
     cfg = config or DecoderConfig()
     pcm = np.asarray(pcm)
     pcm0, fs0 = pcm, fs  # pre-encode originals (the lossless retry's input)
@@ -853,11 +925,13 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
         from .segmented import decode_waveform_segmented
 
         return decode_waveform_segmented(pcm, fs, device=dev, config=cfg,
-                                         wire=wire, lossy_retry=lossy_retry)
+                                         wire=wire, lossy_retry=lossy_retry,
+                                         timer=timer)
     n_raw = int(len(pcm))
     if np.issubdtype(pcm.dtype, np.integer):
-        wire_used = resolve_wire(wire)
-        pcm = wire_ops.encode(pcm, wire_used)
+        wire_used = resolve_wire(wire, pcm.dtype, dev)
+        with timer.stage("host_encode_stats"):
+            pcm = wire_ops.encode(pcm, wire_used)
     else:
         wire_used = "float32"  # conditioned float PCM ships verbatim
     packed4 = pcm.dtype == np.uint8
@@ -872,14 +946,18 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
     rate_mult = 2 if decimate2 else 1
     unit = int(BUCKET_SECONDS * fs) * rate_mult
     n_padded = max(int(np.ceil(n_raw / unit)) * unit, unit)
-    if packed4:
-        n_padded += n_padded % 2
-        # pad with 0x88 (two zero-level nibbles) so the DC mean stays exact
-        need = n_padded // 2
-        if len(pcm) < need:
-            pcm = np.concatenate([pcm, np.full(need - len(pcm), 0x88, np.uint8)])
-    elif n_padded != n_raw:
-        pcm = np.concatenate([pcm, np.zeros(n_padded - n_raw, pcm.dtype)])
+    with timer.stage("build_upload"):
+        if packed4:
+            n_padded += n_padded % 2
+            # pad with 0x88 (two zero-level nibbles) so the DC mean stays exact
+            need = n_padded // 2
+            if len(pcm) < need:
+                pcm = np.concatenate([pcm, np.full(need - len(pcm), 0x88, np.uint8)])
+        elif n_padded != n_raw:
+            pcm = np.concatenate([pcm, np.zeros(n_padded - n_raw, pcm.dtype)])
+        if not np.issubdtype(pcm.dtype, np.integer):
+            pcm = pcm.astype(np.float32)
+        x = to_device(pcm, dev)
     n = (n_raw + 1) // 2 if decimate2 else n_raw
     dims = EngineDims.for_waveform(n_padded // rate_mult, fs, cfg.bitrate,
                                    probe_window(cfg, fs))
@@ -887,9 +965,6 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
         engine_tables(cfg, fs, dims, decimate2), dims, fs,
         bitrate=float(cfg.bitrate), bit_inset=cfg.bit_inset, edge_pad=100,
         decimate2=decimate2, use_kernel=use_kernel, device=dev)
-    if not np.issubdtype(pcm.dtype, np.integer):
-        pcm = pcm.astype(np.float32)
-    x = to_device(pcm, dev)
     with torch.inference_mode():
         out = model(x, torch.full((), n_raw, dtype=torch.int64, device=dev))
     host = out.cpu().numpy()  # the decode's one device-to-host transfer
@@ -897,14 +972,15 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
     if lossy_retry and lossy_retry_worthy(res, n, fs, cfg):
         return decode_waveform(pcm0, fs0, device=dev, config=cfg,
                                mode="monolithic", wire="int8",
-                               use_kernel=use_kernel)
+                               use_kernel=use_kernel, timer=timer)
     return res
 
 
 def decode_wav(path: str, timerange=(0, -1), settings: dict | None = None,
                compat: str = "strict", wire: str = "auto", *, device="cuda",
-               mode: str = "auto", use_kernel: bool = True) -> DecodeResult:
-    """Read and decode a WAV on `device` (``mode`` as in
+               mode: str = "auto", use_kernel: bool = True,
+               timer=None) -> DecodeResult:
+    """Read and decode a WAV on `device` (``mode`` and ``timer`` as in
     ``decode_waveform``).  int16 mono WAVs ship raw and are conditioned
     (and, above 50 kHz, decimated) on the device; other encodings take the
     host conditioning path."""
@@ -915,7 +991,8 @@ def decode_wav(path: str, timerange=(0, -1), settings: dict | None = None,
     raw = read_wav_raw16(path, timerange, allow_highrate=True)
     if raw is not None:
         return decode_waveform(raw[0], raw[1], device=device, config=cfg,
-                               wire=wire, mode=mode, use_kernel=use_kernel)
+                               wire=wire, mode=mode, use_kernel=use_kernel,
+                               timer=timer)
     pcm, fs = read_wav(path, timerange)
     return decode_waveform(pcm, fs, device=device, config=cfg, mode=mode,
-                           use_kernel=use_kernel)
+                           use_kernel=use_kernel, timer=timer)

@@ -286,7 +286,7 @@ def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
     enc = None
     with timer.stage("host_encode_stats"):
         if np.issubdtype(pcm.dtype, np.integer):
-            w = eng.resolve_wire(wire)
+            w = eng.resolve_wire(wire, pcm.dtype, dev)
             if w == "int4" and (seg_len % 2 or ext_len % 2):
                 w = "int8"  # packed slicing needs even segment boundaries
             if w == "int4":

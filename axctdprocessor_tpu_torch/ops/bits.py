@@ -1,8 +1,10 @@
-"""Bit/int/hex codecs for AXCTD frames (host, numpy).
+"""Bit/int/hex codecs for AXCTD frames (port of axctdprocessor_tpu.ops.bits).
 
-A jax-free copy of the ``*_np`` helpers of axctdprocessor_tpu.ops.bits
-(reference parse.py:331-379): MSB-first bit<->int packing and the
-nibble-at-a-time hex codec of the report's hex column.
+The ``*_np`` helpers are jax-free copies (reference parse.py:331-379):
+MSB-first bit<->int packing and the nibble-at-a-time hex codec of the
+report's hex column.  :func:`bits_to_int` and :func:`frames_to_nibbles` are
+the device forms, on tensors; torch is imported inside them, because the
+host parity engine imports this module.
 """
 
 from __future__ import annotations
@@ -39,3 +41,25 @@ def hex_to_bits_np(hexstr: str) -> np.ndarray:
     """Lowercase/uppercase hex string -> MSB-first bit vector (encoder side)."""
     vals = [int(ch, 16) for ch in hexstr]
     return np.concatenate([int_to_bits_np(v, 4) for v in vals])
+
+
+def bits_to_int(bits):
+    """MSB-first bit packing of a tensor along its last axis (multiply by
+    the 2^k weights and sum; integer matmuls have no CUDA kernel): int32."""
+    import torch
+
+    width = bits.shape[-1]
+    w = 1 << torch.arange(width - 1, -1, -1, dtype=torch.int32, device=bits.device)
+    return (bits.to(torch.int32) * w).sum(dim=-1, dtype=torch.int32)
+
+
+def frames_to_nibbles(frames):
+    """(N, 32) frame bits -> (N, 8) hex nibble values 0..15, int32, on the
+    frames' device; the host formats them with :func:`nibbles_to_hex_np`."""
+    return bits_to_int(frames.reshape(frames.shape[0], 8, 4))
+
+
+def nibbles_to_hex_np(nibbles) -> list[str]:
+    """(N, 8) nibble values -> list of 8-char lowercase hex strings (host)."""
+    nibbles = np.asarray(nibbles)
+    return ["".join(_HEXCHARS[v] for v in row) for row in nibbles]

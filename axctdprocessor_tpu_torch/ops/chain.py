@@ -37,6 +37,67 @@ def compact_indices(mask: torch.Tensor, size: int, fill: int):
     return out[:size], pos[-1] + 1
 
 
+def _block_compact_rows(m: torch.Tensor):
+    """Stable within-row compaction of a (n_blk, B) boolean mask's set lane
+    indices to the row front, via an LSB-first barrel shift.
+
+    Each set lane moves left by ``dist = lane - rank`` (the count of unset
+    lanes before it), which is non-decreasing along the row, so the log2(B)
+    power-of-two shift rounds never collide.  Element-wise ops and lane
+    rolls only.  Returns (lanes int64 (n_blk, B): set-lane indices packed at
+    the row front, garbage beyond the row's count; counts int64 (n_blk,))."""
+    n_blk, b_sz = m.shape
+    v = m > 0
+    lane = torch.arange(b_sz, device=m.device)[None, :]
+    pos = torch.cumsum(v.to(torch.int64), dim=1) - 1    # rank within row
+    counts = pos[:, -1] + 1
+    dist = torch.where(v, lane - pos, 0)                # left-shift amount
+    val = lane.expand(n_blk, b_sz)
+    step = 1
+    while step < b_sz:
+        move = v & ((dist & step) > 0)
+        # incoming occupant from lane + step (no wrap-around within a row)
+        can_recv = lane < b_sz - step
+        val_in = torch.roll(val, -step, dims=1)
+        dist_in = torch.roll(dist, -step, dims=1)
+        move_in = torch.roll(move, -step, dims=1) & can_recv
+        stay = v & ~move
+        val = torch.where(move_in, val_in, val)
+        dist = torch.where(move_in, dist_in - step, dist)
+        v = move_in | stay
+        step *= 2
+    return val, counts
+
+
+def compact_indices_blocked(mask: torch.Tensor, size: int, fill: int):
+    """Scatter-free compaction, a recorded negative result of the JAX
+    package: 128-lane blocks compact locally with a barrel shift, then the
+    result is stitched from per-block offsets with one size-bounded gather
+    (the block of each output slot comes from one mark per block start,
+    added into a size-length array and prefix-summed, not from a binary
+    search).  There it measured slower than the cumsum + scatter of
+    :func:`compact_indices` (more passes, each with a fixed cost); on an
+    NVIDIA GPU it is unmeasured, and no decode path calls it.  Returns what
+    :func:`compact_indices` returns, bit for bit."""
+    n = mask.shape[0]
+    dev = mask.device
+    b = 128
+    n_blk = -(-n // b)
+    m = torch.nn.functional.pad(mask.to(torch.bool), (0, n_blk * b - n)).reshape(n_blk, b)
+    lanes, counts = _block_compact_rows(m)
+    coff = torch.cumsum(counts, 0) - counts             # exclusive offsets
+    total = coff[-1] + counts[-1]
+    base = torch.arange(n_blk, device=dev) * b          # block -> global
+    marks = torch.zeros(size + 1, dtype=torch.int64, device=dev)
+    marks.index_add_(0, torch.clamp(coff, max=size), torch.ones_like(coff))
+    blk = torch.clamp(torch.cumsum(marks[:size], 0) - 1, 0, n_blk - 1)
+    j = torch.arange(size, device=dev)
+    r = torch.clamp(j - coff[blk], 0, b - 1)
+    vals = lanes.reshape(-1)[blk * b + r] + base[blk]
+    out = torch.where(j < torch.clamp(total, max=size), vals, fill)
+    return out, total
+
+
 def rowcap_for_fs(fs: float) -> int:
     """Per-128-sample-row survivor cap for crossing compaction at `fs`
     (crossings are >= fs/2600 samples apart behind the demod filter)."""

@@ -7,7 +7,8 @@ leaves remainder zero; by linearity the remainder of a window is the XOR of
 the remainders of its one-hot bits (:func:`parity_matrix`).
 
 The numpy part is a jax-free copy of the JAX module's.  The torch part runs
-on the device:
+on the device (torch is imported inside it: the host parity engine and the
+simulator import this module for the numpy part):
 
 * :func:`check_crc_words` — validity of pre-built frame words.  Torch has no
   uint32 shifts on the CPU and no popcount, so words are int64 holding the
@@ -19,7 +20,6 @@ on the device:
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 GENERATOR = np.array([1, 1, 0, 0, 1, 0, 1], dtype=np.uint8)
 FRAME_BITS = 32
@@ -34,6 +34,14 @@ def _remainder_np(bits: np.ndarray) -> np.ndarray:
         if r[k]:
             r[k: k + 7] ^= GENERATOR
     return r[DATA_BITS:]
+
+
+def check_crc_np(frame) -> bool:
+    """True iff the 32-bit frame passes CRC-6 (remainder == 0)."""
+    frame = np.asarray(frame, dtype=np.uint8)
+    if frame.shape != (FRAME_BITS,):
+        raise ValueError(f"frame must be 32 bits, got {frame.shape}")
+    return not _remainder_np(frame).any()
 
 
 def encode_crc_np(payload) -> np.ndarray:
@@ -80,16 +88,18 @@ _COLMASK = [int(sum(int(_PARITY[k, j]) << (31 - k) for k in range(FRAME_BITS)))
             for j in range(CRC_BITS)]
 
 
-def _parity32(v: torch.Tensor) -> torch.Tensor:
+def _parity32(v):
     """Parity (popcount mod 2) of the low 32 bits of non-negative int64s."""
     for s in (16, 8, 4, 2, 1):
         v = v ^ (v >> s)
     return v & 1
 
 
-def check_crc_words(words: torch.Tensor) -> torch.Tensor:
+def check_crc_words(words):
     """CRC validity from 32-bit frame words held in int64 (bit i of the
     window in bit 31-i).  A zero word reads as valid: callers mask the tail."""
+    import torch
+
     w = words.to(torch.int64)
     bad = torch.zeros_like(w)
     for mask in _COLMASK:
@@ -97,9 +107,11 @@ def check_crc_words(words: torch.Tensor) -> torch.Tensor:
     return bad == 0
 
 
-def check_crc_all_windows(bitstream: torch.Tensor) -> torch.Tensor:
+def check_crc_all_windows(bitstream):
     """CRC validity of every 32-bit sliding window of a 0/1 stream of
     length N; positions past N-32 are False."""
+    import torch
+
     bits = bitstream.to(torch.int64)
     n = bits.shape[0]
     rem = torch.zeros_like(bits)

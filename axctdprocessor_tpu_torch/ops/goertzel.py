@@ -2,6 +2,9 @@
 
 * :func:`tone_matrix` — the (window, 2F) cos/sin table, built on the host
   in float64 (a copy of the JAX module's numpy function).
+* :func:`framed_tone_power` — tone power of every strided window from the
+  gathered (n_win, window) frame matrix: the straightforward form, kept to
+  hold the tiled one against.
 * :func:`framed_tone_power_tiled` — tone power of every strided window,
   as one small matmul per stride-aligned table segment plus shifted adds
   (no (n_win, window) frame matrix).
@@ -35,6 +38,19 @@ def tone_matrix(window: int, freqs, fs: float, dtype=np.float64) -> np.ndarray:
 def _magnitudes(proj: torch.Tensor) -> torch.Tensor:
     re, im = proj[..., 0::2], proj[..., 1::2]
     return torch.sqrt(re * re + im * im)
+
+
+def framed_tone_power(x: torch.Tensor, window: int, stride: int,
+                      trig: torch.Tensor) -> torch.Tensor:
+    """Tone power of every length-`window` frame of a 1-D `x` at the given
+    stride: (n_win, F), frames starting at 0 with start < len(x) - window
+    (strict, reference AXCTDprocessor.py:357).  The frames are gathered
+    into an (n_win, window) matrix and multiplied by the table once."""
+    trig = torch.as_tensor(trig).to(dtype=x.dtype, device=x.device)
+    n_win = max(math.ceil((x.shape[0] - window) / stride), 0)
+    starts = torch.arange(n_win, device=x.device) * stride
+    frames = x[starts[:, None] + torch.arange(window, device=x.device)[None, :]]
+    return _magnitudes(frames @ trig)
 
 
 def framed_tone_power_tiled(x: torch.Tensor, window: int, stride: int,

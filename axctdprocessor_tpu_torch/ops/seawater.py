@@ -1,9 +1,12 @@
-"""Practical Salinity from conductivity (PSS-78), host numpy float64.
+"""Practical Salinity from conductivity (PSS-78; port of
+axctdprocessor_tpu.ops.seawater): PSS-78, Lewis 1980 / UNESCO 44, with the
+Hill et al. 1986 extension below SP = 2, as GSW's ``SP_from_C``.  ``C`` in
+mS/cm, ``t`` in ITS-90 degrees C, ``p`` in dbar.
 
-A jax-free copy of ``sp_from_c_np`` and its numpy core from
-axctdprocessor_tpu.ops.seawater (PSS-78, Lewis 1980 / UNESCO 44, with the
-Hill et al. 1986 extension below SP = 2, as GSW's ``SP_from_C``).
-``C`` in mS/cm, ``t`` in ITS-90 degrees C, ``p`` in dbar.
+:func:`sp_from_c_np` is the host's float64 numpy form (the decode's own);
+:func:`sp_from_c` the same branchless computation on tensors, in their
+dtype and on their device.  torch is imported inside it: the host parity
+engine imports this module.
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ def _hill_ratio_at_sp2(t68, ft68):
     return 2.0 / sp_hill_raw_at_sp2
 
 
-def _core(c, t, p):
+def _core(c, t, p, xp=np):
+    """Shared branchless computation; `xp` is numpy or torch."""
     t68 = t * 1.00024
     ft68 = (t68 - 15.0) / (1.0 + K * (t68 - 15.0))
     r = c / C3515
@@ -83,7 +87,7 @@ def _core(c, t, p):
         1.0 + D1 * t68 + D2 * t68 * t68 + (D3 + D4 * t68) * r
     )
     rt = r / (rp * rt_lc)
-    rtx = np.sqrt(rt)
+    rtx = xp.sqrt(rt)
     sp = _sp_poly(rtx, ft68)
 
     # Hill et al. (1986) low-salinity correction, applied where SP < 2
@@ -94,7 +98,7 @@ def _core(c, t, p):
     part2 = 1.0 + sqrty * (1.0 + sqrty * (1.0 + sqrty))
     sp_hill = hill_ratio * (sp - A[0] / part1 - B[0] * ft68 / part2)
 
-    sp = np.where(sp < 2.0, sp_hill, sp)
+    sp = xp.where(sp < 2.0, sp_hill, sp)
     return rt, sp
 
 
@@ -113,3 +117,17 @@ def sp_from_c_np(c, t, p):
         sp = np.where(rt < 0.0, GSW_INVALID_VALUE, sp)
         sp = np.where(sp < 0.0, GSW_INVALID_VALUE, sp)
     return sp
+
+
+def sp_from_c(c, t, p):
+    """Practical Salinity of tensors (broadcast against each other), in the
+    dtype of `c` and on its device; invalid inputs give
+    ``GSW_INVALID_VALUE`` and NaN propagates, as in :func:`sp_from_c_np`."""
+    import torch
+
+    c = torch.as_tensor(c)
+    t = torch.as_tensor(t, dtype=c.dtype, device=c.device)
+    p = torch.as_tensor(p, dtype=c.dtype, device=c.device)
+    rt, sp = _core(c, t, p, torch)
+    sp = torch.where(rt < 0.0, GSW_INVALID_VALUE, sp)
+    return torch.where(sp < 0.0, GSW_INVALID_VALUE, sp)

@@ -1,10 +1,11 @@
 """Compact host->device wire formats for raw PCM.
 
-A copy of axctdprocessor_tpu.ops.wire without ``default_wire`` and
-``resolve_wire`` (they ask jax for its backend): the port imports nothing
-of the JAX package, and ``models.engine.resolve_wire`` is its only resolver,
-so :func:`encode` and :func:`encode_rows` take a resolved wire.  The C
-encoders come from the port's own ``utils.native``.
+A copy of axctdprocessor_tpu.ops.wire: the port imports nothing of the JAX
+package.  :func:`default_wire` and :func:`resolve_wire` are the port's own
+(the JAX ones ask jax for its backend; these hold the card's measurement),
+and every decode path resolves its wire through them;
+:func:`encode` and :func:`encode_rows` take a resolved wire.  The C encoders
+come from the port's own ``utils.native``.
 
 A 600 s drop is 53 MB as int16.  This module quantizes integer PCM to int8
 or noise-shaped int4 on the host (one fused pass) so the upload shrinks.
@@ -29,6 +30,47 @@ from __future__ import annotations
 import numpy as np
 
 WIRE_FORMATS = ("auto", "int16", "int8", "int4")
+
+
+def default_wire(device=None) -> str:
+    """The wire ``"auto"`` stands for on `device`: int16, on every device
+    and every path (the JAX package picks noise-shaped int4 on a TPU).
+
+    Measured, not assumed (``chip_smoke.py`` phase 9e; NVIDIA H100 80GB
+    HBM3, 700.00 W; warm walls, median of 3 taken in turns; six runs of
+    the phase, on hosts of different speed).  The 600 s drop at int16 /
+    int8 / int4, one run: monolithic 0.1717 / 0.2367 / 0.3863 s ([0.2143,
+    0.1708, 0.1717], [0.2822, 0.1985, 0.2367], [0.3863, 0.5523, 0.3348]),
+    segmented 0.3320 / 0.3641 / 0.5184 s; the 64 x 60 s archive rows through
+    ``decode_batch`` 8 x 8 3.685 / 3.982 / 8.132 s (at int4 20 of the 64 rows
+    collapse and are decoded again at int8).  Over the runs, against int16
+    in the same run: int4 is 0.10-0.25 s slower monolithic, 0.09-0.19 s
+    segmented and 2.2-2.4x on the rows, every time.  int8 is from 0.003 s
+    faster to 0.070 s slower monolithic (mean +0.03 s), from 0.043 s faster
+    to 0.059 s slower segmented (mean +0.003 s over five runs, the sign
+    changing from run to run: its encode costs what its smaller chunks
+    save), and from 0.04 s faster to 0.30 s slower on the rows: no gain
+    that repeats.  A smaller wire saves under 1 ms of a 1.15 ms pinned copy
+    (52.9 MB) and costs the host 20-32 ms (int8) or 135-177 ms (int4) of
+    encoding per 600 s, on paths whose wall is the host queueing kernel
+    launches.  So no lossy wire is the default on any path; the argument
+    stays for callers who want the smaller upload.  One function holds the
+    decision: a card or a host that changes the measurement changes this
+    body."""
+    return "int16"
+
+
+def resolve_wire(wire: str, dtype, device=None) -> str:
+    """Resolve a wire request against the input dtype (floats ship as they
+    are, "int16" meaning no re-encoding: they arrive conditioned and are
+    not renormalized on the device); ``"auto"`` is :func:`default_wire` of
+    `device`.  The one place where a decode path's wire is decided; results,
+    reports and manifests record the wire used."""
+    if wire not in WIRE_FORMATS:
+        raise ValueError(f"wire must be one of {WIRE_FORMATS}, got {wire!r}")
+    if not np.issubdtype(np.dtype(dtype), np.integer):
+        return "int16"
+    return default_wire(device) if wire == "auto" else wire
 
 
 def _widened(x: np.ndarray) -> np.ndarray:
@@ -258,12 +300,11 @@ def int4_stats(packed: np.ndarray, n: int) -> tuple[float, float]:
 
 
 def _wire_for(wire: str, dtype) -> str:
-    """A resolved wire checked against the input dtype: floats ship as-is
-    (they arrive already conditioned and are not renormalized on the
-    device).  ``"auto"`` is resolved by the caller."""
-    if wire not in WIRE_FORMATS or wire == "auto":
+    """A resolved wire checked against the input dtype (:func:`resolve_wire`;
+    ``"auto"`` is resolved by the caller, who knows the device)."""
+    if wire == "auto":
         raise ValueError(f"wire must be one of {WIRE_FORMATS[1:]}, got {wire!r}")
-    return wire if np.issubdtype(np.dtype(dtype), np.integer) else "int16"
+    return resolve_wire(wire, dtype)
 
 
 def encode(pcm: np.ndarray, wire: str) -> np.ndarray:

@@ -110,7 +110,7 @@ class BatchPlan:
             raise ValueError("pass unpacked integer rows with wire='int4'; "
                              "pre-packed nibble streams lose the sample count")
         self.integer = np.issubdtype(dtype, np.integer)
-        self.wire_used = eng.resolve_wire(wire) if self.integer else "float32"
+        self.wire_used = eng.resolve_wire(wire, dtype, self.dev) if self.integer else "float32"
         if self.wire_used == "int4":
             n += n % 2  # packed int4 rows carry an even sample count
         cfg = self.cfg

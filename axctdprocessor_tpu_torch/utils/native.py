@@ -181,6 +181,18 @@ def quantize_int8_native(x: np.ndarray):
     return out
 
 
+def quantize_int4_native(x: np.ndarray):
+    """int16 -> packed int4 wire quantization in C (plain nearest-even
+    rounding, no noise shaping), or None."""
+    lib = get_library()
+    if lib is None or x.dtype != np.int16:
+        return None
+    x = np.ascontiguousarray(x)
+    out = np.empty((len(x) + 1) // 2, np.uint8)
+    lib.axctd_quantize_int4(x, len(x), out)
+    return out
+
+
 def quantize_int4_ns_native(x: np.ndarray):
     """int16 -> packed int4 with first-order noise shaping in C, or None.
 

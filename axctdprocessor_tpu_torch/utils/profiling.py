@@ -1,9 +1,11 @@
-"""Per-stage wall-clock timing of the decode pipelines.
+"""Per-stage wall-clock timing and a profiler hook (port of
+axctdprocessor_tpu.utils.profiling).
 
-A copy of ``StageTimer`` from axctdprocessor_tpu.utils.profiling (the
-module's ``device_trace`` wraps ``jax.profiler`` and is not copied; on the
-card ``torch.profiler`` takes its place): the port imports nothing of the
-JAX package.
+* :class:`StageTimer` — a copy of the JAX package's: wall-clock stage
+  accounting of the decode pipelines;
+* :func:`device_trace` — a context manager around ``torch.profiler`` that
+  writes a Chrome trace into a directory when one is given (a no-op
+  otherwise), where the JAX package's wraps ``jax.profiler.trace``.
 """
 
 from __future__ import annotations
@@ -40,3 +42,27 @@ class StageTimer:
 
     def as_dict(self) -> dict:
         return {k: round(v, 6) for k, v in self.totals.items()}
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | None):
+    """Capture a ``torch.profiler`` trace (host activity, and the card's
+    where there is one) of the enclosed work into
+    `trace_dir`/``trace.json``, a Chrome trace (None = no-op).  A process
+    that has run the profiler launches kernels more slowly afterwards:
+    trace last, or in a process of its own."""
+    if not trace_dir:
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

@@ -19,9 +19,11 @@ Phases, one line each or more (any failure raises and exits non-zero):
    a 600 s 44.1 kHz tone-plus-noise signal, a length that is no multiple of
    the stride, a zero-padded tail, a 16 kHz case, a 22.05 kHz case (stride
    882: tiles not 16-byte aligned), a batch of 3 rows whose n is no
-   multiple of 4, then the batch path's input (the conditioned archive
-   batch) as B = 8 and B = 64 rows of 60 s; each batch row bitwise equal to
-   the 1-D kernel.  Per shape: median CUDA-event times per call over 20
+   multiple of 4, the 600 s bench drop as the lossy-wire paths hand it to
+   the kernel (encoded on the host at int8 and at int4, unpacked and
+   conditioned on the card), then the batch path's input (the conditioned
+   archive batch) as B = 8 and B = 64 rows of 60 s; each batch row bitwise
+   equal to the 1-D kernel.  Per shape: median CUDA-event times per call over 20
    runs of 10 back-to-back calls after a warm-up, kernel and plain in
    turns; the bound (the
    bytes at 3.35 TB/s against the flop at 66.9 TFLOP/s) and the share of
@@ -70,11 +72,32 @@ Phases, one line each or more (any failure raises and exits non-zero):
    kernel launch per ``dp`` run; 2 batches of 8 through
    ``decode_batches_pipelined(devices=[cuda:0, cuda:0])``, rows equal to
    phase 9a's;
+9e. the lossy wires (int8, noise-shaped int4, the int8 retry) on the card:
+   ``unpack_int4`` bit-equal and ``condition_integer`` within 1e-6 of the
+   CPU on the host's encodings of the 600 s drop, an odd length and 8
+   archive rows; the 600 s WAV through ``decode_wav(wire=w, mode=m)`` for
+   the three wires and both modes (phase 3's gates, ``res.wire == w``,
+   agreement with the int16 decode >= 0.99; warm walls in turns, the
+   host's encode and upload-building times, H2D bytes and the time of one
+   pinned copy of that size, peak device memory; at int4 the row-cap bit
+   of ``overflow`` is reported and allowed, no other bit at any wire); the
+   64 archive rows through ``decode_batch`` 8 x 8 at the three wires with
+   ``lossy_retry=True`` (every row status 2 with the true serial, the rows
+   decoded again at int8 and the kernel launches they cost, agreement with
+   the int16 rows, three walls per wire in turns), the same at int4 through
+   ``decode_batches_pipelined`` and ``reprocess_corpus`` (rows and report
+   bytes equal to ``decode_batch``'s, the manifest's wire per file); one
+   drop that collapses at int4 on the card through ``decode_waveform`` with
+   the retry (int8, status 2, two kernel launches) and without (int4,
+   degenerate); the CLI's ``--wire int4`` against the in-process decode;
+9f. ``iir.sosfilt`` (the parallel scan form, float64) on one second of the
+   600 s drop on the card against ``iir.sosfilt_fft`` and its CPU run;
 10. ``torch.profiler`` last, after every wall (a process that has run the
    profiler launches more slowly from then on): one segmented, one
    monolithic and one time-sharded decode of the 600 s drop and
-   one batch of 64 (launches, device idle share, the upload), one pipelined
-   run of 8 x 8, then the kernel's device time at each phase-2 shape.
+   one batch of 8 of the archive rows (launches, device idle share, the
+   upload), one pipelined run of 2 x 8, then the kernel's device time at
+   each phase-2 shape.
 
 Each path is driven with the kernel's launch count set to 0 just before
 and read just after.  At the end neither jax nor any module of the JAX
@@ -106,8 +129,17 @@ KERNEL_SOURCE = "axctdprocessor_tpu_torch/ops/kernels/tone_ratios.cu"
 REPLACES = "axctdprocessor_tpu/ops/pallas/tonepower.py:110"
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(phase: str) -> None:
+    """One line per finished phase with the seconds since the script began,
+    so that a run shows where its time went."""
+    log(f"[t] phase {phase} done at {time.perf_counter() - T0:.0f} s")
 
 
 def phase0_device() -> tuple[str, str]:
@@ -351,6 +383,18 @@ def _kernel_cases(drops: dict) -> list:
          torch.stack([tone_signal(44100.0, int(50 * 44100) + 777, tail)
                       for tail in (0.0, 0.1, 0.3)]), 44100.0),
     ]
+    # what the kernel sees on the lossy-wire paths: the 600 s bench drop
+    # encoded on the host, then unpacked and conditioned on the card
+    from axctdprocessor_tpu_torch.ops import wire as wire_ops
+    from axctdprocessor_tpu_torch.utils.wavio import read_wav_raw16
+
+    raw, _ = read_wav_raw16(drops["wav"])
+    n_raw = len(raw)
+    for w in ("int8", "int4"):
+        enc = torch.from_numpy(wire_ops.encode(raw, w)).to(dev)
+        cases.append((f"600 s bench drop, {w} wire conditioned on the card",
+                      engine.conditioned(enc, torch.full((), n_raw, device=dev))[:n_raw]
+                      .contiguous(), 44100.0))
     rows = torch.from_numpy(drops["batch"]).to(dev)
     n = rows.shape[1]
     cond = engine.condition_integer(rows, n, torch.full((rows.shape[0],), n, device=dev))
@@ -406,9 +450,9 @@ def phase2_kernel(drops: dict) -> dict:
 def phase10_profiles(drops: dict, seg: dict, k: dict) -> None:
     """``torch.profiler`` runs, after every wall: a process that has run the
     profiler launches kernels more slowly from then on, which would load the
-    walls of phases 3-9.  One segmented decode, one batch of 64 and one
-    pipelined run of 8 x 8, then the kernel's device time at each phase-2
-    shape."""
+    walls of phases 3-9.  One segmented, one monolithic and one time-sharded
+    decode, one batch of 8 rows and one pipelined run of 2 x 8, then the
+    kernel's device time at each phase-2 shape."""
     from axctdprocessor_tpu_torch.models import engine, segmented
     from axctdprocessor_tpu_torch.ops import tonepower
     from axctdprocessor_tpu_torch.parallel import batch, pipeline, timeshard
@@ -423,11 +467,14 @@ def phase10_profiles(drops: dict, seg: dict, k: dict) -> None:
     mesh = make_mesh({"dp": 1, "sp": 4}, [torch.device("cuda", 0)] * 4)
     log("[10] 600 s time-sharded decode, dp 1 x sp 4 on the one card: "
         + profile_run(lambda: timeshard.decode_batch_timesharded(raw[None], fs, mesh=mesh)))
-    log("[10] batch 1 x 64 x 60 s: "
-        + profile_run(lambda: batch.decode_batch(drops["batch"], drops["batch_fs"],
+    # 8 and 16 of the 64 rows: the launches per row and the idle share are
+    # those of the whole batch, and the profiler's own bookkeeping of a
+    # quarter of a million launches took half of this script's time
+    log("[10] batch 1 x 8 x 60 s: "
+        + profile_run(lambda: batch.decode_batch(drops["batch"][:8], drops["batch_fs"],
                                                  device="cuda")))
-    batches = [(sub, None) for sub in np.split(drops["batch"], 8)]
-    log("[10] pipeline 8 x 8 x 60 s: "
+    batches = [(sub, None) for sub in np.split(drops["batch"][:16], 2)]
+    log("[10] pipeline 2 x 8 x 60 s: "
         + profile_run(lambda: pipeline.decode_batches_pipelined(batches, drops["batch_fs"],
                                                                 device="cuda")))
     for rec, (_, xd, fs) in zip(k["shapes"], _kernel_cases(drops)):
@@ -447,12 +494,19 @@ def _agreement(a, b) -> float:
     return len(a & b) / max(len(a | b), 1)
 
 
-def _gates(res, truth) -> float:
-    """The 600 s drop's gates; returns the share of hexframes in the truth."""
+ROW_CAP_BIT = 1  # DecodeResult.overflow bit 0: stage 1 dropped crossings
+
+
+def _gates(res, truth, allow_row_cap: bool = False) -> float:
+    """The 600 s drop's gates; returns the share of hexframes in the truth.
+    ``allow_row_cap`` lets the stage-1 truncation bit of ``overflow`` pass
+    (the int4 wire only, see ``_wire_long_drop``); the edge-table and
+    frame-sync bits never do."""
     assert res.status == 2, res.status
     for key in ("serial_no", "probe_code", "max_depth"):
         assert res.metadata[key] == truth[key], (key, res.metadata[key])
-    assert res.overflow == 0, res.overflow
+    allowed = ROW_CAP_BIT if allow_row_cap else 0
+    assert res.overflow & ~allowed == 0, res.overflow
     assert len(res.time) > 1000, len(res.time)
     truth_set = set(truth["frame_hex"])
     in_truth = sum(h in truth_set for h in res.hexframes) / len(res.hexframes)
@@ -964,24 +1018,377 @@ def phase9d_multi_device(drops: dict, mono: dict, bat: dict, piped: dict) -> dic
                 pipe_launches=pipe_launches)
 
 
+WIRES = ("int16", "int8", "int4")
+DEV = "cuda"  # the device of the wire phase's tensors and decodes
+
+
+def _h2d_ms(nbytes: int) -> float:
+    """Median CUDA-event time of one pinned host-to-device copy of `nbytes`."""
+    host = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    host.to(DEV, non_blocking=True)
+    return statistics.median(_event_ms(lambda: host.to(DEV, non_blocking=True))
+                             for _ in range(5))
+
+
+def _wire_tensors(raw: np.ndarray, rows: np.ndarray) -> None:
+    """Item 1 of the wire phase: ``unpack_int4`` and ``condition_integer`` on
+    the card against the CPU, on the host's encodings of the 600 s drop, of
+    an odd length and of 8 archive rows."""
+    from axctdprocessor_tpu_torch.models import engine
+    from axctdprocessor_tpu_torch.ops import wire as wire_ops
+
+    def both(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t, t.to(DEV)
+
+    n = len(raw)
+    odd = raw[: 1_000_001]
+    cases = [("600 s", wire_ops.encode(raw, "int4"), n),
+             ("odd n", wire_ops.encode(odd, "int4"), len(odd)),
+             ("8 rows", wire_ops.quantize_int4_packed_rows(rows[:8]), rows.shape[1])]
+    for name, packed, width in cases:
+        assert packed.dtype == np.uint8 and packed.shape[-1] == (width + 1) // 2, name
+        cpu, card = both(packed)
+        u_cpu, u_card = engine.unpack_int4(cpu, width), engine.unpack_int4(card, width)
+        assert u_card.dtype == torch.int32 and u_card.shape[-1] == width, name
+        assert torch.equal(u_card.cpu(), u_cpu), f"unpack_int4 differs on the card: {name}"
+        assert int(u_cpu.abs().max()) <= 7, name
+    q_cpu, q_card = both(wire_ops.quantize_int8_rows(rows[:8]))
+    assert torch.equal(q_card.to(torch.int32).cpu(), q_cpu.to(torch.int32))
+    seen = {}
+    for w in ("int8", "int4"):
+        cpu, card = both(wire_ops.encode(raw, w))
+        if w == "int4":
+            cpu, card = engine.unpack_int4(cpu, n), engine.unpack_int4(card, n)
+        c_cpu = engine.condition_integer(cpu, n, torch.full((), n))
+        c_card = engine.condition_integer(card, n, torch.full((), n, device=DEV))
+        seen[w] = float((c_card.cpu() - c_cpu).abs().max())
+        assert seen[w] <= 1e-6, (w, seen[w])
+    log(f"[9e] unpack_int4 on the card bit-equal to the CPU: the 600 s drop ({n} samples), an "
+        f"odd n ({len(odd)}), 8 archive rows (quantize_int4_packed_rows); quantize_int8_rows "
+        f"as int32 equal; condition_integer card against CPU, max abs difference int8 "
+        f"{seen['int8']:.3g}, int4 {seen['int4']:.3g} (tolerance 1e-6: the f32 sum's order "
+        f"is the device's own)")
+
+
+def _wire_long_drop(drops: dict, raw: np.ndarray, fs) -> dict:
+    """Item 2: the 600 s WAV through ``decode_wav`` at every wire, monolithic
+    and segmented.  Returns the decodes by (mode, wire).
+
+    At int4 the quiet lead-in before the first pulse quantizes to the zero
+    level, so the filtered signal there is a constant of about 1e-6 under
+    the FFT's own rounding noise, whose sign flips are counted as
+    crossings: where one 128-sample row collects more than the row cap of
+    16, stage 1 drops the extra ones and raises bit 0 of ``overflow``.
+    Whether a row does depends on the FFT's rounding (the card's and the
+    CPU's differ).  That bit is reported and allowed at int4 and at no
+    other wire; every other gate holds at every wire."""
+    from axctdprocessor_tpu_torch.models import engine, segmented
+    from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.utils.profiling import StageTimer
+
+    wav, truth = drops["wav"], drops["truth"]
+    item = {"int16": 2.0, "int8": 1.0, "int4": 0.5}
+    _, _, seg_len, right, _ = segmented._seg_geometry(float(fs))
+    seg_bytes = -(-len(raw) // seg_len) * (segmented.LEFT_HALO + seg_len + right)
+    kept = {}
+    for mode in ("monolithic", "segmented"):
+        first = {}
+        for w in WIRES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tonepower.tone_ratios.launches = 0
+            res = engine.decode_wav(wav, device=DEV, wire=w, mode=mode)
+            launches = tonepower.tone_ratios.launches
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            assert res.wire == w, (mode, w, res.wire)
+            assert launches == (1 if mode == "monolithic" else 0), (mode, w, launches)
+            in_truth = _gates(res, truth, allow_row_cap=w == "int4")
+            agree = _agreement(res.hexframes, kept.get((mode, "int16"), res).hexframes)
+            assert agree >= 0.99, (mode, w, agree)
+            kept[mode, w] = res
+            first[w] = (in_truth, agree, peak, launches)
+        walls = {w: [] for w in WIRES}
+        stages = {w: [] for w in WIRES}
+        for _ in range(3):  # in turns: walls drift within a process
+            for w in WIRES:
+                timer = StageTimer()
+                walls[w] += _walls(lambda: engine.decode_wav(
+                    wav, device=DEV, wire=w, mode=mode, timer=timer), 1)
+                stages[w].append(dict(timer.totals))
+        for w in WIRES:
+            in_truth, agree, peak, launches = first[w]
+            nbytes = int((len(raw) if mode == "monolithic" else seg_bytes) * item[w])
+            enc = [1e3 * (s.get("host_encode_stats", 0.0) + s.get("  encode_chunks", 0.0))
+                   for s in stages[w]]
+            up = [1e3 * (s.get("build_upload", 0.0) + s.get("  build_upload", 0.0))
+                  for s in stages[w]]
+            log(f"[9e] 600 s {mode} at wire {w}: status 2, serial, probe and max depth = truth, "
+                f"overflow {kept[mode, w].overflow}, rows {len(kept[mode, w].time)}, frames "
+                f"{len(kept[mode, w].hexframes)}, in truth {in_truth:.4f}, agreement with the "
+                f"int16 decode {agree:.4f} (gate 0.99), res.wire {kept[mode, w].wire}, "
+                f"tone_ratios launches {launches}; warm wall (median of 3, in turns) "
+                f"{statistics.median(walls[w]):.4f} s {[round(x, 4) for x in walls[w]]}, host "
+                f"encode {statistics.median(enc):.2f} ms {[round(x, 2) for x in enc]}, build + "
+                f"pin + queue the upload {statistics.median(up):.2f} ms, H2D {nbytes} bytes "
+                f"{_h2d_ms(nbytes):.3f} ms (one pinned copy of that size), peak device memory "
+                f"{peak:.2f} GiB")
+    return kept
+
+
+def _wire_rows(tmp: str, drops: dict) -> list:
+    """Item 3: the 64 noisy archive rows through ``decode_batch`` 8 x 8 at
+    every wire with the int8 retry on, then at int4 through the pipeline and
+    the archive runner.  Returns the indices of the rows the retry decoded
+    again."""
+    from scipy.io import wavfile
+
+    from axctdprocessor_tpu_torch.models import engine
+    from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
+    from axctdprocessor_tpu_torch.parallel.archive import reprocess_corpus
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig, resolve_settings
+    from axctdprocessor_tpu_torch.utils.report import write_report
+
+    rows, fs, truth = drops["batch"], drops["batch_fs"], drops["batch_truth"]
+    subs = np.split(rows, 8)
+    cfg = DecoderConfig()
+    out, runs = {}, {w: [] for w in WIRES}
+    for w in WIRES:
+        batch.decode_batch(subs[0], fs, device=DEV, wire=w)  # warm-up
+    for turn in range(3):  # in turns: walls drift within a process
+        for w in WIRES:
+            if w == "int4" and turn:  # at over twice the wall, once tells enough
+                continue
+            torch.cuda.synchronize()
+            tonepower.tone_ratios.launches = 0
+            t0 = time.perf_counter()
+            res = [r for sub in subs for r in batch.decode_batch(sub, fs, device=DEV, wire=w)]
+            runs[w].append((time.perf_counter() - t0, tonepower.tone_ratios.launches, res))
+    for w in WIRES:
+        walls = [run[0] for run in runs[w]]
+        wall, (_, launches, res) = statistics.median(walls), runs[w][0]
+        assert all([r.wire for r in run[2]] == [r.wire for r in res] for run in runs[w]), w
+        retried = [i for i, r in enumerate(res) if r.wire != w]
+        for i, r in enumerate(res):
+            allowed = ROW_CAP_BIT if r.wire == "int4" else 0  # see _wire_long_drop
+            assert r.status == 2 and r.overflow & ~allowed == 0, (w, i, r.status, r.overflow)
+            assert r.metadata["serial_no"] == truth["serial_no"], (w, i)
+            assert r.wire == ("int8" if i in retried else w), (w, i, r.wire)
+            assert not engine.lossy_retry_worthy(r, rows.shape[1], float(fs), cfg), (w, i)
+        assert w == "int4" or not retried, (w, retried)
+        redone_batches = len({i // 8 for i in retried})
+        assert launches == 8 + redone_batches, (w, launches, redone_batches)
+        agrees = [_agreement(r.hexframes, ref.hexframes)
+                  for r, ref in zip(res, out.get("int16", (res,))[0])]
+        assert statistics.mean(agrees) >= 0.99 and min(agrees) >= 0.97, (w, min(agrees))
+        out[w] = (res, wall)
+        log(f"[9e] 64 x 60 s noisy rows, decode_batch 8 x 8 at wire {w}, lossy_retry on: every "
+            f"row status 2, serial = truth, rows with the row-cap bit of overflow "
+            f"{sum(r.overflow != 0 for r in res)}, no other bit; rows decoded again at int8: "
+            f"{len(retried)} {retried} (each comes back wire int8, in {redone_batches} batches); "
+            f"tone_ratios launches {launches} (8 + one per batch with a retry); hexframe "
+            f"agreement with the int16 rows mean {statistics.mean(agrees):.4f} min "
+            f"{min(agrees):.4f} (gates 0.99 and 0.97); wall (median of {len(walls)}, in turns) "
+            f"{wall:.3f} s {[round(x, 3) for x in walls]} ({64 * 60.0 / wall:.1f}x realtime)")
+    want, _ = out["int4"]
+    retried = [i for i, r in enumerate(want) if r.wire == "int8"]
+    with count_syncs() as syncs:
+        q_out, ctx = batch.dispatch_batch(subs[0], fs, device=DEV, wire="int4")
+    first = batch.finish_dispatched(q_out, ctx)
+    with count_syncs() as retry_syncs:
+        batch.retry_lossy_rows(first, subs[0], fs, device=DEV)
+    log(f"[9e] host syncs in dispatch_batch of 8 rows at int4: {syncs['n']}; in "
+        f"retry_lossy_rows of that batch ({sum(i < 8 for i in retried)} rows decoded again): "
+        f"{retry_syncs['n']}")
+    assert syncs["n"] == 0, syncs["n"]
+
+    def same(got, name):
+        assert len(got) == len(want), name
+        for i, (r, ref) in enumerate(zip(got, want)):
+            assert (r.status, r.wire, r.overflow) == (ref.status, ref.wire, ref.overflow), (name, i)
+            assert r.hexframes == ref.hexframes and r.metadata == ref.metadata, (name, i)
+            assert r.time == ref.time, (name, i)
+
+    t0 = time.perf_counter()
+    piped = pipeline.decode_batches_pipelined([(sub, None) for sub in subs], fs, device=DEV,
+                                              wire="int4")
+    pipe_wall = time.perf_counter() - t0
+    same([r for b in piped for r in b], "pipeline at int4")
+
+    corpus = os.path.join(tmp, "corpus")  # the archive phase's WAVs, where it ran
+    os.makedirs(corpus, exist_ok=True)
+    paths = [os.path.join(corpus, f"row{i:02d}.wav") for i in range(len(rows))]
+    for path, row in zip(paths, rows):
+        if not os.path.exists(path):
+            wavfile.write(path, int(fs), row)
+    out_dir = os.path.join(tmp, "archive_out_int4")
+    t0 = time.perf_counter()
+    manifest = reprocess_corpus(paths, out_dir, batch_size=8, device=DEV, wire="int4")
+    corpus_wall = time.perf_counter() - t0
+    rcfg = resolve_settings(None)
+    echo = {"minR400": rcfg.min_r400, "mindR7500": rcfg.min_dr7500, "deadfreq": rcfg.dead_freq,
+            "pointsperloop": 100000, "triggerrange": list(rcfg.trigger_range)}
+    ref_txt = os.path.join(tmp, "want_int4.txt")
+    for path, res in zip(paths, want):
+        write_report(ref_txt, res, path, [0, -1], echo, rcfg)
+        name = os.path.basename(path)
+        got = os.path.join(out_dir, name[:-4] + ".txt")
+        assert open(got, "rb").read() == open(ref_txt, "rb").read(), path
+        entry = manifest["files"][name]
+        assert entry["status"] == "done" and entry["wire"] == res.wire, (name, entry)
+    log(f"[9e] the same rows at int4 through decode_batches_pipelined (wall {pipe_wall:.3f} s) "
+        f"and reprocess_corpus(batch_size=8, wire=\"int4\") (wall {corpus_wall:.3f} s, "
+        f"{len(rows) / corpus_wall:.2f} drops/s): rows (status, wire, hexframes, metadata, "
+        f"time) and report bytes equal to decode_batch's at int4; the manifest records "
+        f"{sum(v['wire'] == 'int8' for v in manifest['files'].values())} files as int8, the "
+        f"rest as int4")
+    return retried
+
+
+def _wire_forced_retry(drops: dict, retried: list) -> int:
+    """Item 4: one drop that collapses at int4 on the card through
+    ``decode_waveform`` with and without the retry.  Returns the kernel's
+    launch count of the retried decode."""
+    from axctdprocessor_tpu_torch.models import engine, simulator
+    from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+
+    cfg = DecoderConfig()
+    fs = drops["batch_fs"]
+
+    def candidates():
+        for i in retried[:2]:
+            yield f"archive row {i} (60 s, seed 21, +-300 of noise)", drops["batch"][i]
+        for seed, amp in ((11, 1.0), (11, 0.5), (3, 0.5), (5, 0.3), (7, 0.2)):
+            spec = simulator.SimSpec(duration=60.0, profile_start=40.0, seed=seed, fsk_amp=amp)
+            pcm, _ = simulator.synthesize(spec)
+            yield (f"60 s drop of seed {seed}, profile at 40 s, fsk_amp {amp}",
+                   np.round(pcm * 28000 / np.max(np.abs(pcm))).astype(np.int16))
+
+    for name, pcm in candidates():
+        bare = engine.decode_waveform(pcm, fs, device=DEV, wire="int4", lossy_retry=False)
+        assert bare.wire == "int4", bare.wire
+        if not engine.lossy_retry_worthy(bare, len(pcm), float(fs), cfg):
+            log(f"[9e] {name}: decodes at int4 on the card ({len(bare.hexframes)} frames), "
+                f"not a collapse")
+            continue
+        tonepower.tone_ratios.launches = 0
+        res = engine.decode_waveform(pcm, fs, device=DEV, wire="int4", lossy_retry=True)
+        launches = tonepower.tone_ratios.launches
+        assert res.wire == "int8" and res.status == 2, (res.wire, res.status)
+        assert res.metadata["serial_no"] == "00123456", res.metadata["serial_no"]
+        assert len(res.hexframes) > 4 * max(len(bare.hexframes), 1), \
+            (len(res.hexframes), len(bare.hexframes))
+        assert launches == 2, f"{launches} tone_ratios launches for a decode with one retry"
+        seg = engine.decode_waveform(pcm, fs, device=DEV, wire="int4", mode="segmented")
+        assert seg.status == 2 and seg.wire in ("int4", "int8"), (seg.status, seg.wire)
+        log(f"[9e] forced retry, {name}: decode_waveform(wire=\"int4\", lossy_retry=False) "
+            f"comes back wire int4, status {bare.status}, {len(bare.hexframes)} frames "
+            f"(degenerate); with lossy_retry=True wire int8, status 2, {len(res.hexframes)} "
+            f"frames, serial = truth; tone_ratios launches {launches} (the int4 decode and "
+            f"its int8 retry); mode=\"segmented\" on the same drop comes back wire {seg.wire}, "
+            f"{len(seg.hexframes)} frames (its retry decodes again segmented at int8)")
+        return launches
+    raise AssertionError("no candidate drop collapsed at the int4 wire on the card")
+
+
+def _wire_cli(tmp: str, drops: dict, want) -> None:
+    """Item 5: ``--wire int4`` through the CLI against the in-process decode
+    (``"auto"`` mode: the segmented engine at 600 s)."""
+    from axctdprocessor_tpu_torch.utils.config import resolve_settings
+    from axctdprocessor_tpu_torch.utils.report import write_report
+
+    wav = drops["wav"]
+    out = os.path.join(tmp, "report_int4.txt")
+    subprocess.run([sys.executable, "-m", "axctdprocessor_tpu_torch.cli", "-i", wav, "-o", out,
+                    "--wire", "int4", "--quiet"], cwd=ROOT, check=True, timeout=600)
+    settings = {"triggerrange": [30, -1], "minR400": 2.0, "mindR7500": 1.5, "deadfreq": 3000.0,
+                "pointsperloop": 100000, "mark_space_freqs": [400.0, 800.0],
+                "use_bandpass": False}
+    ref = os.path.join(tmp, "report_int4_want.txt")
+    write_report(ref, want, wav, [0, -1], settings, resolve_settings(settings))
+    assert open(out, "rb").read() == open(ref, "rb").read(), "CLI --wire int4 report differs"
+    log(f"[9e] CLI subprocess with --wire int4 on the 600 s WAV: report bytes equal to "
+        f"write_report of the in-process segmented decode at int4 "
+        f"({open(out).read().count(chr(10))} lines)")
+
+
+def phase9f_sosfilt(drops: dict) -> None:
+    """The parallel (log-step scan) form of the SOS cascade on the card, on
+    one second of the bench drop in float64: against the FFT form beyond
+    the start-up transient, and against its own CPU run.  A check that the
+    function runs and is right on the card; no decode path calls it."""
+    from axctdprocessor_tpu_torch.ops import iir
+    from axctdprocessor_tpu_torch.utils.wavio import read_wav_raw16
+
+    raw, fs = read_wav_raw16(drops["wav"])
+    x = raw[40 * fs: 41 * fs].astype(np.float64) / 32768.0
+    sos = iir.design_sos(float(fs))
+    card = torch.from_numpy(x).to(DEV)
+    scan = iir.sosfilt(sos, card)
+    via_fft = iir.sosfilt_fft(sos, card)
+    assert scan.device.type == via_fft.device.type == torch.device(DEV).type
+    np.testing.assert_allclose(scan.cpu().numpy()[3000:], via_fft.cpu().numpy()[3000:],
+                               rtol=1e-6, atol=1e-8)
+    on_cpu = iir.sosfilt(sos, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(scan.cpu().numpy(), on_cpu, rtol=1e-9, atol=1e-12)
+    err = float(np.max(np.abs(scan.cpu().numpy()[3000:] - via_fft.cpu().numpy()[3000:])))
+    log(f"[9f] iir.sosfilt (2x2 affine recurrence as a log-step scan, float64) on the card, "
+        f"{len(x)} samples of the 600 s drop: equal to iir.sosfilt_fft beyond sample 3000 within "
+        f"rtol 1e-6, atol 1e-8 (max abs difference {err:.3g}) and to its CPU run within rtol "
+        f"1e-9, atol 1e-12")
+
+
+def phase9e_wires(tmp: str, drops: dict) -> dict:
+    """The lossy-wire paths on the card: int8, noise-shaped int4 and the int8
+    retry through every entry point that takes ``wire=``.  A wire that fails
+    a gate fails the run; nothing falls back to int16 or to the CPU."""
+    from axctdprocessor_tpu_torch.utils.wavio import read_wav_raw16
+
+    raw, fs = read_wav_raw16(drops["wav"])
+    _wire_tensors(raw, drops["batch"])
+    kept = _wire_long_drop(drops, raw, fs)
+    retried = _wire_rows(tmp, drops)
+    launches = _wire_forced_retry(drops, retried)
+    _wire_cli(tmp, drops, kept["segmented", "int4"])
+    return dict(retry_launches=launches, rows_retried=len(retried))
+
+
 def main() -> int:
     smi, kind = phase0_device()
     phase1_build()
+    mark("1 (builds)")
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         drops = phase1_drops(tmp)
+        if sys.argv[1:] == ["--only-wires"]:  # a development run: no result lines
+            phase9e_wires(tmp, drops)
+            phase9f_sosfilt(drops)
+            return 3
         k = phase2_kernel(drops)
+        mark("2")
         mono = phase3_end_to_end(drops)
         phase4_highrate(tmp)
         phase5_cli(tmp, drops["wav"])
+        mark("3-5")
         seg = phase6_segmented(drops, mono)
         phase7_prestaged(drops, seg)
         phase8_stream(drops)
+        mark("6-8")
         bat = phase9_batch(drops)
         piped = phase9a_pipeline(drops, bat)
+        mark("9-9a")
         arch = phase9b_archive(tmp, drops, piped)
+        mark("9b")
         phase9c_parity(tmp, drops, mono)
+        mark("9c")
         multi = phase9d_multi_device(drops, mono, bat, piped)
+        mark("9d")
+        wires = phase9e_wires(tmp, drops)
+        phase9f_sosfilt(drops)
+        mark("9e-9f")
         phase10_profiles(drops, seg, k)
+        mark("10")
     assert "jax" not in sys.modules, "the port loaded jax"
     loaded = [m for m in sys.modules
               if m == "axctdprocessor_tpu" or m.startswith("axctdprocessor_tpu.")]
@@ -996,6 +1403,7 @@ def main() -> int:
         "launches_dp2_batch": multi["dp_launches"],
         "launches_two_device_pipeline_2_batches": multi["pipe_launches"],
         "launches_timeshard_decode": multi["timeshard_launches"],
+        "launches_int4_decode_with_int8_retry": wires["retry_launches"],
         "max_abs_err": k["max_abs_err"], "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_us"] / 1e3,
         "bound_by": main_shape["bound_by"], "library_ms": None,

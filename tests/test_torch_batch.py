@@ -154,3 +154,22 @@ def test_retry_lossy_rows_redecodes_flagged_rows_at_int8(ragged, monkeypatch):
     int8 = batch.decode_batch(pcms, FS, device="cpu", lengths=lengths, wire="int8")
     assert out[1].hexframes == int8[1].hexframes
     assert out[1].metadata == int8[1].metadata
+
+
+@pytest.mark.parametrize("wire", ["int8", "int4"])
+def test_batch_lossy_wires_equal_jax(ragged, wire):
+    """The ragged batch at the lossy wires against JAX ``decode_batch`` at
+    the same wire: per row the wire recorded, the trigger indices, the
+    metadata and the hexframes.  At int4 the 50 s row collapses in both
+    packages and both decode it again at int8."""
+    pcms, lengths = ragged
+    res = batch.decode_batch(pcms, FS, device="cpu", lengths=lengths, wire=wire)
+    jres = jbatch.decode_batch(pcms, FS, lengths=lengths, wire=wire)
+    assert len(res) == len(jres) == 3
+    for b, (r, j) in enumerate(zip(res, jres)):
+        assert r.wire == j.wire == ("int8" if (wire, b) == ("int4", 1) else wire), b
+        assert r.status == j.status == 2 and r.overflow == j.overflow == 0, b
+        assert r.numpoints == j.numpoints == lengths[b]
+        assert (r.firstpulse400, r.profstartind) == (j.firstpulse400, j.profstartind), b
+        assert r.metadata == j.metadata
+        assert set(r.hexframes) == set(j.hexframes) and len(r.hexframes) > 100, b

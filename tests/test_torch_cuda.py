@@ -186,6 +186,68 @@ def test_segmented_decode_on_card_equals_cpu_decode():
     assert len(a & b) / max(len(a | b), 1) >= 0.99
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["monolithic", "segmented"])
+@pytest.mark.parametrize("wire", ["int8", "int4"])
+def test_lossy_wire_decode_on_card_equals_cpu_decode(wire, mode):
+    """The 50 s default drop at the lossy wires: CUDA against CPU, the same
+    wire recorded, agreement >= 0.99."""
+    _need_cuda()
+    pcm, truth = simulator.synthesize()
+    raw = np.round(pcm * 28000 / np.max(np.abs(pcm))).astype(np.int16)
+    before = tonepower.tone_ratios.launches
+    gpu = engine.decode_waveform(raw, truth["spec"].fs, device="cuda", wire=wire, mode=mode)
+    assert tonepower.tone_ratios.launches == before + (mode == "monolithic")
+    cpu = engine.decode_waveform(raw, truth["spec"].fs, device="cpu", wire=wire, mode=mode)
+    assert gpu.wire == cpu.wire == wire
+    assert gpu.status == cpu.status == 2
+    assert gpu.metadata == cpu.metadata
+    assert gpu.metadata["serial_no"] == truth["serial_no"]
+    a, b = set(gpu.hexframes), set(cpu.hexframes)
+    assert len(a & b) / max(len(a | b), 1) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1_000_001,), (8, 99_999), (3, 44_100)])
+def test_unpack_int4_and_conditioning_on_card_equal_cpu(shape):
+    """``unpack_int4`` bit-equal across devices on random bytes (odd and
+    even widths, rows); ``condition_integer`` within 1e-6."""
+    _need_cuda()
+    n = shape[-1]
+    packed = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 256, shape[:-1] + ((n + 1) // 2,)).astype(np.uint8))
+    cpu = engine.unpack_int4(packed, n)
+    gpu = engine.unpack_int4(packed.cuda(), n)
+    assert gpu.dtype == torch.int32 and gpu.shape == shape
+    assert torch.equal(gpu.cpu(), cpu)
+    nv = torch.full(shape[:-1], n)
+    c_cpu = engine.condition_integer(cpu, n, nv)
+    c_gpu = engine.condition_integer(gpu, n, nv.cuda())
+    assert float((c_gpu.cpu() - c_cpu).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_forced_int4_retry_on_card():
+    """Seed 11's 60 s drop collapses at int4: with the retry it comes back
+    at int8 after two kernel launches, without it degenerate at int4."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+
+    pcm, truth = simulator.synthesize(simulator.SimSpec(duration=60.0, profile_start=40.0,
+                                                        seed=11))
+    raw = np.round(pcm * 28000 / np.max(np.abs(pcm))).astype(np.int16)
+    fs = truth["spec"].fs
+    bare = engine.decode_waveform(raw, fs, device="cuda", wire="int4", lossy_retry=False)
+    assert bare.wire == "int4"
+    assert engine.lossy_retry_worthy(bare, len(raw), float(fs), DecoderConfig())
+    before = tonepower.tone_ratios.launches
+    res = engine.decode_waveform(raw, fs, device="cuda", wire="int4")
+    assert tonepower.tone_ratios.launches == before + 2
+    assert res.wire == "int8" and res.status == 2
+    assert res.metadata["serial_no"] == truth["serial_no"]
+    assert len(res.hexframes) > 4 * len(bare.hexframes)
+
+
 def _three_drops():
     return np.stack([np.round(p * 28000 / np.max(np.abs(p))).astype(np.int16) for p in (
         simulator.synthesize(simulator.SimSpec(duration=42.0, profile_start=33.0, seed=s))[0]

@@ -25,7 +25,9 @@ from axctdprocessor_tpu.ops import iir as jiir
 from axctdprocessor_tpu.utils import report as jreport
 from axctdprocessor_tpu.utils.config import DecoderConfig, resolve_settings
 from axctdprocessor_tpu.utils.wavio import read_wav_raw16
+from axctdprocessor_tpu.ops import wire as jwire
 from axctdprocessor_tpu_torch.models import engine, simulator
+from axctdprocessor_tpu_torch.ops import wire as wire_ops
 from axctdprocessor_tpu_torch.utils import report
 
 torch.set_num_threads(2)
@@ -75,15 +77,36 @@ def test_engine_tables_equal_jax(fs, decimate2, cfg):
         np.testing.assert_array_equal(getattr(model, name).numpy(), arr)
 
 
+def _padded_wire(raw: np.ndarray, n_padded: int, wire: str) -> np.ndarray:
+    """`raw` as the monolithic decode ships it at `wire`: encoded on the
+    host, then padded to the bucket (0x88, two zero levels, for packed int4)."""
+    enc = wire_ops.encode(raw, wire)
+    if enc.dtype == np.uint8:
+        return np.concatenate([enc, np.full(n_padded // 2 - len(enc), 0x88, np.uint8)])
+    return np.concatenate([enc, np.zeros(n_padded - len(enc), enc.dtype)])
+
+
 def test_back_half_packed_vector_equal(default_drop_wav):
     """Both back halves, given the JAX stage-1 outputs of the default drop."""
+    _back_halves_pack_equal_vectors(default_drop_wav, "int16")
+
+
+@pytest.mark.parametrize("wire", ["int8", "int4"])
+def test_back_half_packed_vector_equal_lossy_wire(default_drop_wav, wire):
+    """The same at the lossy wires: the JAX stage 1 runs on the encoded
+    samples (unpacked and conditioned in its program), and on its outputs
+    the two back halves pack equal vectors."""
+    _back_halves_pack_equal_vectors(default_drop_wav, wire)
+
+
+def _back_halves_pack_equal_vectors(default_drop_wav, wire: str):
     wav, _ = default_drop_wav
     raw, fs = read_wav_raw16(wav)
     fs = float(fs)
     cfg = DecoderConfig()
     unit = int(engine.BUCKET_SECONDS * fs)
     n_padded = max(math.ceil(len(raw) / unit) * unit, unit)
-    pcm = np.concatenate([raw, np.zeros(n_padded - len(raw), np.int16)])
+    pcm = _padded_wire(raw, n_padded, wire)
     dims, jdims = _dims(n_padded, fs, cfg)
     tables = engine.engine_tables(cfg, fs, dims)
     n_valid = jnp.asarray(len(raw), jnp.int32)
@@ -212,6 +235,130 @@ def test_int4_wire_decode_own_truth(default_drop, lossy_retry):
     assert sum(h in truth_set for h in res.hexframes) / len(res.hexframes) > 0.97
 
 
+@pytest.fixture(scope="module")
+def default_raw(default_drop):
+    pcm, truth = default_drop
+    return np.round(pcm * 28000 / np.max(np.abs(pcm))).astype(np.int16), truth
+
+
+@pytest.mark.parametrize("wire", ["int8", "int4"])
+def test_lossy_wire_decode_equals_jax(default_raw, wire):
+    """The default 50 s drop at the lossy wires, end to end against the JAX
+    engine at the same wire: the same wire recorded, equal trigger indices
+    and metadata, equal hexframe sets."""
+    raw, truth = default_raw
+    fs = truth["spec"].fs
+    ours = engine.decode_waveform(raw, fs, device="cpu", wire=wire)
+    ref = jeng.decode_waveform_tpu(raw, fs, mode="monolithic", wire=wire)
+    assert ours.wire == ref.wire == wire
+    assert ours.status == ref.status == 2 and ours.overflow == ref.overflow == 0
+    assert (ours.firstpulse400, ours.profstartind) == (ref.firstpulse400, ref.profstartind)
+    assert ours.metadata == ref.metadata
+    assert ours.metadata["serial_no"] == truth["serial_no"]
+    assert set(ours.hexframes) == set(ref.hexframes) and len(ours.hexframes) > 300
+    assert ours.hexframes == ref.hexframes
+
+
+@pytest.fixture(scope="module")
+def collapsing_drop():
+    """Seed 11's 60 s drop (profile at 40 s): it collapses at the int4 wire
+    to a few dozen frames, in both packages."""
+    pcm, truth = simulator.synthesize(simulator.SimSpec(duration=60.0, profile_start=40.0,
+                                                        seed=11))
+    return np.round(pcm * 28000 / np.max(np.abs(pcm))).astype(np.int16), truth
+
+
+@pytest.mark.parametrize("lossy_retry", [True, False], ids=["retry", "no_retry"])
+def test_forced_int4_retry_in_both_packages(collapsing_drop, lossy_retry):
+    raw, truth = collapsing_drop
+    fs = truth["spec"].fs
+    ours = engine.decode_waveform(raw, fs, device="cpu", wire="int4", lossy_retry=lossy_retry)
+    ref = jeng.decode_waveform_tpu(raw, fs, mode="monolithic", wire="int4",
+                                   lossy_retry=lossy_retry)
+    cfg = DecoderConfig()
+    if lossy_retry:
+        assert ours.wire == ref.wire == "int8"
+        assert ours.status == ref.status == 2 and len(ours.hexframes) > 400
+        assert ours.metadata == ref.metadata
+        assert ours.metadata["serial_no"] == truth["serial_no"]
+        assert set(ours.hexframes) == set(ref.hexframes)
+    else:
+        assert ours.wire == ref.wire == "int4"
+        for res, worthy in ((ours, engine.lossy_retry_worthy), (ref, jeng.lossy_retry_worthy)):
+            assert worthy(res, len(raw), float(fs), cfg)
+            assert len(res.hexframes) < 100
+
+
+@pytest.mark.parametrize("mode", ["monolithic", "segmented"])
+def test_int4_retry_keeps_the_mode_and_fills_the_timer(collapsing_drop, mode):
+    """The retry of a monolithic decode is monolithic and that of a
+    segmented decode segmented, as in the JAX package; both leave the
+    host's encode and upload stages in the caller's timer."""
+    from axctdprocessor_tpu_torch.utils.profiling import StageTimer
+
+    raw, truth = collapsing_drop
+    timer = StageTimer()
+    res = engine.decode_waveform(raw, truth["spec"].fs, device="cpu", wire="int4", mode=mode,
+                                 timer=timer)
+    assert res.wire == "int8" and res.status == 2 and len(res.hexframes) > 400
+    assert timer.counts["host_encode_stats"] == 2  # the int4 decode and its int8 retry
+    upload = "build_upload" if mode == "monolithic" else "  build_upload"
+    assert timer.counts[upload] >= 2
+    assert ("dispatch_loop" in timer.counts) == (mode == "segmented")
+
+
+def test_int4_wire_odd_bucket_equals_jax():
+    """At 11.025 kHz a 15 s bucket is an odd number of samples: the packed
+    int4 buffer is padded to an even count with zero-level nibbles (0x88),
+    in both packages, and an odd-length drop decodes to the same status."""
+    fs = 11025
+    t = np.arange(5 * fs + 1) / fs
+    raw = np.round(9000 * np.sin(2 * np.pi * 400 * t)
+                   + 500 * np.random.default_rng(1).standard_normal(len(t))).astype(np.int16)
+    ours = engine.decode_waveform(raw, fs, device="cpu", wire="int4", lossy_retry=False)
+    ref = jeng.decode_waveform_tpu(raw, fs, mode="monolithic", wire="int4", lossy_retry=False)
+    assert ours.wire == ref.wire == "int4"
+    assert ours.numpoints == ref.numpoints == len(raw)
+    assert (ours.status, ours.firstpulse400, ours.profstartind, ours.overflow) == (
+        ref.status, ref.firstpulse400, ref.profstartind, ref.overflow)
+    assert ours.status == 1 and ours.hexframes == ref.hexframes == []
+
+
+@pytest.mark.parametrize("default", ["int4", "int16"])
+@pytest.mark.parametrize("dtype", [np.int16, np.int8, np.int32, np.float32, np.float64])
+@pytest.mark.parametrize("wire", ["auto", "int16", "int8", "int4", "int2"])
+def test_resolve_wire_table_equals_jax(monkeypatch, wire, dtype, default):
+    """Every (wire, dtype) pair against the JAX package's rule
+    (axctdprocessor_tpu/ops/wire.py:54-66), with both packages' defaults
+    patched to the same wire."""
+    monkeypatch.setattr(jwire, "default_wire", lambda: default)
+    monkeypatch.setattr(wire_ops, "default_wire", lambda device=None: default)
+    if wire == "int2":
+        for resolve in (jwire.resolve_wire, wire_ops.resolve_wire):
+            with pytest.raises(ValueError, match="wire"):
+                resolve(wire, dtype)
+        return
+    got = wire_ops.resolve_wire(wire, dtype)
+    assert got == jwire.resolve_wire(wire, dtype)
+    assert got == engine.resolve_wire(wire, dtype, torch.device("cpu"))
+    if not np.issubdtype(dtype, np.integer):
+        assert got == "int16"  # floats are never re-encoded
+    elif wire == "auto":
+        assert got == default
+
+
+def test_auto_wire_is_int16_on_every_path():
+    """The port's measured default: ``"auto"`` is int16 for every device."""
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    assert engine.resolve_wire is wire_ops.resolve_wire
+    for device in (None, "cpu", torch.device("cuda", 0)):
+        assert wire_ops.default_wire(device) == "int16"
+        assert wire_ops.resolve_wire("auto", np.int16, device) == "int16"
+    assert batch.BatchPlan(np.int16, 44100, 44100, None, "auto", "cpu").wire_used == "int16"
+    assert batch.BatchPlan(np.float32, 44100, 44100, None, "int4", "cpu").wire_used == "float32"
+
+
 def test_trigger_core_matches_jax():
     """Pulse, baseline and trigger over random series and configs (the
     JAX engine's own host-equivalence test, tests/test_tpu_engine.py)."""
@@ -316,7 +463,7 @@ def test_device_and_mode_are_explicit(tmp_path):
     res = engine.decode_waveform(np.zeros(44100, np.int16), 44100, device="cpu",
                                  mode="segmented")
     assert res.status == 0 and res.numpoints == 44100
-    assert engine.resolve_wire("auto") == "int16"
+    assert engine.resolve_wire("auto", np.int16) == "int16"
 
 
 @pytest.mark.slow  # a whole JAX program compile at 88.2 kHz

@@ -8,7 +8,8 @@ engine and its push decoder, a two-batch pipeline and a two-file corpus, a
 time-sharded decode on a 1 x 2 mesh and a batch over a ``dp`` mesh of the CPU,
 and the multi-host runner with one process), and
 resolves every lazy top-level name; importing the package alone loads no
-torch; neither jax
+torch, and the CLI's ``--engine parity`` decodes a WAV without ever loading
+it (nor does any module of the host parity path); neither jax
 nor any module of ``axctdprocessor_tpu`` may enter ``sys.modules``.  A scan
 of every ``.py`` of the port and of ``chip_smoke.py`` finds no import of
 the JAX package, the port's native library builds only under its own
@@ -106,6 +107,47 @@ def test_port_decodes_without_loading_jax():
     assert "TORCH_AFTER_PACKAGE_IMPORT False" in out.stdout, out.stdout[-2000:]
     assert "JAX_MODULES []" in out.stdout, out.stdout[-2000:]
     assert "JAX_PACKAGE_MODULES []" in out.stdout, out.stdout[-2000:]
+
+
+_PARITY_CHILD = """
+import os, sys, tempfile
+from axctdprocessor_tpu_torch import cli
+from axctdprocessor_tpu_torch.models import simulator
+spec = simulator.SimSpec(duration=38.0, profile_start=33.0, seed=3)
+pcm, truth = simulator.synthesize(spec)
+with tempfile.TemporaryDirectory() as d:
+    wav, out = os.path.join(d, "drop.wav"), os.path.join(d, "report.txt")
+    simulator.write_wav(wav, pcm, spec.fs)
+    assert cli.main(["-i", wav, "-o", out, "--engine", "parity", "--quiet"]) == 0
+    assert "Probe Serial: " + truth["serial_no"] in open(out).read()
+print("LOADED", sorted(m for m in sys.modules
+                       if m.split(".")[0] in ("torch", "jax", "jaxlib", "axctdprocessor_tpu")))
+"""
+
+
+def test_parity_cli_never_imports_torch():
+    """``--engine parity`` is host numpy and scipy: a fresh interpreter that
+    synthesizes a short WAV and decodes it through the CLI's parity engine
+    ends with neither torch nor jax nor the JAX package loaded."""
+    out = subprocess.run([sys.executable, "-c", _PARITY_CHILD], env=_child_env(), cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout[-2000:]
+
+
+@pytest.mark.parametrize("module", [
+    "ops.crc", "ops.iir", "ops.bits", "ops.seawater", "ops.wire", "models.frames",
+    "models.simulator", "models.demod", "models.parity_engine", "models.stream",
+    "utils.profiling", "utils.native", "cli"])
+def test_host_module_imports_without_torch(module):
+    """The modules the host parity path imports keep torch out of their
+    import: their device functions import it when called."""
+    code = (f"import sys, axctdprocessor_tpu_torch.{module}; "
+            "print('TORCH', 'torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], env=_child_env(), cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "TORCH False" in out.stdout, module
 
 
 def _imports(path):

@@ -56,6 +56,18 @@ def test_unpack_int4(n):
     np.testing.assert_array_equal(_np(got), _np(want))
 
 
+@pytest.mark.parametrize("n", [2048, 2047])
+def test_unpack_int4_rows(n):
+    """A (B, n) batch unpacks row by row as the JAX 1-D unpack does."""
+    packed = np.random.default_rng(n).integers(0, 256, (5, (n + 1) // 2)).astype(np.uint8)
+    want = jax.vmap(lambda row: jeng.unpack_int4(row, n))(jnp.asarray(packed))
+    got = engine.unpack_int4(torch.from_numpy(packed), n)
+    assert got.dtype == torch.int32 and got.shape == (5, n)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    for b in range(5):
+        assert torch.equal(got[b], engine.unpack_int4(torch.from_numpy(packed[b]), n))
+
+
 @pytest.mark.parametrize("fs", [44100, 88200])
 def test_condition_integer(fs):
     rng = np.random.default_rng(fs)
