@@ -219,19 +219,31 @@ def demod_core(x: torch.Tensor, sos: torch.Tensor, bit_trig: torch.Tensor,
                edge_pad: int, n_valid) -> dict:
     """Whole-waveform demod front end: FFT-domain filter, crossings, the
     bit-edge chain and per-bit mark (``s1``) and space (``s2``) powers over
-    the inset window."""
+    the inset window.
+
+    `x` is one waveform (n,) or a batch (B, n) with (B,) ``n_valid``.  The
+    filter, the crossings and the probes run row by row (a batched FFT or
+    probe product may round differently with the batch size); the bit-edge
+    chain, integer throughout, runs over the whole batch at once (one walk
+    launch on the card)."""
     nfft = iir.next_pow2(dims.n + 4096)
-    filtered = fft_filter(x, sos, nfft)[: dims.n].to(x.dtype)
-    crossings, n_cross, rovf = find_crossings(
-        filtered, dims.n, 0, n_valid, edge_pad, dims.max_crossings, fs)
+    response = sos_response_on_device(sos, nfft)
+    rows, nv = x.reshape(-1, x.shape[-1]), n_valid.reshape(-1)
+    filtered = [apply_response(r, response, nfft)[: dims.n].to(x.dtype) for r in rows]
+    crossings, n_cross, rovf = (torch.stack(c) for c in zip(*[
+        find_crossings(f, dims.n, 0, nv[b], edge_pad, dims.max_crossings, fs)
+        for b, f in enumerate(filtered)]))
     edge_idx, n_edges = chain_ops.enumerate_bit_edges(
         crossings, n_cross, fs, bitrate, dims.max_edges)
-    edge_samples = crossings[torch.clamp(edge_idx, 0, dims.max_crossings - 1)]
-    probes = goertzel.tone_power_at(filtered, edge_samples + bit_inset,
-                                    dims.npcm, bit_trig)
+    edge_samples = torch.gather(crossings, -1,
+                                torch.clamp(edge_idx, 0, dims.max_crossings - 1))
+    probes = torch.stack([goertzel.tone_power_at(f, edge_samples[b] + bit_inset,
+                                                 dims.npcm, bit_trig)
+                          for b, f in enumerate(filtered)])
     overflow = (n_cross > dims.max_crossings).to(torch.int32) | rovf
-    return dict(edge_samples=edge_samples, n_edges=n_edges, s1=probes[:, 0],
-                s2=probes[:, 1], overflow=overflow)
+    out = dict(edge_samples=edge_samples, n_edges=n_edges, s1=probes[..., 0],
+               s2=probes[..., 1], overflow=overflow)
+    return {k: v.reshape(x.shape[:-1] + v.shape[1:]) for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -251,65 +263,68 @@ def stage15_core(c0: torch.Tensor, edge_samples: torch.Tensor, n_edges,
     decision ``mark >= space * eff`` is ``c0 * eff <= 1``.  ``h_bounds``
     holds (h1_lo, h1_hi, h2_lo, h2_hi, h3_lo, h3_hi), inclusive sample
     bounds.  ``edge_samples`` is non-decreasing, so each window is a
-    contiguous run of edges found by two binary searches.
+    contiguous run of edges found by two binary searches.  One row, or a
+    batch along a leading dimension (``h_bounds`` (B, 6), per-row scalars
+    (B,)).
     """
     dev = c0.device
     me = dims.max_edges
+    batch = c0.shape[:-1]
     idx = torch.arange(me, device=dev)
-    bit_valid = idx < n_edges - 1  # the final edge's bit is never emitted
+    bit_valid = idx < (n_edges - 1)[..., None]  # the final edge's bit is never emitted
     scale0 = torch.full((), 1.5, dtype=torch.float32, device=dev)
-    edges = edge_samples.to(torch.int64)
-    last = torch.clamp(n_edges - 1, min=0)
-
-    def window_span(lo, hi):
-        lo_i = torch.searchsorted(edges, lo.to(torch.int64).reshape(1))[0]
-        hi_i = torch.searchsorted(edges, hi.to(torch.int64).reshape(1),
-                                  right=True)[0]
-        lo_i = torch.minimum(lo_i, last)
-        hi_i = torch.minimum(hi_i, last)
-        return lo_i, torch.clamp(hi_i - lo_i, min=0)  # empty/inverted -> 0
+    edges = edge_samples.to(torch.int64).contiguous()
+    last = torch.clamp(n_edges - 1, min=0)[..., None]
+    # the three windows' first edges and edge counts, two binary searches for all
+    hb = h_bounds.to(torch.int64)
+    lo_i = torch.minimum(torch.searchsorted(edges, hb[..., 0::2].contiguous()), last)
+    hi_i = torch.minimum(torch.searchsorted(edges, hb[..., 1::2].contiguous(), right=True), last)
+    n_sel = torch.clamp(hi_i - lo_i, min=0)  # empty/inverted -> 0
 
     wloc = torch.arange(HEADER_WINDOW_BITS, device=dev)
 
     def cut(ext, lo_i):
-        return ext[torch.clamp(lo_i + wloc, max=ext.shape[0] - 1)]
+        return torch.gather(ext, -1, torch.clamp(lo_i[..., None] + wloc,
+                                                 max=ext.shape[-1] - 1))
+
+    def pad(v):
+        return torch.cat([v, torch.zeros(batch + (HEADER_WINDOW_BITS,),
+                                         dtype=v.dtype, device=dev)], -1)
 
     # histogram of confidences on [0, 3) in 0.01 bins over the h1 window
-    h1_lo, n_h1 = window_span(h_bounds[0], h_bounds[1])
-    conf0_ext = torch.cat([c0 * scale0, torch.zeros(HEADER_WINDOW_BITS,
-                                                    dtype=c0.dtype, device=dev)])
-    vals = torch.where(wloc < n_h1, cut(conf0_ext, h1_lo), -1.0)
+    n_h1 = n_sel[..., 0]
+    vals = torch.where(wloc < n_h1[..., None], cut(pad(c0 * scale0), lo_i[..., 0]), -1.0)
     bins = torch.floor(vals * 100.0)
     in_range = (bins >= 0) & (bins < 299)
     slot = torch.where(in_range, bins, 299.0).to(torch.int64)
-    counts = torch.zeros(300, dtype=torch.int64, device=dev).scatter_add_(
-        0, slot, torch.ones_like(slot))[:299]
-    cum = 100.0 * torch.cumsum(counts, 0).to(torch.float32) / torch.clamp(n_h1, min=1)
+    counts = torch.zeros(batch + (300,), dtype=torch.int64, device=dev).scatter_add_(
+        -1, slot, torch.ones_like(slot))[..., :299]
+    cum = (100.0 * torch.cumsum(counts, -1).to(torch.float32)
+           / torch.clamp(n_h1, min=1)[..., None])
     centers = (torch.arange(299, dtype=torch.float32, device=dev) + 0.5) * 0.01
     # slopes: / 0.02 and / 0.01, rounded as XLA rounds them (x * 50, x * 100)
-    slope = torch.cat([(cum[1:2] - cum[0:1]) * 100.0,
-                       (cum[2:] - cum[:-2]) * 50.0,
-                       (cum[-1:] - cum[-2:-1]) * 100.0])
+    slope = torch.cat([(cum[..., 1:2] - cum[..., 0:1]) * 100.0,
+                       (cum[..., 2:] - cum[..., :-2]) * 50.0,
+                       (cum[..., -1:] - cum[..., -2:-1]) * 100.0], -1)
     in_band = (cum >= 30.0) & (cum <= 65.0)
-    min_slope = torch.where(in_band, slope, math.inf).min()
-    is_min = in_band & (slope == min_slope)
+    min_slope = torch.where(in_band, slope, math.inf).amin(-1)
+    is_min = in_band & (slope == min_slope[..., None])
     first_c = torch.take(centers, hdr_ops.first_true(is_min))
-    last_c = torch.take(centers, 298 - hdr_ops.first_true(is_min.flip(0)))
+    last_c = torch.take(centers, 298 - hdr_ops.first_true(is_min.flip(-1)))
     threshold = 0.5 * (first_c + last_c)
-    ok = (n_h1 > 50) & in_band.any() & (threshold > 0)
+    ok = (n_h1 > 50) & in_band.any(-1) & (threshold > 0)
     scale_new = torch.where(ok, scale0 / threshold, scale0)
 
-    eff = torch.where(edges <= calib_cut, scale0, scale_new)
+    eff = torch.where(edges <= calib_cut[..., None], scale0, scale_new[..., None])
     bits = ((c0 * eff <= 1.0) & bit_valid).to(torch.int32)
-    bits_ext = torch.cat([bits, torch.zeros(HEADER_WINDOW_BITS,
-                                            dtype=bits.dtype, device=dev)])
+    bits_ext = pad(bits)
 
-    def window(lo, hi):
-        lo_i, n_sel = window_span(lo, hi)
-        return torch.where(wloc < n_sel, cut(bits_ext, lo_i), 0), n_sel
+    def window(j):
+        n = n_sel[..., j]
+        return torch.where(wloc < n[..., None], cut(bits_ext, lo_i[..., j]), 0), n
 
-    h2_bits, h2_n = window(h_bounds[2], h_bounds[3])
-    h3_bits, h3_n = window(h_bounds[4], h_bounds[5])
+    h2_bits, h2_n = window(1)
+    h3_bits, h3_n = window(2)
     return dict(bits=bits, scale=scale_new, h2_bits=h2_bits, h2_n=h2_n,
                 h3_bits=h3_bits, h3_n=h3_n)
 
@@ -333,44 +348,49 @@ def stage2_core(bits: torch.Tensor, n_bits, edge_samples: torch.Tensor,
 
     Frame words need 32 bits and torch has no uint32 shifts on the CPU:
     the words are built in int64 and ship as their two's-complement int32.
+    One row, or a batch along a leading dimension with per-row scalars.
     """
     dev = bits.device
     me = dims.max_edges
     idx = torch.arange(me, device=dev)
 
+    def at(v, i):
+        return torch.gather(v, -1, i)
+
     # 1. drop bits at/before the profile start; rotate them to the front
-    in_prof = (idx < n_bits) & (edge_samples > profstart)
+    in_prof = (idx < n_bits[..., None]) & (edge_samples > profstart[..., None])
     first = hdr_ops.first_true(in_prof)
-    n_prof = in_prof.sum()
-    rot = (idx + first) % me
-    bits_p = bits[rot]
-    edges_p = edge_samples[rot]
+    n_prof = in_prof.sum(-1)
+    rot = (idx + first[..., None]) % me
+    bits_p = at(bits, rot)
+    edges_p = at(edge_samples, rot)
 
     # per-bit signal ratios: nearest power window on the uniform grid
     win = torch.round(edges_p.to(torch.float32) * _f32_recip(dims.d_pcm))
     win = torch.clamp(win, 0, dims.n_win - 1).to(torch.int64)
-    bit_r400 = r400_win[win]
-    bit_r7500 = r7500_win[win] - mean7500
+    bit_r400 = at(r400_win, win)
+    bit_r7500 = at(r7500_win, win) - mean7500[..., None]
 
     # 2. the 32-bit frame word at every bit offset (Horner over shifts)
     bext = torch.cat([bits_p.to(torch.int64),
-                      torch.zeros(32, dtype=torch.int64, device=dev)])
-    word = torch.zeros(me, dtype=torch.int64, device=dev)
+                      torch.zeros(bits_p.shape[:-1] + (32,), dtype=torch.int64,
+                                  device=dev)], -1)
+    word = torch.zeros(bits_p.shape, dtype=torch.int64, device=dev)
     for k in range(32):  # word[i] = sum_k bits_p[i+k] << (31-k)
-        word = (word << 1) | bext[k: k + me]
+        word = (word << 1) | bext[..., k: k + me]
 
     # 3. frame acceptance per offset: '10' + CRC + positive 7500 ratio
     crc_valid = crc_ops.check_crc_words(word)
-    nxt = torch.roll(bits_p, -1)
+    nxt = torch.roll(bits_p, -1, dims=-1)
     accept = (bits_p == 1) & (nxt == 0) & crc_valid & (bit_r7500 > 0)
-    accept &= idx < n_prof - 32
+    accept &= idx < (n_prof - 32)[..., None]
     starts, n_frames, consumed, sync_ovf = chain_ops.enumerate_frames(
         accept, n_prof, max_frames=dims.max_frames)
 
-    hexpack = word[starts]
+    hexpack = at(word, starts)
     hexpack = hexpack - ((hexpack >> 31) & 1) * (1 << 32)  # two's complement
-    return dict(edges=edges_p[starts], r400=_round2(bit_r400[starts]),
-                r7500=_round2(bit_r7500[starts]), hexpack=hexpack,
+    return dict(edges=at(edges_p, starts), r400=_round2(at(bit_r400, starts)),
+                r7500=_round2(at(bit_r7500, starts)), hexpack=hexpack,
                 n_frames=n_frames, consumed=consumed,
                 overflow=sync_ovf << 2)  # bits 2-3: accept/frame tables
 
@@ -408,39 +428,42 @@ def trigger_core(r400: torch.Tensor, r7500: torch.Tensor, n_valid,
                  dims: EngineDims, fs: float):
     """Pulse detection, 7500 Hz baseline and profile trigger over the real
     (non-padded) window grid.  Returns (firstpulse|-1, mean7500,
-    profstart|-1) as device scalars."""
+    profstart|-1) as device scalars, or as (B,) vectors for a batch of
+    (B, n_win) ratios with (B,) ``n_valid``."""
     dev = r400.device
-    n_win = r400.shape[0]
+    n_win = r400.shape[-1]
     idx = torch.arange(n_win, device=dev)
     win = idx * dims.d_pcm
     n_power = int(fs / 10)
     n_win_true = torch.clamp((n_valid - n_power + dims.d_pcm - 1) // dims.d_pcm,
                              min=1, max=n_win)
-    real = idx < n_win_true
+    real = idx < n_win_true[..., None]
 
     hit = real & (r400 >= trig_f[0])
-    any_hit = hit.any()
+    any_hit = hit.any(-1)
     fp = torch.where(any_hit, torch.take(win, hdr_ops.first_true(hit)), -1)
 
-    rel = win - fp
+    rel = win - fp[..., None]
     base = real & (rel >= trig_i[0]) & (rel <= trig_i[1]) & ~torch.isnan(r7500)
-    cnt = base.sum()
+    cnt = base.sum(-1)
     # the baseline is one contiguous run of <= ~26 windows (4.5-5.5 s after
     # the pulse): summed left to right in float32, so the mean is the same
-    # on every device (a parallel reduction's order is the device's own)
+    # on every device and batch size (a parallel reduction's order is the
+    # device's own)
     span = (math.floor(5.5 * fs) - math.ceil(4.5 * fs)) // dims.d_pcm + 2
-    at = hdr_ops.first_true(base) + torch.arange(span, device=dev)
+    at = hdr_ops.first_true(base)[..., None] + torch.arange(span, device=dev)
     inside = at < n_win
     at = torch.clamp(at, max=n_win - 1)
-    vals = torch.where(inside & base[at], r7500[at], 0.0)
-    total = vals[0]
+    vals = torch.where(inside & torch.gather(base, -1, at),
+                       torch.gather(r7500, -1, at), 0.0)
+    total = vals[..., 0]
     for j in range(1, span):
-        total = total + vals[j]
+        total = total + vals[..., j]
     mean7500 = torch.where(cnt > 0, total / cnt, math.nan)
     tone_path = ~torch.isnan(mean7500)
 
-    trig = real & (rel >= trig_i[2]) & (r7500 - mean7500 >= trig_f[1])
-    any_trig = tone_path & trig.any()
+    trig = real & (rel >= trig_i[2]) & (r7500 - mean7500[..., None] >= trig_f[1])
+    any_trig = tone_path & trig.any(-1)
     last_rel = torch.take(win, n_win_true - 1) - fp
     timeout = (trig_i[5] > 0) & ((trig_i[6] > 0) | ~tone_path) & \
         (last_rel >= trig_i[3])
@@ -466,16 +489,24 @@ def back_half_core(r400, r7500, edge_samples, n_edges, c0p, n_valid,
     one int32 vector (layout of the JAX engine's ``back_half_core``).
 
     ``overflow0`` carries stage 1's truncation bit; the edge-table and
-    frame-sync bits are added here (``DecodeResult.overflow``)."""
+    frame-sync bits are added here (``DecodeResult.overflow``).
+
+    One row, or a batch of rows along a leading dimension (per-row scalars
+    (B,)) -> the (B, L) matrix: the batch dimension written out where the
+    JAX package ``vmap``s this function, with no loop over rows.  Every op
+    is integer, elementwise, a gather or a sum in a fixed order, so a row
+    of a batch is bitwise the row decoded alone."""
     dev = r400.device
+    batch = r400.shape[:-1]
     fp, mean7500, profstart = trigger_core(r400, r7500, n_valid, trig_i,
                                            trig_f, dims, fs)
     # empty header windows when no pulse was found
     big = 2 ** 30
     lo_mask = torch.arange(6, device=dev) % 2 == 0
-    hb = torch.where(fp >= 0, fp + hdr_rel,
+    hb = torch.where((fp >= 0)[..., None], fp[..., None] + hdr_rel,
                      torch.where(lo_mask, big, -big))
-    s15 = stage15_core(c0p, edge_samples, n_edges, hb, fp + calib_off, dims)
+    # calib_off is a (1,) buffer (to_device makes 0-d arrays 1-d)
+    s15 = stage15_core(c0p, edge_samples, n_edges, hb, fp + calib_off.reshape(()), dims)
 
     h2_found, h2_frames, h2_usable = hdr_ops.parse_header_window(
         s15["h2_bits"], s15["h2_n"])
@@ -495,15 +526,16 @@ def back_half_core(r400, r7500, edge_samples, n_edges, c0p, n_valid,
     # ratios as int16 centi-units (two per int32)
     i32 = torch.int32
     hdr = torch.cat([h2_found.to(i32), h3_found.to(i32),
-                     h2_frames.reshape(-1).to(i32), h3_frames.reshape(-1).to(i32)])
-    scal_i = torch.stack([v.to(i32) for v in (
+                     h2_frames.reshape(batch + (-1,)).to(i32),
+                     h3_frames.reshape(batch + (-1,)).to(i32)], -1)
+    scal_i = torch.stack([v.to(i32).expand(batch) for v in (
         fp, profstart, torch.where(gate, out["n_frames"], 0), h2_usable,
-        h3_usable, ovf)])
-    scal_f = torch.stack([mean7500, s15["scale"]]).to(torch.float32)
-    rat16 = torch.stack([_fix16(out["r400"]), _fix16(out["r7500"])])
+        h3_usable, ovf)], -1)
+    scal_f = torch.stack([mean7500, s15["scale"].expand(batch)], -1).to(torch.float32)
+    rat16 = torch.stack([_fix16(out["r400"]), _fix16(out["r7500"])], -2)
     parts = [scal_i, scal_f.view(i32), hdr, out["hexpack"].to(i32),
-             out["edges"].to(i32), rat16.reshape(-1).view(i32)]
-    return torch.cat(parts)
+             out["edges"].to(i32), rat16.reshape(batch + (-1,)).view(i32)]
+    return torch.cat(parts, -1)
 
 
 def conditioned(pcm: torch.Tensor, n_valid) -> torch.Tensor:
@@ -528,26 +560,24 @@ def stage1_core(pcm, n_valid, power_trig, sos, bit_trig, dims: EngineDims,
     Returns ``r400``, ``r7500``, ``edge_samples``, ``n_edges``, the per-bit
     mark and space powers ``s1`` and ``s2``, and ``overflow``: what
     :func:`batched_back_half` takes.  A (B, N) batch with (B,) ``n_valid``
-    is conditioned as one tensor and its tone ratios are ONE kernel launch;
-    the demod front end then runs row by row, with no host sync, and every
-    output gains a leading batch dimension."""
+    is conditioned as one tensor, its tone ratios are ONE kernel launch and
+    its bit-edge chains one walk; the filter, crossings and probes run row
+    by row (:func:`demod_core`), with no host sync, and every output gains
+    a leading batch dimension."""
     x = conditioned(pcm, n_valid)
     ratios = tonepower.tone_ratios if use_kernel else tonepower.tone_ratios_reference
     r400, r7500 = ratios(x.to(torch.float32).contiguous(), power_trig,
                          dims.n_power, dims.d_pcm)
-    if x.dim() == 1:
-        return dict(r400=r400, r7500=r7500, **demod_core(
-            x, sos, bit_trig, dims, fs, bitrate, bit_inset, edge_pad, n_valid))
-    rows = [demod_core(x[b], sos, bit_trig, dims, fs, bitrate, bit_inset,
-                       edge_pad, n_valid[b]) for b in range(x.shape[0])]
-    return dict(r400=r400, r7500=r7500,
-                **{k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+    return dict(r400=r400, r7500=r7500, **demod_core(
+        x, sos, bit_trig, dims, fs, bitrate, bit_inset, edge_pad, n_valid))
 
 
-def back_half(s1: dict, n_valid, trig_i, trig_f, hdr_rel, calib_off,
-              dims: EngineDims, fs: float) -> torch.Tensor:
-    """The back half over one row of stage-1 outputs (``stage1_core``): the
-    packed int32 vector."""
+def batched_back_half(s1: dict, n_valid, trig_i, trig_f, hdr_rel, calib_off,
+                      dims: EngineDims, fs: float) -> torch.Tensor:
+    """The back half over a batch of stage-1 outputs (``stage1_core``, each
+    with a leading batch dimension, and (B,) ``n_valid``): the (B, L) packed
+    matrix, in one pass over the batch (:func:`back_half_core`) with no host
+    sync."""
     ovf0 = s1.get("overflow")
     if ovf0 is None:
         ovf0 = torch.zeros_like(s1["n_edges"], dtype=torch.int32)
@@ -557,14 +587,12 @@ def back_half(s1: dict, n_valid, trig_i, trig_f, hdr_rel, calib_off,
                           calib_off, dims, fs, overflow0=ovf0)
 
 
-def batched_back_half(s1: dict, n_valid, trig_i, trig_f, hdr_rel, calib_off,
-                      dims: EngineDims, fs: float) -> torch.Tensor:
-    """The back half over a batch of stage-1 outputs, row by row on the
-    device with no host sync: the (B, L) packed matrix."""
-    return torch.stack([
-        back_half({k: v[b] for k, v in s1.items()}, n_valid[b], trig_i, trig_f,
-                  hdr_rel, calib_off, dims, fs)
-        for b in range(n_valid.shape[0])])
+def back_half(s1: dict, n_valid, trig_i, trig_f, hdr_rel, calib_off,
+              dims: EngineDims, fs: float) -> torch.Tensor:
+    """The back half over one row of stage-1 outputs: the B = 1 case of
+    :func:`batched_back_half`, the packed int32 vector."""
+    return batched_back_half({k: v[None] for k, v in s1.items()}, n_valid[None],
+                             trig_i, trig_f, hdr_rel, calib_off, dims, fs)[0]
 
 
 def fused_core(pcm, n_valid, power_trig, sos, bit_trig, trig_i, trig_f,

@@ -12,6 +12,23 @@ The outputs equal the JAX functions' exactly.  Index tensors are int64
 to int32 by the caller.  Scatters that the JAX code writes with
 ``mode="drop"`` send dropped entries to a dump slot at ``size`` that is
 sliced off.  Nothing here reads a device value on the host.
+
+The chain functions and :func:`compact_indices` work along the last
+dimension: one row (n,) as the JAX functions take it, or a batch (B, n)
+with per-row scalars of shape (B,), each row computed as it would be alone
+(the batch dimension written out where the JAX package would ``vmap``).
+
+The walks are hand-written CUDA kernels on the card
+(``ops/kernels/chain.cu``), where the JAX package runs ``lax.scan`` and
+fused XLA: :func:`chain_compose` (one squaring level of a strided delta
+table), :func:`chain_walk_strided` and :func:`chain_walk` (the doubling
+fill of the first ``first`` chain entries and the tail, over delta tables
+or full jump tables).  Each wrapper takes its plain version (``*_reference``)
+for a CPU tensor, launches its kernel for a CUDA tensor and adds one to its
+``launches`` count, and raises on any other device; nothing falls back.
+:func:`chain_enumerate_strided_reference` and
+:func:`chain_enumerate_reference` are the whole enumerations in plain
+PyTorch, for comparison runs.
 """
 
 from __future__ import annotations
@@ -24,17 +41,25 @@ import torch
 CROSSINGS_PER_SECOND = 3000
 
 
-def compact_indices(mask: torch.Tensor, size: int, fill: int):
-    """Indices of True entries compacted into a fixed-size buffer.
+def _col(v):
+    """A per-row scalar (a 0-dim or (B,) tensor, or a Python number) shaped
+    to broadcast against the last dimension."""
+    return v[..., None] if isinstance(v, torch.Tensor) else v
 
-    Returns (indices int64[size] ascending then `fill`, true count — may
-    exceed `size`, the caller's overflow signal)."""
-    n = mask.shape[0]
-    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+
+def compact_indices(mask: torch.Tensor, size: int, fill: int):
+    """Indices of True entries compacted into a fixed-size buffer, along the
+    last dimension.
+
+    Returns (indices int64[..., size] ascending then `fill`, true count per
+    row — may exceed `size`, the caller's overflow signal)."""
+    n = mask.shape[-1]
+    pos = torch.cumsum(mask.to(torch.int64), -1) - 1
     slot = torch.where(mask, torch.clamp(pos, max=size), size)
-    out = torch.full((size + 1,), fill, dtype=torch.int64, device=mask.device)
-    out.scatter_(0, slot, torch.arange(n, device=mask.device))
-    return out[:size], pos[-1] + 1
+    out = torch.full(mask.shape[:-1] + (size + 1,), fill, dtype=torch.int64,
+                     device=mask.device)
+    out.scatter_(-1, slot, torch.arange(n, device=mask.device).expand(slot.shape))
+    return out[..., :size], pos[..., -1] + 1
 
 
 def _block_compact_rows(m: torch.Tensor):
@@ -135,31 +160,196 @@ def compact_indices_rowcap(mask: torch.Tensor, size: int, fill: int,
     return out[:size], total, row_ovf
 
 
-def chain_enumerate(next_idx: torch.Tensor, start: int, length: int,
-                    max_level: int = 6) -> torch.Tensor:
-    """``chain[j+1] = next_idx[chain[j]]`` for `length` steps (fixed points
-    repeat at the end).  The jump table is squared up to 2^max_level steps,
-    then span-sized chunks are extended with it."""
-    k = int(length)
-    jumps = next_idx.to(torch.int64)
-    first = min(1 << (k - 1).bit_length(), 1 << max_level)
-    span = 1
+def _first(k: int, max_level: int) -> int:
+    """Chain entries filled by doubling: a power of two, at most 2^max_level."""
+    return min(1 << (k - 1).bit_length(), 1 << max_level)
+
+
+def _n_levels(k: int, first: int) -> int:
+    """Level tables a walk reads: log2(first) for the doubling, one more
+    (the first-step table) when a tail remains."""
+    return max(first.bit_length() - 1 + (k > first), 1)
+
+
+def _on_card(t: torch.Tensor, name: str) -> bool:
+    """False for a CPU tensor (take the plain version), True for a CUDA
+    tensor (launch the kernel); raises on any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def chain_compose_reference(delta: torch.Tensor, span: int, hi: int) -> torch.Tensor:
+    """One squaring level of a strided delta table (int16, along the last
+    dimension), as the JAX package writes it: ``delta + acc`` where ``acc``
+    selects ``delta[i + s]`` (0 past the table's end) for the ``s`` in
+    [span, hi] equal to ``delta[i]``.  A walk stalled within `span` steps
+    (delta < span) keeps its delta, which is exact."""
+    n = delta.shape[-1]
+    acc = torch.zeros_like(delta)
+    for s in range(span, hi + 1):
+        if s < n:
+            shifted = torch.cat([delta[..., s:], torch.zeros(
+                delta.shape[:-1] + (s,), dtype=torch.int16, device=delta.device)], -1)
+        else:  # shift past the table: everything lands on the pad
+            shifted = torch.zeros_like(delta)
+        acc = torch.where(delta == s, shifted, acc)
+    return delta + acc
+
+
+def chain_compose(delta: torch.Tensor, span: int, hi: int, out=None) -> torch.Tensor:
+    """:func:`chain_compose_reference` of a (rows, m) int16 table, into
+    `out` if given; on the card one launch of ``chain_compose_kernel``, the
+    same select written as one bounded gather
+    ``d[i] + d[i + d[i]]`` (span <= d[i] <= hi, i + d[i] < m)."""
+    if not _on_card(delta, "chain_compose"):
+        res = chain_compose_reference(delta, span, hi)
+        return res if out is None else out.copy_(res)
+    from .kernels import extension
+
+    out = torch.empty_like(delta) if out is None else out
+    extension().chain_compose(delta, out, span, hi)
+    if delta.numel():
+        chain_compose.launches += 1
+    return out
+
+
+chain_compose.launches = 0
+
+
+def _walk_reference(levels: torch.Tensor, start: int, k: int, first: int,
+                    strided: bool) -> torch.Tensor:
+    """The plain walk over (n_levels, rows, m) level tables: the doubling
+    fill of ``chain[:first]`` (level p extends ``chain[2^p : 2^(p+1)]``),
+    then the tail, ``first`` entries per step through the last level.  A
+    step is ``nc + d[nc]`` over delta tables (`strided`), ``J[nc]`` over
+    jump tables."""
+    def step(table, nc):  # int64 + int16 deltas promotes to int64
+        got = torch.gather(table, -1, nc)
+        return nc + got if strided else got
+
+    rows = levels.shape[1]
     # every slot past 0 is written below; a full() and not chain0[0] = start,
     # which copies the scalar from the host and waits for the device
-    chain0 = torch.full((first,), start, dtype=torch.int64, device=jumps.device)
-    while span < first:
-        chain0[span: 2 * span] = jumps[chain0[:span]]
-        if 2 * span < k:  # skip the squaring no later step will use
-            jumps = jumps[jumps]
-        span *= 2
+    chain0 = torch.full((rows, first), start, dtype=torch.int64, device=levels.device)
+    s2 = 1
+    for table in levels:
+        if s2 >= first:
+            break
+        chain0[:, s2: 2 * s2] = step(table, chain0[:, :s2])
+        s2 *= 2
     if first >= k:
-        return chain0[:k]
+        return chain0[:, :k]
+    last = levels[-1]
     pieces = [chain0]
     nc = chain0
     for _ in range(-(-(k - first) // first)):
-        nc = jumps[nc]
+        nc = step(last, nc)
         pieces.append(nc)
-    return torch.cat(pieces)[:k]
+    return torch.cat(pieces, 1)[:, :k]
+
+
+def chain_walk_strided_reference(levels: torch.Tensor, start: int, k: int,
+                                 first: int) -> torch.Tensor:
+    """Plain version of :func:`chain_walk_strided`."""
+    return _walk_reference(levels, start, k, first, strided=True)
+
+
+def chain_walk_reference(levels: torch.Tensor, start: int, k: int,
+                         first: int) -> torch.Tensor:
+    """Plain version of :func:`chain_walk`."""
+    return _walk_reference(levels, start, k, first, strided=False)
+
+
+def chain_walk_strided(levels: torch.Tensor, start: int, k: int, first: int) -> torch.Tensor:
+    """The (rows, k) int64 chain from `start` over (n_levels, rows, m) int16
+    delta tables (level p holds ``next^(2^p)[i] - i``; the last one is the
+    tail's).  On the card one launch of ``chain_walk_kernel`` for every row."""
+    if not _on_card(levels, "chain_walk_strided"):
+        return chain_walk_strided_reference(levels, start, k, first)
+    from .kernels import extension
+
+    out = extension().chain_walk_strided(levels, start, k, first)
+    if out.numel():
+        chain_walk_strided.launches += 1
+    return out
+
+
+chain_walk_strided.launches = 0
+
+
+def chain_walk(levels: torch.Tensor, start: int, k: int, first: int) -> torch.Tensor:
+    """:func:`chain_walk_strided` over (n_levels, rows, m) int64 full jump
+    tables (level p holds ``next^(2^p)``)."""
+    if not _on_card(levels, "chain_walk"):
+        return chain_walk_reference(levels, start, k, first)
+    from .kernels import extension
+
+    out = extension().chain_walk(levels, start, k, first)
+    if out.numel():
+        chain_walk.launches += 1
+    return out
+
+
+chain_walk.launches = 0
+
+
+def jump_levels(next_idx: torch.Tensor, k: int, max_level: int = 6):
+    """(the (n_levels, rows, m) int64 tables ``next^(2^p)`` a `k`-step walk
+    reads, first): the squarings ``J_(p+1) = J_p[J_p]`` as gathers, the one
+    no step reads skipped."""
+    m = next_idx.shape[-1]
+    first = _first(k, max_level)
+    jumps = next_idx.reshape(-1, m).to(torch.int64)
+    levels = [jumps]
+    for _ in range(1, _n_levels(k, first)):
+        jumps = torch.gather(jumps, -1, jumps)
+        levels.append(jumps)
+    return torch.stack(levels), first
+
+
+def delta_levels(next_idx: torch.Tensor, k: int, stride_bound: int = 4,
+                 max_level: int = 7, plain: bool = False):
+    """(the (n_levels, rows, m) int16 tables ``next^(2^p)[i] - i`` a
+    `k`-step walk reads, first), each level from the one before by
+    :func:`chain_compose` (its plain version with `plain`)."""
+    assert stride_bound << max_level <= 32767, "delta exceeds int16"
+    m = next_idx.shape[-1]
+    rows = next_idx.reshape(-1, m)
+    first = _first(k, max_level)
+    levels = torch.empty((_n_levels(k, first),) + rows.shape, dtype=torch.int16,
+                         device=rows.device)
+    levels[0] = rows.to(torch.int64) - torch.arange(m, device=rows.device)
+    span, hi = 1, stride_bound
+    for j in range(1, levels.shape[0]):
+        if plain:
+            levels[j] = chain_compose_reference(levels[j - 1], span, hi)
+        else:
+            chain_compose(levels[j - 1], span, hi, out=levels[j])
+        span *= 2
+        hi *= 2
+    return levels, first
+
+
+def chain_enumerate(next_idx: torch.Tensor, start: int, length: int,
+                    max_level: int = 6) -> torch.Tensor:
+    """``chain[j+1] = next_idx[chain[j]]`` for `length` steps along the last
+    dimension (fixed points repeat at the end).  The jump table is squared up
+    to 2^max_level steps, then span-sized chunks are extended with it
+    (:func:`chain_walk`)."""
+    k = int(length)
+    levels, first = jump_levels(next_idx, k, max_level)
+    return chain_walk(levels, start, k, first).reshape(next_idx.shape[:-1] + (k,))
+
+
+def chain_enumerate_reference(next_idx: torch.Tensor, start: int, length: int,
+                              max_level: int = 6) -> torch.Tensor:
+    """:func:`chain_enumerate` in plain PyTorch on any device."""
+    k = int(length)
+    levels, first = jump_levels(next_idx, k, max_level)
+    return chain_walk_reference(levels, start, k, first).reshape(next_idx.shape[:-1] + (k,))
 
 
 def chain_enumerate_strided(next_idx: torch.Tensor, start: int, length: int,
@@ -168,55 +358,28 @@ def chain_enumerate_strided(next_idx: torch.Tensor, start: int, length: int,
     """`chain_enumerate` for successor maps with ``next_idx[i] - i`` in
     {0} ∪ [1, stride_bound] (the bit-edge chain).
 
-    The jump-table squarings are gather-free: with ``delta_L[i] =
-    next^L[i] - i``, ``delta_2L[i] = delta_L[i] + delta_L[i + delta_L[i]]``,
-    a select over the shifted copies ``delta_L[i + s]``, s in
-    [L, stride_bound*L] (a stalled walk keeps its delta, which is exact).
-    The tail is extended from the last table in a host loop of small
-    gathers (~4,700 steps of 128 at 600 s; the launches bound the decode on
-    a GPU), with no device-to-host read.
-    """
+    The jump-table squarings are gather-free in the JAX package: with
+    ``delta_L[i] = next^L[i] - i``, ``delta_2L[i] = delta_L[i] +
+    delta_L[i + delta_L[i]]``, a select over the shifted copies
+    ``delta_L[i + s]``, s in [L, stride_bound*L] (a stalled walk keeps its
+    delta, which is exact); on the card one bounded gather per level
+    (:func:`chain_compose`).  The fill and the tail are one
+    :func:`chain_walk_strided`."""
     k = int(length)
-    n = next_idx.shape[0]
-    dev = next_idx.device
-    assert stride_bound << max_level <= 32767, "delta exceeds int16"
-    idx = torch.arange(n, device=dev)
-    delta = (next_idx.to(torch.int64) - idx).to(torch.int16)
-    first = min(1 << (k - 1).bit_length(), 1 << max_level)
+    levels, first = delta_levels(next_idx, k, stride_bound, max_level)
+    return chain_walk_strided(levels, start, k, first).reshape(next_idx.shape[:-1] + (k,))
 
-    deltas = [delta]
-    span, hi = 1, stride_bound
-    while 2 * span <= first and 2 * span < k:
-        acc = torch.zeros_like(delta)
-        for s in range(span, hi + 1):
-            if s < n:
-                shifted = torch.cat(
-                    [delta[s:], torch.zeros((s,), dtype=torch.int16, device=dev)])
-            else:  # shift past the table: everything lands on the pad
-                shifted = torch.zeros((n,), dtype=torch.int16, device=dev)
-            acc = torch.where(delta == s, shifted, acc)
-        delta = delta + acc
-        deltas.append(delta)
-        span *= 2
-        hi *= 2
 
-    chain0 = torch.full((first,), start, dtype=torch.int64, device=dev)
-    s2 = 1
-    for d in deltas:
-        if s2 >= first:
-            break
-        chain0[s2: 2 * s2] = chain0[:s2] + d[chain0[:s2]].to(torch.int64)
-        s2 *= 2
-    if first >= k:
-        return chain0[:k]
-
-    d_last = deltas[-1].to(torch.int64)
-    pieces = [chain0]
-    nc = chain0
-    for _ in range(-(-(k - first) // first)):
-        nc = nc + d_last[nc]
-        pieces.append(nc)
-    return torch.cat(pieces)[:k]
+def chain_enumerate_strided_reference(next_idx: torch.Tensor, start: int, length: int,
+                                      stride_bound: int = 4,
+                                      max_level: int = 7) -> torch.Tensor:
+    """:func:`chain_enumerate_strided` in plain PyTorch on any device: the
+    JAX package's shifted-select squarings and a host loop of small gathers
+    for the tail."""
+    k = int(length)
+    levels, first = delta_levels(next_idx, k, stride_bound, max_level, plain=True)
+    return chain_walk_strided_reference(levels, start, k, first).reshape(
+        next_idx.shape[:-1] + (k,))
 
 
 def bit_edge_successors(crossings: torch.Tensor, n_valid, fs: float,
@@ -224,36 +387,37 @@ def bit_edge_successors(crossings: torch.Tensor, n_valid, fs: float,
     """Successor table of the greedy 4-candidate bit-edge chain: i + 1 +
     argmin over the next four crossings of their distance to crossings[i] +
     fs/bitrate (ties keep the earlier); positions with fewer than 5
-    crossings left are fixed points."""
-    m = crossings.shape[0]
+    crossings left are fixed points.  Along the last dimension."""
+    m = crossings.shape[-1]
     dev = crossings.device
     big = torch.iinfo(torch.int32).max // 2
-    padded = torch.cat([crossings, torch.full((5,), big, dtype=crossings.dtype,
-                                              device=dev)])
+    padded = torch.cat([crossings, torch.full(crossings.shape[:-1] + (5,), big,
+                                              dtype=crossings.dtype, device=dev)], -1)
     target = torch.full((), fs / bitrate, dtype=torch.float32, device=dev)
-    pick = torch.zeros((m,), dtype=torch.int64, device=dev)
+    pick = torch.zeros(crossings.shape, dtype=torch.int64, device=dev)
     # distances on small integer gaps: absolute positions in f32 would
     # quantize by ~2 samples on long files
-    best = torch.abs((padded[1: 1 + m] - crossings).to(torch.float32) - target)
+    best = torch.abs((padded[..., 1: 1 + m] - crossings).to(torch.float32) - target)
     for s in range(2, 5):
-        d = torch.abs((padded[s: s + m] - crossings).to(torch.float32) - target)
+        d = torch.abs((padded[..., s: s + m] - crossings).to(torch.float32) - target)
         better = d < best
         pick = torch.where(better, s - 1, pick)
         best = torch.where(better, d, best)
     idx = torch.arange(m, device=dev)
-    nxt = torch.where(idx < n_valid - 5, idx + 1 + pick, idx)
+    nxt = torch.where(idx < _col(n_valid) - 5, idx + 1 + pick, idx)
     return torch.clamp(nxt, 0, m - 1)
 
 
 def enumerate_bit_edges(crossings: torch.Tensor, n_valid, fs: float,
                         bitrate: float, max_edges: int):
-    """(edge positions int64[max_edges] as crossing-array indices, n_edges);
-    entries beyond n_edges repeat the terminal index."""
+    """(edge positions int64[..., max_edges] as crossing-array indices,
+    n_edges per row); entries beyond n_edges repeat the terminal index."""
     nxt = bit_edge_successors(crossings, n_valid, fs, bitrate)
     chain = chain_enumerate_strided(nxt, 0, max_edges)
-    advanced = torch.cat([torch.ones((1,), dtype=torch.bool, device=chain.device),
-                          chain[1:] > chain[:-1]])
-    n_edges = torch.cumprod(advanced.to(torch.int64), 0).sum()
+    advanced = torch.cat([torch.ones(chain.shape[:-1] + (1,), dtype=torch.bool,
+                                     device=chain.device),
+                          chain[..., 1:] > chain[..., :-1]], -1)
+    n_edges = torch.cumprod(advanced.to(torch.int64), -1).sum(-1)
     return chain, n_edges
 
 
@@ -263,30 +427,32 @@ def enumerate_frames(accept: torch.Tensor, n_bits, max_frames: int,
     on an accepted frame, stop at ``n_bits - 32`` (parse.py:57-89).
 
     The walk is "next accepted offset at or after s + 32", run in the
-    accept-compacted domain.  Returns (frame_starts int64[max_frames],
+    accept-compacted domain.  Along the last dimension, with `n_bits` a
+    tensor per row.  Returns (frame_starts int64[..., max_frames],
     n_frames, consumed, overflow int32: bit 0 accepts exceeded the
     compaction capacity, bit 1 the frame table filled)."""
-    n = accept.shape[0]
+    n = accept.shape[-1]
     dev = accept.device
     cap = min(n, n // 16 + 1024)
     big = torch.iinfo(torch.int32).max // 2
     idx = torch.arange(n, device=dev)
-    accept = accept & (idx < n_bits - 32)
+    accept = accept & (idx < _col(n_bits) - 32)
     apos, n_acc = compact_indices(accept, cap, big)
+    apos = apos.clone()  # contiguous for searchsorted: one copy whatever the batch
 
     n_keep = torch.clamp(n_acc, max=cap)
     succ = torch.searchsorted(apos, apos + 32)
     j = torch.arange(cap, device=dev)
-    succ = torch.where((j < n_keep) & (succ < n_keep), succ, j)
+    succ = torch.where((j < _col(n_keep)) & (succ < _col(n_keep)), succ, j)
 
     chain = chain_enumerate(succ, 0, max_frames, max_level=max_level)
-    advancing = torch.cat([(n_acc > 0).reshape(1), chain[1:] > chain[:-1]])
-    is_frame = torch.cumprod(advancing.to(torch.int64), 0).to(torch.bool)
-    n_frames = is_frame.to(torch.int64).sum()
-    starts = torch.where(is_frame, apos[torch.clamp(chain, 0, cap - 1)], 0)
+    advancing = torch.cat([(n_acc > 0)[..., None], chain[..., 1:] > chain[..., :-1]], -1)
+    is_frame = torch.cumprod(advancing.to(torch.int64), -1).to(torch.bool)
+    n_frames = is_frame.to(torch.int64).sum(-1)
+    starts = torch.where(is_frame, torch.gather(apos, -1, torch.clamp(chain, 0, cap - 1)), 0)
 
     floor_pos = torch.clamp(n_bits - 32, min=0)
-    last_start = torch.where(is_frame, starts, -1).max()
+    last_start = torch.where(is_frame, starts, -1).amax(-1)
     last_end = torch.where(n_frames > 0, last_start + 32, 0)
     consumed = torch.clamp(torch.maximum(floor_pos, last_end), max=n - 1)
     overflow = ((n_acc > cap).to(torch.int32)

@@ -14,7 +14,8 @@ simulator import this module for the numpy part):
   uint32 shifts on the CPU and no popcount, so words are int64 holding the
   32-bit pattern, and each parity bit is an XOR fold of ``word & mask``.
 * :func:`check_crc_all_windows` — validity of every 32-bit window of a bit
-  stream, as 32 shifted XORs of bit-packed parity rows.
+  stream (or of each row of a batch), as 32 shifted XORs of bit-packed
+  parity rows.
 """
 
 from __future__ import annotations
@@ -109,13 +110,14 @@ def check_crc_words(words):
 
 def check_crc_all_windows(bitstream):
     """CRC validity of every 32-bit sliding window of a 0/1 stream of
-    length N; positions past N-32 are False."""
+    length N along the last dimension (one stream, or a batch of rows);
+    positions past N-32 are False."""
     import torch
 
     bits = bitstream.to(torch.int64)
-    n = bits.shape[0]
+    n = bits.shape[-1]
     rem = torch.zeros_like(bits)
     for i in range(FRAME_BITS):
-        rem = rem ^ (torch.roll(bits, -i) * int(_PACKED[i]))
+        rem = rem ^ (torch.roll(bits, -i, dims=-1) * int(_PACKED[i]))
     idx = torch.arange(n, device=bits.device)
     return (rem == 0) & (idx <= n - FRAME_BITS)

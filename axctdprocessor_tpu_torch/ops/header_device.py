@@ -17,6 +17,10 @@ Same contracts as the host versions (reference parse.py:157-285):
 The fused decode calls neither of the last two (the JAX engine's back half
 computes and then discards them): it ships the raw (found, nibbles) arrays
 and the host decodes the coefficients in float64.
+
+The first three work along the last dimension: one window, or a batch of
+windows (B, n) with per-row bit counts (B,), each row as it would be alone
+(the JAX package ``vmap``s them with its back half).
 """
 
 from __future__ import annotations
@@ -33,31 +37,31 @@ WINDOW_BITS = FRAME_BITS * 75  # trimmed header window capacity
 
 
 def first_true(mask: torch.Tensor) -> torch.Tensor:
-    """Index of the first True of a 1-D bool mask (0 when none), on the
-    device; torch's argmax does not take bool and returns the first
-    maximal index."""
-    return torch.argmax(mask.to(torch.uint8))
+    """Index of the first True along the last dimension of a bool mask (0
+    when none), on the device; torch's argmax does not take bool and
+    returns the first maximal index."""
+    return torch.argmax(mask.to(torch.uint8), dim=-1)
 
 
 def trim_header(bits: torch.Tensor, n_bits):
     """(start index of the 75-frame header window, window length)."""
-    n = bits.shape[0]
+    n = bits.shape[-1]
     dev = bits.device
     idx = torch.arange(n, device=dev)
-    valid = idx < n_bits
+    valid = idx < n_bits[..., None]
     b = torch.where(idx < 25, 1, torch.where(valid, bits.to(torch.int64), 0))
 
-    csum = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
-                      torch.cumsum(b, 0)])
-    ones25 = csum[idx + 1] - csum[torch.clamp(idx - 24, min=0)]
-    run8 = csum[idx + 1] - csum[torch.clamp(idx - 7, min=0)]
+    csum = torch.cat([torch.zeros(b.shape[:-1] + (1,), dtype=torch.int64, device=dev),
+                      torch.cumsum(b, -1)], -1)
+    ones25 = csum[..., idx + 1] - csum[..., torch.clamp(idx - 24, min=0)]
+    run8 = csum[..., idx + 1] - csum[..., torch.clamp(idx - 7, min=0)]
 
     stop_mask = (idx >= 400) & (ones25 <= 20) & valid
-    stop = torch.where(stop_mask.any(), first_true(stop_mask), n_bits - 1)
+    stop = torch.where(stop_mask.any(-1), first_true(stop_mask), n_bits - 1)
 
-    pulse_mask = (idx > 10) & (run8 == 8) & (idx <= stop) & valid
+    pulse_mask = (idx > 10) & (run8 == 8) & (idx <= stop[..., None]) & valid
     # last True index: length-1 - first True of the reversed mask
-    last = torch.where(pulse_mask.any(), n - 1 - first_true(pulse_mask.flip(0)), 0)
+    last = torch.where(pulse_mask.any(-1), n - 1 - first_true(pulse_mask.flip(-1)), 0)
     length = torch.clamp(n_bits - last, max=FRAME_BITS * 75)
     return last, length
 
@@ -73,44 +77,48 @@ def parse_header_frames(bits: torch.Tensor, n_bits):
     the winner per slot is chosen explicitly (torch's index_put with
     duplicate indices leaves the winner undefined on CUDA).
     """
-    n = bits.shape[0]
+    n = bits.shape[-1]
     dev = bits.device
+    batch = bits.shape[:-1]
     bits = bits.to(torch.int64)
     idx = torch.arange(n, device=dev)
-    in_range = idx < n_bits
+    in_range = idx < n_bits[..., None]
     crc_ok = crc_ops.check_crc_all_windows(bits)
-    sync = (bits == 1) & (torch.roll(bits, -1) == 0)
-    accept = sync & crc_ok & in_range & (idx < n_bits - FRAME_BITS)
+    sync = (bits == 1) & (torch.roll(bits, -1, dims=-1) == 0)
+    accept = sync & crc_ok & in_range & (idx < n_bits[..., None] - FRAME_BITS)
 
     max_frames = n // FRAME_BITS + 2
     starts, n_frames, _, _ = chain_ops.enumerate_frames(
         accept, n_bits, max_frames=max_frames)
 
     offs = torch.arange(FRAME_BITS, device=dev)
-    fwin = bits[torch.clamp(starts[:, None] + offs, 0, n - 1)]
+    at = torch.clamp(starts[..., None] + offs, 0, n - 1)
+    fwin = torch.gather(bits, -1, at.reshape(batch + (-1,))).reshape(at.shape)
     k = torch.arange(max_frames, device=dev)
-    frame_ok = k < n_frames
+    frame_ok = k < n_frames[..., None]
 
-    counter_bits = fwin[:, 2:10]
+    counter_bits = fwin[..., 2:10]
     w8 = 1 << torch.arange(7, -1, -1, device=dev)
-    plain = (counter_bits * w8).sum(dim=1)
-    high = counter_bits[:, :5].sum(dim=1) == 5
+    plain = (counter_bits * w8).sum(dim=-1)
+    high = counter_bits[..., :5].sum(dim=-1) == 5
     w3 = 1 << torch.arange(2, -1, -1, device=dev)
-    counter = torch.where(high, (counter_bits[:, 5:] * w3).sum(dim=1) + 64, plain)
+    counter = torch.where(high, (counter_bits[..., 5:] * w3).sum(dim=-1) + 64, plain)
     counter_ok = frame_ok & (counter <= 71)
     saw71 = counter_ok & (counter == 71)
-    k71 = torch.where(saw71.any(), first_true(saw71), max_frames)
-    counter_ok &= k <= k71
+    k71 = torch.where(saw71.any(-1), first_true(saw71), max_frames)
+    counter_ok &= k <= k71[..., None]
 
     # integer matmuls have no CUDA kernel: multiply and sum
-    nib = (fwin[:, 10:26].reshape(-1, 4, 4)
-           * (1 << torch.arange(3, -1, -1, device=dev))).sum(dim=2)
+    nib = (fwin[..., 10:26].reshape(batch + (max_frames, 4, 4))
+           * (1 << torch.arange(3, -1, -1, device=dev))).sum(dim=-1)
     slot = torch.where(counter_ok, counter, HEADER_FRAMES)
     # last-wins: the highest frame index per slot, then one gather
-    winner = torch.full((HEADER_FRAMES + 1,), -1, dtype=torch.int64, device=dev)
-    winner = winner.scatter_reduce(0, slot, k, reduce="amax")[:HEADER_FRAMES]
+    winner = torch.full(batch + (HEADER_FRAMES + 1,), -1, dtype=torch.int64, device=dev)
+    winner = winner.scatter_reduce(-1, slot, k.expand(slot.shape),
+                                   reduce="amax")[..., :HEADER_FRAMES]
     found = winner >= 0
-    frames = torch.where(found[:, None], nib[torch.clamp(winner, min=0)], 0)
+    pick = torch.clamp(winner, min=0)[..., None].expand(batch + (HEADER_FRAMES, 4))
+    frames = torch.where(found[..., None], torch.gather(nib, -2, pick), 0)
     return found, frames
 
 
@@ -120,12 +128,12 @@ def parse_header_window(win_bits: torch.Tensor, n_bits):
     never yields a header."""
     start, length = trim_header(win_bits, n_bits)
     idx = torch.arange(WINDOW_BITS, device=win_bits.device)
-    trimmed = win_bits[torch.clamp(start + idx, 0, win_bits.shape[0] - 1)]
-    trimmed = torch.where(idx < length, trimmed, 0)
+    at = torch.clamp(start[..., None] + idx, 0, win_bits.shape[-1] - 1)
+    trimmed = torch.where(idx < length[..., None], torch.gather(win_bits, -1, at), 0)
     found, frames = parse_header_frames(trimmed, length)
     usable = (n_bits >= HEADER_FRAMES * FRAME_BITS) & \
         (length >= HEADER_FRAMES * FRAME_BITS)
-    return found & usable, frames, usable
+    return found & usable[..., None], frames, usable
 
 
 # coefficient layout: coefficient i of z/t/c spans these base frames + 2

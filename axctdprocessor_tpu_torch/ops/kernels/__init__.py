@@ -1,10 +1,11 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels: the tone ratios
+(``tone_ratios.cu``) and the chain walks (``chain.cu``), one extension.
 
 The kernels are compiled from the sources in this directory at first use,
 with ``torch.utils.cpp_extension.load``, into ``axctdprocessor_tpu_torch/
 _build/`` (listed in ``.gitignore``).  Only the small binding file includes
-PyTorch's headers; the ``.cu`` file has a plain C interface, so nvcc does not
-parse PyTorch.  Nothing is imported or built when this module is imported:
+PyTorch's headers; the ``.cu`` files have a plain C interface, so nvcc does
+not parse PyTorch.  Nothing is imported or built when this module is imported:
 a CPU-only machine never reaches :func:`extension`.
 """
 
@@ -15,7 +16,7 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "_build")
-SOURCES = ("tone_ratios_binding.cpp", "tone_ratios.cu")
+SOURCES = ("binding.cpp", "tone_ratios.cu", "chain.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
@@ -34,7 +35,7 @@ def extension():
 
             os.makedirs(BUILD_DIR, exist_ok=True)
             _ext = load(
-                name="axctd_tone_ratios",
+                name="axctd_kernels",
                 sources=[os.path.join(_HERE, s) for s in SOURCES],
                 build_directory=BUILD_DIR,
                 extra_cflags=["-O3"],

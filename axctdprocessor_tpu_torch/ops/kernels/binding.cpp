@@ -1,0 +1,136 @@
+// PyTorch binding of the hand-written kernels (tone_ratios.cu, chain.cu).
+//
+// The only file that includes PyTorch's headers, so that nvcc compiles the
+// kernels without them.  Each function checks device, dtype, shape and
+// contiguity, allocates its outputs, launches on PyTorch's current stream of
+// its input's device and raises when the launch is refused.
+//
+// tone_ratios: ``x`` is one signal (n,) or a batch (rows, n); the outputs are
+// (n_win,) or (rows, n_win).  A refused launch: the table does not fit in
+// shared memory (rates above ~54 kHz, which the engines decimate first).
+//
+// chain_compose / chain_walk_strided / chain_walk: the level tables of the
+// pointer-doubling chain, (rows, m) per level; the walks take all levels as
+// one (n_levels, rows, m) tensor and return the (rows, k) int64 chain.
+
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <torch/extension.h>
+
+extern "C" int axctd_tone_ratios_launch(const float* x, int rows, long long n,
+                                        const float* tm, int window,
+                                        int stride, int n_win, float* r400,
+                                        float* r7500, void* stream);
+extern "C" int axctd_chain_compose_launch(const int16_t* d, int16_t* out, int rows, long long m,
+                                          int span, int hi, void* stream);
+extern "C" int axctd_chain_walk_strided_launch(const int16_t* levels, int n_levels, int rows,
+                                               long long m, int start, long long k, int first,
+                                               long long* out, void* stream);
+extern "C" int axctd_chain_walk_launch(const long long* levels, int n_levels, int rows,
+                                       long long m, int start, long long k, int first,
+                                       long long* out, void* stream);
+extern "C" const char* axctd_cuda_error_string(int code);
+
+constexpr int64_t kMaxSegments = 3;  // tone_ratios.cu: windows of at most 3 strides
+constexpr int64_t kMaxFirst = 1024;  // chain.cu: chain heads per block
+
+std::vector<torch::Tensor> tone_ratios(torch::Tensor x, torch::Tensor tm,
+                                       int64_t window, int64_t stride,
+                                       int64_t n_win) {
+  TORCH_CHECK(x.is_cuda() && tm.is_cuda(), "tone_ratios: x and tm must be CUDA tensors");
+  TORCH_CHECK(x.device() == tm.device(), "tone_ratios: x and tm on different devices");
+  TORCH_CHECK(x.scalar_type() == torch::kFloat32 && tm.scalar_type() == torch::kFloat32,
+              "tone_ratios: x and tm must be float32");
+  TORCH_CHECK((x.dim() == 1 || x.dim() == 2) && x.is_contiguous(),
+              "tone_ratios: x must be a contiguous (n,) or (rows, n) tensor");
+  const int64_t rows = x.dim() == 2 ? x.size(0) : 1;
+  TORCH_CHECK(rows < 65536, "tone_ratios: at most 65535 rows");
+  TORCH_CHECK(tm.dim() == 2 && tm.size(0) == window && tm.size(1) == 6 && tm.is_contiguous(),
+              "tone_ratios: tm must be a contiguous (window, 6) table");
+  TORCH_CHECK(window > 0 && stride > 0 && n_win >= 0 && n_win < (1LL << 31),
+              "tone_ratios: bad window/stride/n_win");
+  TORCH_CHECK((window + stride - 1) / stride <= kMaxSegments,
+              "tone_ratios: window must span at most 3 strides");
+  // the kernel copies the table in 16-byte pieces
+  if (reinterpret_cast<uintptr_t>(tm.data_ptr()) % 16 != 0) tm = tm.clone();
+  const c10::cuda::CUDAGuard guard(x.device());
+  std::vector<int64_t> shape = {2, n_win};  // (r400, r7500) in one allocation
+  if (x.dim() == 2) shape.insert(shape.begin() + 1, rows);
+  auto out = torch::empty(shape, x.options());
+  const int err = axctd_tone_ratios_launch(
+      x.data_ptr<float>(), static_cast<int>(rows), x.size(-1), tm.data_ptr<float>(),
+      static_cast<int>(window), static_cast<int>(stride), static_cast<int>(n_win),
+      out[0].data_ptr<float>(), out[1].data_ptr<float>(),
+      at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "tone_ratios launch failed: ", axctd_cuda_error_string(err));
+  return out.unbind(0);
+}
+
+void chain_compose(torch::Tensor d, torch::Tensor out, int64_t span, int64_t hi) {
+  TORCH_CHECK(d.is_cuda() && out.is_cuda() && d.device() == out.device(),
+              "chain_compose: d and out must be CUDA tensors on one device");
+  TORCH_CHECK(d.scalar_type() == torch::kInt16 && out.scalar_type() == torch::kInt16,
+              "chain_compose: d and out must be int16");
+  TORCH_CHECK(d.dim() == 2 && d.is_contiguous() && out.is_contiguous() && out.sizes() == d.sizes(),
+              "chain_compose: d and out must be contiguous (rows, m) tensors of one shape");
+  TORCH_CHECK(d.size(0) < 65536 && d.size(1) < (1LL << 31), "chain_compose: table too large");
+  TORCH_CHECK(span >= 1 && hi >= span && hi <= 32767, "chain_compose: bad span/hi");
+  TORCH_CHECK(d.data_ptr() != out.data_ptr(), "chain_compose: out must not alias d");
+  const c10::cuda::CUDAGuard guard(d.device());
+  const int err = axctd_chain_compose_launch(
+      d.data_ptr<int16_t>(), out.data_ptr<int16_t>(), static_cast<int>(d.size(0)), d.size(1),
+      static_cast<int>(span), static_cast<int>(hi), at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "chain_compose launch failed: ", axctd_cuda_error_string(err));
+}
+
+static void check_walk(const torch::Tensor& levels, c10::ScalarType dtype, int64_t start,
+                       int64_t k, int64_t first, const char* name) {
+  TORCH_CHECK(levels.is_cuda(), name, ": levels must be a CUDA tensor");
+  TORCH_CHECK(levels.scalar_type() == dtype, name, ": levels has the wrong dtype");
+  TORCH_CHECK(levels.dim() == 3 && levels.is_contiguous(),
+              name, ": levels must be a contiguous (n_levels, rows, m) tensor");
+  TORCH_CHECK(levels.size(1) < (1LL << 31) && levels.size(2) < (1LL << 31),
+              name, ": table too large");
+  TORCH_CHECK(first >= 1 && first <= kMaxFirst && (first & (first - 1)) == 0,
+              name, ": first must be a power of two up to 1024");
+  int64_t need = 0;  // the doubling reads log2(first) levels, the tail one more
+  while ((int64_t{1} << need) < first) ++need;
+  if (k > first) ++need;
+  TORCH_CHECK(levels.size(0) >= std::max<int64_t>(need, 1), name, ": too few levels");
+  TORCH_CHECK(k >= 0 && start >= 0 && start < std::max<int64_t>(levels.size(2), 1),
+              name, ": bad start/k");
+}
+
+torch::Tensor chain_walk_strided(torch::Tensor levels, int64_t start, int64_t k, int64_t first) {
+  check_walk(levels, torch::kInt16, start, k, first, "chain_walk_strided");
+  const c10::cuda::CUDAGuard guard(levels.device());
+  auto out = torch::empty({levels.size(1), k}, levels.options().dtype(torch::kInt64));
+  const int err = axctd_chain_walk_strided_launch(
+      levels.data_ptr<int16_t>(), static_cast<int>(levels.size(0)),
+      static_cast<int>(levels.size(1)), levels.size(2), static_cast<int>(start), k,
+      static_cast<int>(first), reinterpret_cast<long long*>(out.data_ptr<int64_t>()),
+      at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "chain_walk_strided launch failed: ", axctd_cuda_error_string(err));
+  return out;
+}
+
+torch::Tensor chain_walk(torch::Tensor levels, int64_t start, int64_t k, int64_t first) {
+  check_walk(levels, torch::kInt64, start, k, first, "chain_walk");
+  const c10::cuda::CUDAGuard guard(levels.device());
+  auto out = torch::empty({levels.size(1), k}, levels.options());
+  const int err = axctd_chain_walk_launch(
+      reinterpret_cast<const long long*>(levels.data_ptr<int64_t>()),
+      static_cast<int>(levels.size(0)), static_cast<int>(levels.size(1)), levels.size(2),
+      static_cast<int>(start), k, static_cast<int>(first),
+      reinterpret_cast<long long*>(out.data_ptr<int64_t>()),
+      at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "chain_walk launch failed: ", axctd_cuda_error_string(err));
+  return out;
+}
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("tone_ratios", &tone_ratios, "Fused tone powers, box mean and log10 ratios (CUDA)");
+  m.def("chain_compose", &chain_compose, "One squaring level of a strided delta table (CUDA)");
+  m.def("chain_walk_strided", &chain_walk_strided, "Chain walk over strided delta tables (CUDA)");
+  m.def("chain_walk", &chain_walk, "Chain walk over full jump tables (CUDA)");
+}

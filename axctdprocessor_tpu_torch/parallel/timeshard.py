@@ -16,9 +16,9 @@ exchange** between neighbours:
 
 Tone probes are computed for **every zero crossing**, not just chained bit
 edges (about twice the probes, with no sequencing between blocks).  The
-small chained part, the greedy bit-edge walk, then runs per drop on the
-gathered (crossing, mark, space) table on the first device of the drop's
-mesh row.
+small chained part, the greedy bit-edge walk, then runs on the gathered
+(crossing, mark, space) tables of a mesh row's drops, all at once, on the
+first device of the row.
 
 Where the JAX module writes a ``shard_map`` body with ``ppermute``,
 ``psum`` and ``pmax``, one Python process here calls the block body once
@@ -261,22 +261,20 @@ def _assemble_rows(powers, gpos, p1, p2, ovf, dims: eng.EngineDims, fs: float,
     stage-1 dict: the blocks' crossing tables into global order (a stable
     sort: ``BIG`` fills go last), the six-tap box mean and the two log10
     ratios on the gathered power series, and the greedy bit-edge chain on
-    each row's crossing table."""
+    the rows' crossing tables, all rows in one call (one walk launch on the
+    card)."""
     gpos_s, order = torch.sort(gpos, dim=1, stable=True)
     p1_s = torch.gather(p1, 1, order)
     p2_s = torch.gather(p2, 1, order)
     n_cross = (gpos_s < BIG).sum(dim=1)
     r400, r7500 = tonepower.ratios_from_powers(powers)
 
-    rows = []
-    for r in range(gpos.shape[0]):
-        edge_idx, n_edges = chain_ops.enumerate_bit_edges(
-            gpos_s[r], n_cross[r], fs, float(cfg.bitrate), dims.max_edges)
-        safe = torch.clamp(edge_idx, 0, gpos_s.shape[1] - 1)
-        rows.append((gpos_s[r][safe], n_edges, p1_s[r][safe], p2_s[r][safe]))
-    edges, n_edges, s1, s2 = (torch.stack(col) for col in zip(*rows))
-    return dict(r400=r400, r7500=r7500, edge_samples=edges, n_edges=n_edges,
-                s1=s1, s2=s2, overflow=ovf.amax(dim=1))
+    edge_idx, n_edges = chain_ops.enumerate_bit_edges(
+        gpos_s, n_cross, fs, float(cfg.bitrate), dims.max_edges)
+    safe = torch.clamp(edge_idx, 0, gpos_s.shape[1] - 1)
+    return dict(r400=r400, r7500=r7500, edge_samples=torch.gather(gpos_s, 1, safe),
+                n_edges=n_edges, s1=torch.gather(p1_s, 1, safe),
+                s2=torch.gather(p2_s, 1, safe), overflow=ovf.amax(dim=1))
 
 
 def decode_batch_timesharded(pcms, fs, config: DecoderConfig | None = None, *,

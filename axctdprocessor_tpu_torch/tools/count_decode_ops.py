@@ -1,0 +1,102 @@
+"""Count what one monolithic decode dispatches: PyTorch operations, and on a
+GPU the kernel launches.
+
+The operations are counted with ``TorchDispatchMode`` on a synthetic drop
+made by the simulator of the tree under test (``SimSpec(duration=SECONDS,
+profile_start=33, seed=11)``, int16), after one warm-up decode.  Besides the
+total it counts the operations inside the bit-edge chain
+(``ops.chain.enumerate_bit_edges``) and inside frame sync
+(``ops.chain.enumerate_frames``), and lists the most frequent operations.
+With ``--device cuda`` the same decode runs on the card and, in a second
+run, under ``torch.profiler``, whose launch events (``cudaLaunchKernel``,
+``cuLaunchKernel``) are counted as ``chip_smoke.py`` phase 10 counts them;
+``--plain-tone-ratios`` decodes with the plain tone-ratio version
+(``use_kernel=False``), so that a tree's own kernel need not be built.
+``--tree`` names the root of another checkout of the repository (for
+example one unpacked with ``git archive``), whose port is imported instead
+of this one's; run one tree per process, as a file (not with ``-m``, which
+would import this checkout's port first).  One JSON line:
+
+    python axctdprocessor_tpu_torch/tools/count_decode_ops.py [--tree DIR] [--seconds 60]
+        [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import sys
+
+import numpy as np
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)))
+    ap.add_argument("--seconds", type=float, default=60.0)
+    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--plain-tone-ratios", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from axctdprocessor_tpu_torch.models import engine, simulator
+    from axctdprocessor_tpu_torch.ops import chain
+
+    torch.set_num_threads(2)
+    inside = {"total": 0, "enumerate_bit_edges": 0, "enumerate_frames": 0}
+    names = collections.Counter()
+    where = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            inside["total"] += 1
+            names[str(func.overloadpacket.__name__)] += 1
+            for w in set(where):
+                inside[w] += 1
+            return func(*args, **(kwargs or {}))
+
+    def tagged(name, fn):
+        def run(*a, **k):
+            where.append(name)
+            try:
+                return fn(*a, **k)
+            finally:
+                where.pop()
+        return run
+
+    for name in ("enumerate_bit_edges", "enumerate_frames"):
+        setattr(chain, name, tagged(name, getattr(chain, name)))
+    pcm, _ = simulator.synthesize(simulator.SimSpec(duration=args.seconds, profile_start=33.0,
+                                                    seed=11))
+    raw = np.round(pcm * 28000 / np.max(np.abs(pcm))).astype(np.int16)
+
+    def decode():
+        return engine.decode_waveform(raw, 44100, device=args.device, mode="monolithic",
+                                      use_kernel=not args.plain_tone_ratios)
+
+    decode()  # warm-up
+    with Count():
+        res = decode()
+    out = dict(tree=os.path.abspath(args.tree), seconds=args.seconds, device=args.device,
+               status=res.status, frames=len(res.hexframes), ops=inside,
+               top=names.most_common(8))
+    if args.device == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            decode()
+            torch.cuda.synchronize()
+        out["launches"] = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                              for e in prof.events())
+        out["card"] = torch.cuda.get_device_name(0)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    no GPU -> exit 1 before anything else;
-1. build the hand-written CUDA kernel and the wire encoders' C library
-   from the sources in the checkout (both into
+1. build the hand-written CUDA kernels (``tone_ratios.cu`` and ``chain.cu``,
+   one extension) and the wire encoders' C library from the sources in the
+   checkout (both into
    ``axctdprocessor_tpu_torch/_build/``), time the builds and say which
    encoder runs; then synthesize the drops once: the 600 s bench drop
    (simulator seed 11) as an int16 WAV, and the bench's 64 x 60 s int16
@@ -29,6 +30,17 @@ Phases, one line each or more (any failure raises and exits non-zero):
    bytes at 3.35 TB/s against the flop at 66.9 TFLOP/s) and the share of
    it the kernel reaches; and, for reference only, one ``torch.matmul`` of
    the tile view by the segment matrix (the DFT core alone);
+2b. the chain kernels (``chain_compose``, ``chain_walk_strided``,
+   ``chain_walk``) against their plain versions on the card, bit for bit:
+   every call that the 600 s drop's monolithic, segmented and time-sharded
+   (dp 1 x sp 4) decodes, 4 archive rows time-sharded on dp 2 x sp 2,
+   ``decode_batch`` of 8 and of 64 archive rows and 2 x 8 rows through the
+   pipeline hand them (recorded as the paths run), then the walks' edge cases (k = 1, 2; k <= first; k = first;
+   k no multiple of first; a dead table; early stalls; rows of different
+   true lengths with padded tails; a dead row of jumps), each row also equal
+   to its 1-D call.  Per shape the median CUDA-event times of kernel and
+   plain in turns (5 runs of 2 calls), the bytes bound and the share of it,
+   and for the walks the time per dependent step;
 3. the monolithic path end to end: the 600 s WAV through
    ``decode_wav(device="cuda", mode="monolithic")``; held to the
    simulator's truth, to the same decode with the plain tone-ratio
@@ -96,13 +108,15 @@ Phases, one line each or more (any failure raises and exits non-zero):
    profiler launches more slowly from then on): one segmented, one
    monolithic and one time-sharded decode of the 600 s drop and
    one batch of 8 of the archive rows (launches, device idle share, the
-   upload), one pipelined run of 2 x 8, then the kernel's device time at
-   each phase-2 shape.
+   upload), one pipelined run of 2 x 8,
+   then the tone-ratio kernel's device time at each phase-2 shape and the
+   chain kernels' at each phase-2b shape.
 
-Each path is driven with the kernel's launch count set to 0 just before
-and read just after.  At the end neither jax nor any module of the JAX
+Each path is driven with every kernel's launch count set to 0 just before
+and read just after (each chain kernel must have launched on every path).  At the end neither jax nor any module of the JAX
 package (``axctdprocessor_tpu``) may be loaded.  Then come the line
-``{"kernels": [...]}`` (per shape: times, bound and share of bound), the
+``{"kernels": [...]}`` (each kernel's launches on every path; per shape:
+times, bound and share of bound), the
 card's name and power limit, and, last, ``{"ok": true, "device": {...}}``.
 Temporary WAVs live in a directory inside the checkout that is removed at
 the end.
@@ -127,9 +141,47 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 RTOL = ATOL = 2e-4  # tests/test_pallas_kernels.py:36, the Pallas kernel's own bar
 KERNEL_SOURCE = "axctdprocessor_tpu_torch/ops/kernels/tone_ratios.cu"
 REPLACES = "axctdprocessor_tpu/ops/pallas/tonepower.py:110"
+CHAIN_SOURCE = "axctdprocessor_tpu_torch/ops/kernels/chain.cu"
+# the chain kernels replace lax.scan and fused XLA of the JAX package, not
+# Pallas kernels: the lines of the JAX code each one stands for
+CHAIN_REPLACES = {
+    "chain_compose": "axctdprocessor_tpu/ops/chain.py:284-297",
+    "chain_walk_strided": "axctdprocessor_tpu/ops/chain.py:299-329",
+    "chain_walk": "axctdprocessor_tpu/ops/chain.py:216-245",
+}
+KERNELS = ("tone_ratios",) + tuple(CHAIN_REPLACES)
+PATH_LAUNCHES: dict = {}  # path -> {kernel: launches}, every path this run drives
 
 
 T0 = time.perf_counter()
+
+
+def _kernel_fns() -> dict:
+    from axctdprocessor_tpu_torch.ops import chain, tonepower
+
+    return {"tone_ratios": tonepower.tone_ratios, "chain_compose": chain.chain_compose,
+            "chain_walk_strided": chain.chain_walk_strided, "chain_walk": chain.chain_walk}
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts(path: str) -> dict:
+    """Every kernel's launch count just after `path` ran; every path walks
+    the bit-edge chain and frame-syncs, so each chain kernel must have been
+    launched at least once."""
+    got = {name: fn.launches for name, fn in _kernel_fns().items()}
+    missing = [k for k in CHAIN_REPLACES if got[k] < 1]
+    assert not missing, f"{path}: no launch of {missing}: {got}"
+    PATH_LAUNCHES[path] = got
+    return got
+
+
+def counts_text(got: dict) -> str:
+    return ", ".join(f"{k} {got[k]}" for k in KERNELS)
 
 
 def log(msg: str) -> None:
@@ -165,7 +217,8 @@ def phase1_build() -> None:
     t0 = time.perf_counter()
     kernels.extension()
     dt = time.perf_counter() - t0
-    log(f"[1] built tone_ratios ({KERNEL_SOURCE}, sm_90a) in {dt:.1f} s")
+    log(f"[1] built the kernels (one extension: {KERNEL_SOURCE}, {CHAIN_SOURCE}; sm_90a) in "
+        f"{dt:.1f} s")
     t0 = time.perf_counter()
     lib = native.get_library()
     dt = time.perf_counter() - t0
@@ -226,8 +279,8 @@ def count_syncs():
 
 
 def profile_run(fn) -> str:
-    """One run of `fn` under ``torch.profiler``: wall, kernel launches,
-    device busy time (union of device activity) and idle share, and the
+    """One run of `fn` under ``torch.profiler``: wall, kernel launches, device
+    busy time (union of device activity) and idle share, and the
     host-to-device copies by kind."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -252,7 +305,8 @@ def profile_run(fn) -> str:
             n, us = h2d.get(e.name, (0, 0.0))
             h2d[e.name] = (n + 1, us + e.time_range.elapsed_us())
     if not spans:
-        return f"profiled wall {wall_us / 1e3:.1f} ms, launches {launches}; device time not measured"
+        return (f"profiled wall {wall_us / 1e3:.1f} ms, launches {launches}; device time "
+                "not measured")
     return (f"profiled wall {wall_us / 1e3:.1f} ms, kernel launches {launches}, device busy "
             f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, H2D "
             + ("; ".join(f"{k}: {n} copies {us / 1e3:.2f} ms" for k, (n, us) in h2d.items())
@@ -275,16 +329,16 @@ def _event_ms(fn, calls: int = 1) -> float:
     return start.elapsed_time(end) / calls
 
 
-def _time_pair(kernel, plain) -> tuple[float, float]:
-    """Median CUDA-event times per call of `kernel` and `plain` over 20 runs
-    of 10 back-to-back calls each, in turns, after a warm-up."""
+def _time_pair(kernel, plain, runs: int = 20, calls: int = 10) -> tuple[float, float]:
+    """Median CUDA-event times per call of `kernel` and `plain` over `runs`
+    runs of `calls` back-to-back calls each, in turns, after a warm-up."""
     for _ in range(3):
         kernel()
         plain()
     k_ms, p_ms = [], []
-    for _ in range(20):
-        k_ms.append(_event_ms(kernel, 10))
-        p_ms.append(_event_ms(plain, 10))
+    for _ in range(runs):
+        k_ms.append(_event_ms(kernel, calls))
+        p_ms.append(_event_ms(plain, calls))
     return statistics.median(k_ms), statistics.median(p_ms)
 
 
@@ -447,12 +501,220 @@ def phase2_kernel(drops: dict) -> dict:
     return dict(max_abs_err=worst, shapes=shapes)
 
 
-def phase10_profiles(drops: dict, seg: dict, k: dict) -> None:
+class _Recorder:
+    """Stands in for one chain wrapper of ``ops.chain`` while the main paths
+    run: notes each call's arguments and calls the wrapper.  Its ``launches``
+    is the wrapper's own (the wrapper counts through its module name)."""
+
+    def __init__(self, fn, log: list, path: list):
+        self.fn, self.log, self.path = fn, log, path
+
+    def __call__(self, *args, **kwargs):
+        self.log.append((self.path[0], args, kwargs))
+        return self.fn(*args, **kwargs)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+def _record_chain_calls(drops: dict) -> dict:
+    """The chain kernels' arguments as the main paths hand them over: the
+    600 s drop monolithic, segmented and time-sharded on dp 1 x sp 4, 4
+    archive rows time-sharded on dp 2 x sp 2, the archive batch's first 8
+    rows and all 64 through ``decode_batch``, and 2 x 8 rows through
+    ``decode_batches_pipelined``.  Returns {kernel: [(path, args), ...]}."""
+    from axctdprocessor_tpu_torch.models import engine
+    from axctdprocessor_tpu_torch.ops import chain
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline, timeshard
+    from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
+    from axctdprocessor_tpu_torch.utils.wavio import read_wav_raw16
+
+    raw, fs = read_wav_raw16(drops["wav"])
+    rows, bfs = drops["batch"], drops["batch_fs"]
+    card = torch.device("cuda", 0)
+    runs = [
+        ("600 s", lambda: engine.decode_waveform(raw, fs, device="cuda", mode="monolithic")),
+        ("600 s segmented", lambda: engine.decode_waveform(raw, fs, device="cuda",
+                                                           mode="segmented")),
+        ("600 s time-sharded, dp 1 x sp 4", lambda: timeshard.decode_batch_timesharded(
+            raw[None], fs, mesh=make_mesh({"dp": 1, "sp": 4}, [card] * 4))),
+        ("4 x 60 s time-sharded, dp 2 x sp 2", lambda: timeshard.decode_batch_timesharded(
+            rows[:4], bfs, mesh=make_mesh({"dp": 2, "sp": 2}, [card] * 4))),
+        ("batch 8 x 60 s", lambda: batch.decode_batch(rows[:8], bfs, device="cuda")),
+        ("batch 64 x 60 s", lambda: batch.decode_batch(rows, bfs, device="cuda")),
+        ("pipeline 2 x 8 x 60 s", lambda: pipeline.decode_batches_pipelined(
+            [(sub, None) for sub in np.split(rows[:16], 2)], bfs, device="cuda")),
+    ]
+    calls = {name: [] for name in CHAIN_REPLACES}
+    path = [""]
+    originals = {name: getattr(chain, name) for name in CHAIN_REPLACES}
+    for name, fn in originals.items():
+        setattr(chain, name, _Recorder(fn, calls[name], path))
+    try:
+        for label, run in runs:
+            path[0] = label
+            run()
+    finally:
+        for name, fn in originals.items():
+            setattr(chain, name, fn)
+    for name, made in calls.items():
+        missing = {label for label, _ in runs} - {p for p, _, _ in made}
+        assert not missing, f"{name}: no call recorded on {sorted(missing)}"
+    return {name: [(p, a) for p, a, _ in made] for name, made in calls.items()}
+
+
+def _chain_bound(name: str, rows: int, m: int, k: int, levels: int = 1) -> float:
+    """The least time in ms for the bytes a call must move at 3.35 TB/s (its
+    integer operations, one add or none per entry, take far less): a compose
+    level reads each int16 entry once and writes it once; a walk writes k
+    int64 entries per row and reads the k table entries that lead to them
+    (int16 deltas, or int64 jumps)."""
+    if name == "chain_compose":
+        nbytes = levels * rows * m * 4
+    else:
+        nbytes = rows * k * (8 + (2 if name == "chain_walk_strided" else 8))
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def _chain_edge_cases(dev) -> list:
+    """(name, successor tables (B, m) int64 on the card, k, strided) of the
+    walks' edge cases."""
+    from axctdprocessor_tpu_torch.ops import chain
+
+    rng = np.random.default_rng(3)
+
+    def strided(rows, m, stall=0.003):
+        nxt = np.arange(m) + rng.integers(1, 5, (rows, m))
+        nxt = np.where(rng.random((rows, m)) < stall, np.arange(m), nxt)
+        return np.minimum(nxt, m - 1)
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+
+    early = strided(3, 6000)
+    early[:, 40:60] = np.arange(40, 60)  # stalls a few steps in
+    # crossings of 4 rows of different true lengths: BIG past n_valid (the
+    # zero-padded tail), one row dead (no crossing at all)
+    m = 20000
+    cross = np.cumsum(rng.integers(20, 36, (4, m)), axis=1)
+    n_valid = np.asarray([m, 15000, 3000, 0])
+    cross = np.where(np.arange(m) < n_valid[:, None], cross, np.iinfo(np.int32).max // 2)
+    ragged = chain.bit_edge_successors(card(cross), card(n_valid), 44100.0, 800.0)
+    return [
+        ("k = 1", card(strided(2, 500)), 1, True),
+        ("k = 2", card(strided(2, 500)), 2, True),
+        ("k = 100 <= first (no tail)", card(strided(3, 2000)), 100, True),
+        ("k = 128 = first", card(strided(3, 2000)), 128, True),
+        ("k = 1000, not a multiple of first", card(strided(3, 5000)), 1000, True),
+        ("dead table (all fixed points)", card(np.tile(np.arange(4000), (2, 1))), 3000, True),
+        ("early stalls", card(early), 5000, True),
+        ("4 rows of true lengths 20000, 15000, 3000, 0 (tails BIG-padded)", ragged, 12000, True),
+        ("jumps: k = 50 <= first", card(np.minimum(np.arange(3000) + rng.integers(0, 9, (3, 3000)),
+                                                   2999)), 50, False),
+        ("jumps: k = 1000, a dead row", card(np.stack([
+            np.minimum(np.arange(3000) + rng.integers(0, 9, 3000), 2999), np.arange(3000)])),
+         1000, False),
+    ]
+
+
+def _chain_timed(calls: dict):
+    """(kernel, shape, facts, kernel call, plain call) of every shape timed:
+    per path all compose levels of the decode as one call, and each distinct
+    walk."""
+    from axctdprocessor_tpu_torch.ops import chain
+
+    for path in ("600 s", "batch 8 x 60 s", "batch 64 x 60 s"):
+        levels = [a for p, a in calls["chain_compose"] if p == path]
+        rows, m = levels[0][0].shape
+        yield ("chain_compose", f"{path}: {len(levels)} levels of ({rows}, {m}) int16",
+               dict(rows=rows, m=m, levels=len(levels),
+                    bound_ms=_chain_bound("chain_compose", rows, m, 0, len(levels))),
+               lambda levels=levels: [chain.chain_compose(*a) for a in levels],
+               lambda levels=levels: [chain.chain_compose_reference(*a) for a in levels])
+        for name, kernel, plain in (
+                ("chain_walk_strided", chain.chain_walk_strided, chain.chain_walk_strided_reference),
+                ("chain_walk", chain.chain_walk, chain.chain_walk_reference)):
+            seen = set()
+            for p, a in calls[name]:
+                lv, start, k, first = a
+                if p != path or (lv.shape, k) in seen:
+                    continue
+                seen.add((lv.shape, k))
+                _, rows, m = lv.shape
+                steps = max(-(-(k - first) // first), 0)
+                yield (name, f"{path}: ({rows}, {m}) tables, k = {k}, first = {first}",
+                       dict(rows=rows, m=m, k=k, first=first, steps=steps,
+                            bound_ms=_chain_bound(name, rows, m, k)),
+                       lambda a=a, kernel=kernel: kernel(*a),
+                       lambda a=a, plain=plain: plain(*a))
+
+
+def phase2b_chain(drops: dict) -> dict:
+    """The chain kernels against their plain versions on the card, bit for
+    bit, at the shapes the main paths give them (recorded from the decodes
+    themselves, ``_record_chain_calls``: the 600 s drop's successor tables
+    from its crossings, monolithic, segmented and time-sharded, the archive
+    rows time-sharded, as batches of 8 and 64 and pipelined, and the
+    frame-sync tables of the same decodes), then at the walks' edge cases.  Times per call (CUDA
+    events, warm, kernel and plain in turns), the bound and the share of it."""
+    from axctdprocessor_tpu_torch.ops import chain
+
+    calls = _record_chain_calls(drops)
+    kernel = {"chain_compose": chain.chain_compose, "chain_walk_strided": chain.chain_walk_strided,
+              "chain_walk": chain.chain_walk}
+    plain = {"chain_compose": chain.chain_compose_reference,
+             "chain_walk_strided": chain.chain_walk_strided_reference,
+             "chain_walk": chain.chain_walk_reference}
+    out = {name: [] for name in kernel}
+    for name, recorded in calls.items():
+        assert recorded, f"the main paths made no {name} call"
+        for path, args in recorded:  # every recorded call, bit for bit
+            got, want = kernel[name](*args), plain[name](*args)
+            assert got.dtype == want.dtype and torch.equal(got, want), f"{name} differs: {path}"
+    for name, shape, meta, run_kernel, run_plain in _chain_timed(calls):
+        km, pm = _time_pair(run_kernel, run_plain, runs=5, calls=2)
+        out[name].append(dict(shape=shape, ms=km, plain_ms=pm, share_of_bound=meta["bound_ms"] / km,
+                              device_ms=None, **meta))
+    for name, recs in out.items():
+        for r in recs:
+            log(f"[2b] {name} {r['shape']}: bit for bit equal to the plain version; kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.2f} "
+                f"us (bytes), share of bound {r['share_of_bound']:.4f}"
+                + (f"; {r['steps']} dependent steps, {1e3 * r['ms'] / max(r['steps'], 1):.3f} "
+                   "us per step" if "steps" in r else ""))
+    n_calls = {name: len(c) for name, c in calls.items()}
+    paths = sorted({p for c in calls.values() for p, _ in c})
+    log(f"[2b] every recorded call of the main paths ({'; '.join(paths)}) bit for bit equal "
+        f"to its plain version: {n_calls}")
+    dev = torch.device("cuda")
+    for case, nxt, k, strided in _chain_edge_cases(dev):
+        if strided:
+            got = chain.chain_enumerate_strided(nxt, 0, k)
+            want = chain.chain_enumerate_strided_reference(nxt, 0, k)
+        else:
+            got, want = chain.chain_enumerate(nxt, 0, k), chain.chain_enumerate_reference(nxt, 0, k)
+        assert got.shape == (nxt.shape[0], k) and torch.equal(got, want), case
+        for r in range(nxt.shape[0]):  # each row alone, as a 1-D call
+            one = (chain.chain_enumerate_strided if strided else chain.chain_enumerate)(nxt[r], 0, k)
+            assert torch.equal(one, got[r]), (case, r)
+        log(f"[2b] edge case {'strided' if strided else 'full jump table'}, {case}: "
+            f"{tuple(nxt.shape)} -> {tuple(got.shape)} bit for bit equal to the plain version, "
+            "every row equal to its 1-D call")
+    return out
+
+
+def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict) -> None:
     """``torch.profiler`` runs, after every wall: a process that has run the
     profiler launches kernels more slowly from then on, which would load the
     walls of phases 3-9.  One segmented, one monolithic and one time-sharded
     decode, one batch of 8 rows and one pipelined run of 2 x 8, then the
-    kernel's device time at each phase-2 shape."""
+    kernels' device times at each
+    phase-2 and phase-2b shape."""
     from axctdprocessor_tpu_torch.models import engine, segmented
     from axctdprocessor_tpu_torch.ops import tonepower
     from axctdprocessor_tpu_torch.parallel import batch, pipeline, timeshard
@@ -487,6 +749,22 @@ def phase10_profiles(drops: dict, seg: dict, k: dict) -> None:
         f"{r['shape']}: " + ("not measured" if r["device_ms"] is None else
                              f"{r['device_ms']:.4f} ms, share of bound "
                              f"{r['share_of_bound_device']:.3f}") for r in k["shapes"]))
+    # the chain kernels: the main paths' arguments recorded anew (phase 2b
+    # kept none, so that no phase between held them on the card)
+    name_in_trace = {"chain_compose": "chain_compose_kernel",
+                     "chain_walk_strided": "chain_walk_kernel",
+                     "chain_walk": "chain_walk_kernel"}
+    recs = {name: iter(r) for name, r in ck.items()}
+    for name, shape, meta, run_kernel, _ in _chain_timed(_record_chain_calls(drops)):
+        rec = next(recs[name])
+        assert rec["shape"] == shape, (rec["shape"], shape)
+        per_launch = _device_ms(run_kernel, name_in_trace[name], calls=10)
+        rec["device_ms"] = None if per_launch is None else per_launch * meta.get("levels", 1)
+        log(f"[10] {name} {shape}: device " + (
+            "not measured" if rec["device_ms"] is None else
+            f"{rec['device_ms']:.4f} ms, share of bound {meta['bound_ms'] / rec['device_ms']:.4f}"
+            + (f", {1e3 * rec['device_ms'] / max(meta['steps'], 1):.3f} us per dependent step"
+               if "steps" in meta else "")))
 
 
 def _agreement(a, b) -> float:
@@ -530,11 +808,12 @@ def phase3_end_to_end(drops: dict) -> dict:
 
     wav, truth = drops["wav"], drops["truth"]
     torch.cuda.reset_peak_memory_stats()
-    tonepower.tone_ratios.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     res = engine.decode_wav(wav, device="cuda", mode="monolithic")
     first_s = time.perf_counter() - t0
     launches = tonepower.tone_ratios.launches
+    counts = read_counts("monolithic 600 s")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     assert launches >= 1, "the monolithic path did not launch the tone_ratios kernel"
     in_truth = _gates(res, truth)
@@ -568,9 +847,10 @@ def phase3_end_to_end(drops: dict) -> dict:
         f"{res.metadata['max_depth']}, overflow {res.overflow}, rows {len(res.time)}, "
         f"frames {len(res.hexframes)}, in truth {in_truth:.4f}, agreement with the "
         f"plain-tone-ratio decode {agree_plain:.4f}, repeat agreement {agree_repeat:.4f}; "
-        f"tone_ratios launches {launches}")
+        f"launches {counts_text(counts)}")
     log(f"[3] first decode {first_s:.3f} s, warm wall (median of 3) {wall:.4f} s "
-        f"{[round(w, 4) for w in walls]}, realtime factor {600.0 / wall:.1f}x, "
+        f"{[round(w, 4) for w in walls]}, "
+        f"realtime factor {600.0 / wall:.1f}x, "
         f"peak device memory {peak_gib:.2f} GiB, host syncs per decode {syncs['n']}")
     log(f"[3] 50 s default drop: CUDA vs CPU decode hexframe agreement "
         f"{agree_cpu:.4f}, metadata equal, frames {len(gpu.hexframes)}/{len(cpu.hexframes)}")
@@ -624,11 +904,12 @@ def phase6_segmented(drops: dict, mono: dict) -> dict:
     from axctdprocessor_tpu_torch.ops import tonepower
 
     wav, truth = drops["wav"], drops["truth"]
-    tonepower.tone_ratios.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     res = engine.decode_wav(wav, device="cuda")  # "auto": 600 s > 300 s
     first_s = time.perf_counter() - t0
     launches = tonepower.tone_ratios.launches
+    counts = read_counts("segmented 600 s")
     assert launches == 0, "the segmented path has no tone-ratio kernel"
     in_truth = _gates(res, truth)
     agree_mono = _agreement(res.hexframes, mono["hexframes"])
@@ -643,9 +924,10 @@ def phase6_segmented(drops: dict, mono: dict) -> dict:
     log(f"[6] 600 s segmented decode (decode_wav, \"auto\"): status {res.status}, serial "
         f"{res.metadata['serial_no']}, overflow {res.overflow}, rows {len(res.time)}, frames "
         f"{len(res.hexframes)}, in truth {in_truth:.4f}, agreement with the monolithic "
-        f"decode {agree_mono:.4f}; tone_ratios launches {launches}")
+        f"decode {agree_mono:.4f}; launches {counts_text(counts)}")
     log(f"[6] first decode {first_s:.3f} s, warm wall (median of 3) {wall:.4f} s "
-        f"{[round(w, 4) for w in walls]} vs monolithic {mono['wall']:.4f} s, realtime "
+        f"{[round(w, 4) for w in walls]} vs "
+        f"monolithic {mono['wall']:.4f} s, realtime "
         f"factor {600.0 / wall:.1f}x, host syncs per decode {syncs['n']}; stages "
         f"{ {k: round(v * 1e3, 2) for k, v in timer.totals.items()} } ms")
     return dict(raw=raw, fs=fs, res=res)
@@ -658,7 +940,9 @@ def phase7_prestaged(drops: dict, seg: dict) -> None:
     t0 = time.perf_counter()
     st = segmented.prestage_waveform(raw, fs, device="cuda", wire="int8")
     stage_s = time.perf_counter() - t0
+    zero_counts()
     res = st.decode()
+    counts = read_counts("prestaged 600 s")
     in_truth = _gates(res, truth)
     agree = _agreement(res.hexframes, seg["res"].hexframes)
     assert agree >= 0.99, agree
@@ -682,7 +966,8 @@ def phase7_prestaged(drops: dict, seg: dict) -> None:
         f"segmented decode {agree:.4f}; warm wall (median of 5) {wall:.4f} s "
         f"{[round(w, 4) for w in walls]}, sustained {sustained:.4f} s per decode over {k} "
         f"queued decodes ({600.0 / sustained:.1f}x realtime), host syncs per decode "
-        f"{syncs['n']}; fused=True equal to fused=False, warm wall {f_wall:.4f} s")
+        f"{syncs['n']}; fused=True equal to fused=False, warm wall {f_wall:.4f} s; launches "
+        f"{counts_text(counts)}")
 
 
 def phase8_stream(drops: dict) -> None:
@@ -695,23 +980,24 @@ def phase8_stream(drops: dict) -> None:
     _gates(offline, drops["truth"])
     dec = DeviceStreamDecoder(fs, device="cuda")
     step = int(fs)
+    zero_counts()
     t_feed = time.perf_counter()
     for i in range(0, len(pcm), step):
         dec.feed(pcm[i: i + step])
     t0 = time.perf_counter()
     res = dec.finalize()
     tail_s = time.perf_counter() - t0
+    counts = read_counts("stream 600 s")
     feed_s = t0 - t_feed
     assert res.hexframes == offline.hexframes, "stream != offline segmented"
     assert res.time == offline.time and res.metadata == offline.metadata
     log(f"[8] stream: 600 s fed in 1 s float blocks ({feed_s:.3f} s of feeding, "
         f"{dec._next_k} segments); finalize() equal to the offline segmented decode "
         f"({len(res.hexframes)} frames, {len(res.time)} rows); last feed to finalize "
-        f"{tail_s:.4f} s")
+        f"{tail_s:.4f} s; launches {counts_text(counts)}")
 
 
 def phase9_batch(drops: dict) -> dict:
-    from axctdprocessor_tpu_torch.ops import tonepower
     from axctdprocessor_tpu_torch.parallel import batch
 
     rows, fs, truth = drops["batch"], drops["batch_fs"], drops["batch_truth"]
@@ -730,15 +1016,20 @@ def phase9_batch(drops: dict) -> dict:
         kept[name] = []
         t0 = time.perf_counter()
         for sub in subs:
-            tonepower.tone_ratios.launches = 0
+            zero_counts()
             kept[name] += batch.decode_batch(sub, fs, device="cuda")
-            assert tonepower.tone_ratios.launches == 1, tonepower.tone_ratios.launches
+            counts = read_counts(f"decode_batch of {len(sub)} rows")
+            # one launch per batch: the tone ratios, the bit-edge walk, and
+            # three frame-sync walks (the profile's and the two headers')
+            assert counts["tone_ratios"] == 1, counts
+            assert counts["chain_walk_strided"] == 1 and counts["chain_walk"] == 3, counts
         wall = time.perf_counter() - t0
         check(kept[name], len(rows))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out[name] = wall
         log(f"[9] batch {name} x 60 s int16: every row status 2 and serial = truth, one "
-            f"tone_ratios launch per decode_batch call; wall {wall:.3f} s "
+            f"tone_ratios launch, one bit-edge walk and three frame-sync walks per "
+            f"decode_batch call (launches {counts_text(counts)}); wall {wall:.3f} s "
             f"({64 * 60.0 / wall:.1f}x realtime), peak device memory {peak:.2f} GiB")
     with count_syncs() as syncs:
         res_out, ctx = batch.dispatch_batch(rows, fs, device="cuda")
@@ -772,12 +1063,14 @@ def phase9a_pipeline(drops: dict, bat: dict) -> dict:
     def run():
         return pipeline.decode_batches_pipelined(batches, fs, device="cuda")
 
-    tonepower.tone_ratios.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = run()
     first_s = time.perf_counter() - t0
     launches = tonepower.tone_ratios.launches
+    counts = read_counts(f"pipeline {n_b} x 8")
     assert launches == n_b, f"{launches} tone_ratios launches for {n_b} pipelined batches"
+    assert counts["chain_walk_strided"] == n_b, counts
     flat = [r for b in out for r in b]
     assert [len(b) for b in out] == [8] * n_b
     _rows_equal(flat, bat["rows_8x8"], truth, "pipeline")
@@ -795,7 +1088,8 @@ def phase9a_pipeline(drops: dict, bat: dict) -> dict:
         run()
     log(f"[9a] pipeline {n_b} x 8 x 60 s int16 (decode_batches_pipelined): {len(flat)} rows "
         f"status 2, serial = truth, overflow 0, hexframes, metadata and time equal to decode_batch "
-        f"8 x 8 row for row; tone_ratios launches {launches} (one per batch)")
+        f"8 x 8 row for row; launches {counts_text(counts)} (one tone_ratios and one bit-edge "
+        f"walk per batch)")
     log(f"[9a] first run {first_s:.3f} s, warm wall (median of 3) {wall:.3f} s "
         f"{[round(w, 3) for w in walls]} ({len(flat) * 60.0 / wall:.1f}x realtime) beside "
         f"decode_batch batch by batch in turns with it {plain_wall:.3f} s "
@@ -832,13 +1126,14 @@ def phase9b_archive(tmp: str, drops: dict, piped: dict) -> dict:
         g.write(f.read(30))  # ends inside the format chunk
     out_dir = os.path.join(tmp, "archive_out")
     timer = StageTimer()
-    tonepower.tone_ratios.launches = 0
+    zero_counts()
     with count_syncs() as syncs:
         t0 = time.perf_counter()
         manifest = reprocess_corpus(paths + [cut], out_dir, batch_size=8, device="cuda",
                                     timer=timer)
         wall = time.perf_counter() - t0
     launches = tonepower.tone_ratios.launches
+    counts = read_counts("archive 8 x 8")
     n = len(rows)
     assert launches == n // 8, f"{launches} tone_ratios launches for {n // 8} archive batches"
     status = {k: v["status"] for k, v in manifest["files"].items()}
@@ -877,8 +1172,8 @@ def phase9b_archive(tmp: str, drops: dict, piped: dict) -> dict:
     stages = {k: round(v, 4) for k, v in timer.totals.items()}
     log(f"[9b] archive: {n} int16 WAVs of 60 s ({nbytes / 1e6:.0f} MB) + 1 truncated file, "
         f"reprocess_corpus(batch_size=8, device=\"cuda\"): {n} done, 1 failed, every report "
-        f"byte-equal to write_report of the pipeline's row; tone_ratios launches {launches} "
-        f"(one per batch); resume=True decoded nothing")
+        f"byte-equal to write_report of the pipeline's row; launches {counts_text(counts)} "
+        f"(one tone_ratios per batch); resume=True decoded nothing")
     log(f"[9b] wall {wall:.3f} s, {n / wall:.2f} drops/s ({n * 60.0 / wall:.1f}x realtime); "
         f"stage times (s) {stages}; host syncs seen by torch's sync debug mode in the whole "
         f"run: {syncs['n']} ({n // 8} batches; each fetch waits on one CUDA event, which that "
@@ -944,11 +1239,12 @@ def phase9d_multi_device(drops: dict, mono: dict, bat: dict, piped: dict) -> dic
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tonepower.tone_ratios.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     res = long_drop()
     first_s = time.perf_counter() - t0
     ts_launches = tonepower.tone_ratios.launches
+    ts_counts = read_counts("time-sharded 600 s, dp 1 x sp 4")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     assert ts_launches == 0, "the time-sharded front end has no tone-ratio kernel"
     in_truth = _gates(res, drops["truth"])
@@ -971,7 +1267,7 @@ def phase9d_multi_device(drops: dict, mono: dict, bat: dict, piped: dict) -> dic
         f"serial {res.metadata['serial_no']}, probe {res.metadata['probe_code']}, max depth "
         f"{res.metadata['max_depth']}, overflow {res.overflow}, rows {len(res.time)}, frames "
         f"{len(res.hexframes)}, in truth {in_truth:.4f}, agreement with the monolithic decode "
-        f"{agree_mono:.4f} (gate 0.99); tone_ratios launches {ts_launches}")
+        f"{agree_mono:.4f} (gate 0.99); launches {counts_text(ts_counts)}")
     log(f"[9d] first decode {first_s:.3f} s, warm wall (median of 3) {wall:.4f} s "
         f"{[round(w, 4) for w in walls]}, the WAV's read included, in turns with the "
         f"monolithic decode {mono_wall:.4f} s {[round(w, 4) for w in mono_walls]} "
@@ -992,28 +1288,31 @@ def phase9d_multi_device(drops: dict, mono: dict, bat: dict, piped: dict) -> dic
         f"{[round(a, 4) for a in agrees]} (gate 0.99)")
 
     dp2 = make_mesh({"dp": 2}, [card] * 2)
-    tonepower.tone_ratios.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     got = batch.decode_batch(rows[:16], bfs, mesh=dp2)
     dp_wall = time.perf_counter() - t0
     dp_launches = tonepower.tone_ratios.launches
+    dp_counts = read_counts("decode_batch, mesh dp 2, 16 rows")
     assert dp_launches == 2, f"{dp_launches} tone_ratios launches for 2 dp runs"
     _rows_equal(got, bat["rows_8x8"][:16], truth, "dp batch")
     log(f"[9d] 16 x 60 s rows, decode_batch(mesh=dp 2): every row equal to decode_batch's "
-        f"(hexframes, metadata, time); tone_ratios launches {dp_launches} (one per dp run); "
+        f"(hexframes, metadata, time); launches {counts_text(dp_counts)} (one tone_ratios per "
+        f"dp run); "
         f"wall {dp_wall:.3f} s")
 
     batches = [(sub, None) for sub in np.split(rows, 8)[:2]]
-    tonepower.tone_ratios.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = pipeline.decode_batches_pipelined(batches, bfs, devices=[card, card])
     pipe_wall = time.perf_counter() - t0
     pipe_launches = tonepower.tone_ratios.launches
+    pipe_counts = read_counts("pipeline on two devices, 2 x 8")
     assert pipe_launches == 2, f"{pipe_launches} tone_ratios launches for 2 pipelined batches"
     _rows_equal([r for b in out for r in b], piped["rows"][:16], truth, "two-device pipeline")
     log(f"[9d] 2 x 8 x 60 s, decode_batches_pipelined(devices=[cuda:0, cuda:0]): every row "
-        f"equal to the one-device pipeline's; tone_ratios launches {pipe_launches} (one per "
-        f"batch); wall {pipe_wall:.3f} s")
+        f"equal to the one-device pipeline's; launches {counts_text(pipe_counts)} (one "
+        f"tone_ratios per batch); wall {pipe_wall:.3f} s")
     return dict(timeshard_launches=ts_launches, dp_launches=dp_launches,
                 pipe_launches=pipe_launches)
 
@@ -1273,9 +1572,10 @@ def _wire_forced_retry(drops: dict, retried: list) -> int:
             log(f"[9e] {name}: decodes at int4 on the card ({len(bare.hexframes)} frames), "
                 f"not a collapse")
             continue
-        tonepower.tone_ratios.launches = 0
+        zero_counts()
         res = engine.decode_waveform(pcm, fs, device=DEV, wire="int4", lossy_retry=True)
         launches = tonepower.tone_ratios.launches
+        counts = read_counts("int4 decode with its int8 retry")
         assert res.wire == "int8" and res.status == 2, (res.wire, res.status)
         assert res.metadata["serial_no"] == "00123456", res.metadata["serial_no"]
         assert len(res.hexframes) > 4 * max(len(bare.hexframes), 1), \
@@ -1286,7 +1586,7 @@ def _wire_forced_retry(drops: dict, retried: list) -> int:
         log(f"[9e] forced retry, {name}: decode_waveform(wire=\"int4\", lossy_retry=False) "
             f"comes back wire int4, status {bare.status}, {len(bare.hexframes)} frames "
             f"(degenerate); with lossy_retry=True wire int8, status 2, {len(res.hexframes)} "
-            f"frames, serial = truth; tone_ratios launches {launches} (the int4 decode and "
+            f"frames, serial = truth; launches {counts_text(counts)} (the int4 decode and "
             f"its int8 retry); mode=\"segmented\" on the same drop comes back wire {seg.wire}, "
             f"{len(seg.hexframes)} frames (its retry decodes again segmented at int8)")
         return launches
@@ -1355,6 +1655,25 @@ def phase9e_wires(tmp: str, drops: dict) -> dict:
     return dict(retry_launches=launches, rows_retried=len(retried))
 
 
+def _per_path(name: str) -> dict:
+    return {path: counts[name] for path, counts in PATH_LAUNCHES.items()}
+
+
+def _chain_entry(name: str, recs: list) -> dict:
+    """One chain kernel's entry of the ``kernels`` line: launches on every
+    path, and the numbers of the monolithic 600 s decode's largest call."""
+    main_rec = max((r for r in recs if r["shape"].startswith("600 s")),
+                   key=lambda r: r["rows"] * r["m"] * r.get("k", 1))
+    return {"name": name, "route": "cuda", "source": CHAIN_SOURCE,
+            "replaces": CHAIN_REPLACES[name],
+            "launches": PATH_LAUNCHES["monolithic 600 s"][name],
+            "launches_per_path": _per_path(name), "max_abs_err": 0,
+            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "shape": main_rec["shape"],
+            "shapes": [{key: r[key] for key in r} for r in recs]}
+
+
 def main() -> int:
     smi, kind = phase0_device()
     phase1_build()
@@ -1367,6 +1686,8 @@ def main() -> int:
             return 3
         k = phase2_kernel(drops)
         mark("2")
+        ck = phase2b_chain(drops)
+        mark("2b")
         mono = phase3_end_to_end(drops)
         phase4_highrate(tmp)
         phase5_cli(tmp, drops["wav"])
@@ -1387,14 +1708,14 @@ def main() -> int:
         wires = phase9e_wires(tmp, drops)
         phase9f_sosfilt(drops)
         mark("9e-9f")
-        phase10_profiles(drops, seg, k)
+        phase10_profiles(drops, seg, k, ck)
         mark("10")
     assert "jax" not in sys.modules, "the port loaded jax"
     loaded = [m for m in sys.modules
               if m == "axctdprocessor_tpu" or m.startswith("axctdprocessor_tpu.")]
     assert not loaded, f"the port loaded the JAX package: {loaded}"
     main_shape = k["shapes"][0]  # 600 s, the monolithic path's shape
-    print(json.dumps({"kernels": [{
+    print(json.dumps({"kernels": [dict({
         "name": "tone_ratios", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": mono["launches"],
         "launches_per_decode_batch": bat["launches"],
@@ -1412,7 +1733,8 @@ def main() -> int:
             "shape", "rows", "n", "stride", "n_win", "ms", "device_ms", "plain_ms", "bound_us",
             "bound_by", "share_of_bound", "share_of_bound_device", "dft_core_matmul_ms",
             "max_abs_err")}
-            for s in k["shapes"]]}]}))
+            for s in k["shapes"]]}, launches_per_path=_per_path("tone_ratios"))]
+        + [_chain_entry(name, ck[name]) for name in CHAIN_REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

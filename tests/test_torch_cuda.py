@@ -354,3 +354,91 @@ def test_dp_mesh_batch_on_card_equals_decode_batch():
     piped = pipeline.decode_batches_pipelined([(rows, None)], 44100, devices=[card, card])
     assert tonepower.tone_ratios.launches == before + 3
     same(piped[0], batch.decode_batch(rows, 44100, device="cuda"))
+
+
+def _strided_table(rows: int, m: int, seed: int) -> np.ndarray:
+    """Bit-edge-like successors (next - i in [1, 4]) with stalls; with
+    three rows or more a row whose live part ends early, with two or more a
+    dead row (all fixed points)."""
+    rng = np.random.default_rng(seed)
+    nxt = np.arange(m) + rng.integers(1, 5, (rows, m))
+    nxt = np.where(rng.random((rows, m)) < 0.003, np.arange(m), nxt)
+    if rows > 2:
+        nxt[0, m // 3:] = np.arange(m // 3, m)
+    if rows > 1:
+        nxt[-1] = np.arange(m)
+    return np.minimum(nxt, m - 1).astype(np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,m,k", [
+    (1, 1_801_024, 600_064),   # the 600 s drop's table
+    (8, 181_024, 60_064),      # 8 rows of 60 s
+    (3, 5000, 1000),           # k not a multiple of first
+    (3, 2000, 100),            # k <= first: no tail
+    (2, 500, 1),
+])
+def test_chain_enumerate_strided_kernels_vs_plain(rows, m, k):
+    """Bit for bit; one compose launch per level and one walk per call,
+    whatever the rows; each row equal to its 1-D call."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops import chain
+
+    nxt = torch.from_numpy(_strided_table(rows, m, k)).cuda()
+    c0, w0 = chain.chain_compose.launches, chain.chain_walk_strided.launches
+    got = chain.chain_enumerate_strided(nxt, 0, k)
+    levels = chain._n_levels(k, chain._first(k, 7)) - 1
+    assert chain.chain_compose.launches == c0 + levels
+    assert chain.chain_walk_strided.launches == w0 + 1
+    want = chain.chain_enumerate_strided_reference(nxt, 0, k)
+    assert got.shape == (rows, k) and torch.equal(got, want)
+    assert torch.equal(chain.chain_enumerate_strided(nxt[-1], 0, k), got[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,m,k", [(1, 38_528, 18_760), (8, 4_778, 1_884), (3, 3000, 50)])
+def test_chain_enumerate_kernel_vs_plain(rows, m, k):
+    """The frame-sync walk over full jump tables: bit for bit, one launch."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops import chain
+
+    rng = np.random.default_rng(k)
+    nxt = np.minimum(np.arange(m) + rng.integers(0, 40, (rows, m)), m - 1)
+    nxt[-1] = np.arange(m)
+    nxt = torch.from_numpy(nxt).cuda()
+    before = chain.chain_walk.launches
+    got = chain.chain_enumerate(nxt, 0, k)
+    assert chain.chain_walk.launches == before + 1
+    assert torch.equal(got, chain.chain_enumerate_reference(nxt, 0, k))
+
+
+@pytest.mark.cuda
+def test_batched_back_half_on_card_rows_equal_rows_alone():
+    """The back half of three rows in one pass on the card: each row bitwise
+    the row alone (``back_half``, the B = 1 case), and equal to the CPU's."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+
+    rows = _three_drops()
+    cfg = DecoderConfig()
+    n = rows.shape[1]
+    dims = engine.EngineDims.for_waveform(n, 44100.0, cfg.bitrate, engine.probe_window(cfg, 44100.0))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = engine.FusedDecoder.from_numpy_tables(
+            engine.engine_tables(cfg, 44100.0, dims), dims, 44100.0, bitrate=float(cfg.bitrate),
+            bit_inset=cfg.bit_inset, device=dev)
+        x = torch.from_numpy(rows).to(dev)
+        nv = torch.full((3,), n, dtype=torch.int64, device=dev)
+        with torch.inference_mode():
+            s1 = model.stage1(x, nv)
+            full = model.back_half(s1, nv)
+            tables = [getattr(model, k) for k in ("trig_i", "trig_f", "hdr_rel", "calib_off")]
+            for r in range(3):
+                one = engine.back_half({k: v[r] for k, v in s1.items()}, nv[r], *tables,
+                                       dims, 44100.0)
+                assert torch.equal(full[r], one), (dev, r)
+        outs[dev] = [engine.finish_result(row, 44100, n, 44100.0, cfg)
+                     for row in full.cpu().numpy()]
+    for g, c in zip(outs["cuda"], outs["cpu"]):
+        assert g.status == c.status == 2 and g.metadata == c.metadata
