@@ -18,17 +18,17 @@ dimension: one row (n,) as the JAX functions take it, or a batch (B, n)
 with per-row scalars of shape (B,), each row computed as it would be alone
 (the batch dimension written out where the JAX package would ``vmap``).
 
-The walks are hand-written CUDA kernels on the card
-(``ops/kernels/chain.cu``), where the JAX package runs ``lax.scan`` and
-fused XLA: :func:`chain_compose` (one squaring level of a strided delta
-table), :func:`chain_walk_strided` and :func:`chain_walk` (the doubling
-fill of the first ``first`` chain entries and the tail, over delta tables
-or full jump tables).  Each wrapper takes its plain version (``*_reference``)
-for a CPU tensor, launches its kernel for a CUDA tensor and adds one to its
-``launches`` count, and raises on any other device; nothing falls back.
-:func:`chain_enumerate_strided_reference` and
-:func:`chain_enumerate_reference` are the whole enumerations in plain
-PyTorch, for comparison runs.
+Two walks are hand-written CUDA kernels on the card
+(``ops/kernels/chain.cu``), where the JAX package runs ``lax.scan`` and fused
+XLA: :func:`chain_enumerate_strided`, the bit-edge chain, as one
+segment-parallel walk of the successor table (no level tables), and
+:func:`chain_walk`, frame sync's doubling fill and tail over full jump tables.
+Each wrapper takes its plain version for a CPU tensor, launches its kernel for
+a CUDA tensor and adds its launches to its ``launches`` count, and raises on
+any other device; nothing falls back.  :func:`chain_enumerate_strided_reference`
+(the JAX package's level tables, :func:`chain_compose_reference` and the
+doubling walk) and :func:`chain_enumerate_reference` are the whole
+enumerations in plain PyTorch, for comparison runs.
 """
 
 from __future__ import annotations
@@ -199,26 +199,6 @@ def chain_compose_reference(delta: torch.Tensor, span: int, hi: int) -> torch.Te
     return delta + acc
 
 
-def chain_compose(delta: torch.Tensor, span: int, hi: int, out=None) -> torch.Tensor:
-    """:func:`chain_compose_reference` of a (rows, m) int16 table, into
-    `out` if given; on the card one launch of ``chain_compose_kernel``, the
-    same select written as one bounded gather
-    ``d[i] + d[i + d[i]]`` (span <= d[i] <= hi, i + d[i] < m)."""
-    if not _on_card(delta, "chain_compose"):
-        res = chain_compose_reference(delta, span, hi)
-        return res if out is None else out.copy_(res)
-    from .kernels import extension
-
-    out = torch.empty_like(delta) if out is None else out
-    extension().chain_compose(delta, out, span, hi)
-    if delta.numel():
-        chain_compose.launches += 1
-    return out
-
-
-chain_compose.launches = 0
-
-
 def _walk_reference(levels: torch.Tensor, start: int, k: int, first: int,
                     strided: bool) -> torch.Tensor:
     """The plain walk over (n_levels, rows, m) level tables: the doubling
@@ -253,7 +233,9 @@ def _walk_reference(levels: torch.Tensor, start: int, k: int, first: int,
 
 def chain_walk_strided_reference(levels: torch.Tensor, start: int, k: int,
                                  first: int) -> torch.Tensor:
-    """Plain version of :func:`chain_walk_strided`."""
+    """The (rows, k) int64 chain from `start` over (n_levels, rows, m) int16
+    delta tables (level p holds ``next^(2^p)[i] - i``; the last one is the
+    tail's)."""
     return _walk_reference(levels, start, k, first, strided=True)
 
 
@@ -263,26 +245,10 @@ def chain_walk_reference(levels: torch.Tensor, start: int, k: int,
     return _walk_reference(levels, start, k, first, strided=False)
 
 
-def chain_walk_strided(levels: torch.Tensor, start: int, k: int, first: int) -> torch.Tensor:
-    """The (rows, k) int64 chain from `start` over (n_levels, rows, m) int16
-    delta tables (level p holds ``next^(2^p)[i] - i``; the last one is the
-    tail's).  On the card one launch of ``chain_walk_kernel`` for every row."""
-    if not _on_card(levels, "chain_walk_strided"):
-        return chain_walk_strided_reference(levels, start, k, first)
-    from .kernels import extension
-
-    out = extension().chain_walk_strided(levels, start, k, first)
-    if out.numel():
-        chain_walk_strided.launches += 1
-    return out
-
-
-chain_walk_strided.launches = 0
-
-
 def chain_walk(levels: torch.Tensor, start: int, k: int, first: int) -> torch.Tensor:
-    """:func:`chain_walk_strided` over (n_levels, rows, m) int64 full jump
-    tables (level p holds ``next^(2^p)``)."""
+    """The (rows, k) int64 chain from `start` over (n_levels, rows, m) int64
+    full jump tables (level p holds ``next^(2^p)``; the last one is the
+    tail's).  On the card one launch of ``chain_walk_kernel`` for every row."""
     if not _on_card(levels, "chain_walk"):
         return chain_walk_reference(levels, start, k, first)
     from .kernels import extension
@@ -311,10 +277,10 @@ def jump_levels(next_idx: torch.Tensor, k: int, max_level: int = 6):
 
 
 def delta_levels(next_idx: torch.Tensor, k: int, stride_bound: int = 4,
-                 max_level: int = 7, plain: bool = False):
+                 max_level: int = 7):
     """(the (n_levels, rows, m) int16 tables ``next^(2^p)[i] - i`` a
     `k`-step walk reads, first), each level from the one before by
-    :func:`chain_compose` (its plain version with `plain`)."""
+    :func:`chain_compose_reference`."""
     assert stride_bound << max_level <= 32767, "delta exceeds int16"
     m = next_idx.shape[-1]
     rows = next_idx.reshape(-1, m)
@@ -324,10 +290,7 @@ def delta_levels(next_idx: torch.Tensor, k: int, stride_bound: int = 4,
     levels[0] = rows.to(torch.int64) - torch.arange(m, device=rows.device)
     span, hi = 1, stride_bound
     for j in range(1, levels.shape[0]):
-        if plain:
-            levels[j] = chain_compose_reference(levels[j - 1], span, hi)
-        else:
-            chain_compose(levels[j - 1], span, hi, out=levels[j])
+        levels[j] = chain_compose_reference(levels[j - 1], span, hi)
         span *= 2
         hi *= 2
     return levels, first
@@ -352,32 +315,54 @@ def chain_enumerate_reference(next_idx: torch.Tensor, start: int, length: int,
     return chain_walk_reference(levels, start, k, first).reshape(next_idx.shape[:-1] + (k,))
 
 
+# chain_walk_segments' tiling: segments of SEGMENT entries (a multiple of 4),
+# SEGMENTS_PER_BLOCK of them (a power of two, one a thread) per block; swept on
+# the card by tools/chain_variants.py --sweep (ops/kernels/chain.cu's header)
+SEGMENT = 32
+SEGMENTS_PER_BLOCK = 128
+
+
 def chain_enumerate_strided(next_idx: torch.Tensor, start: int, length: int,
                             stride_bound: int = 4,
                             max_level: int = 7) -> torch.Tensor:
     """`chain_enumerate` for successor maps with ``next_idx[i] - i`` in
-    {0} ∪ [1, stride_bound] (the bit-edge chain).
+    {0} ∪ [1, stride_bound] (the bit-edge chain), along the last dimension.
 
-    The jump-table squarings are gather-free in the JAX package: with
-    ``delta_L[i] = next^L[i] - i``, ``delta_2L[i] = delta_L[i] +
-    delta_L[i + delta_L[i]]``, a select over the shifted copies
-    ``delta_L[i + s]``, s in [L, stride_bound*L] (a stalled walk keeps its
-    delta, which is exact); on the card one bounded gather per level
-    (:func:`chain_compose`).  The fill and the tail are one
-    :func:`chain_walk_strided`."""
+    On a CPU tensor :func:`chain_enumerate_strided_reference`, the JAX
+    package's structure.  On the card one call of ``chain_walk_segments``
+    (three launches: segment records, the scan over tiles, the write; built
+    for stride_bound 4, the bit edges'), which computes ``next^j(start)``
+    without level tables; the result is the same bit for bit, whatever
+    `max_level` the reference would use."""
     k = int(length)
-    levels, first = delta_levels(next_idx, k, stride_bound, max_level)
-    return chain_walk_strided(levels, start, k, first).reshape(next_idx.shape[:-1] + (k,))
+    if not _on_card(next_idx, "chain_enumerate_strided"):
+        return chain_enumerate_strided_reference(next_idx, start, k, stride_bound, max_level)
+    from .kernels import extension
+
+    m = next_idx.shape[-1]
+    rows = next_idx.reshape(-1, m).to(torch.int64).contiguous()
+    if rows.shape[0] == 0 or k == 0:
+        return torch.empty(next_idx.shape[:-1] + (k,), dtype=torch.int64, device=next_idx.device)
+    out = extension().chain_walk_segments(rows, int(start), k, stride_bound, SEGMENT,
+                                          SEGMENTS_PER_BLOCK)
+    chain_enumerate_strided.launches += 3
+    return out.reshape(next_idx.shape[:-1] + (k,))
+
+
+chain_enumerate_strided.launches = 0
 
 
 def chain_enumerate_strided_reference(next_idx: torch.Tensor, start: int, length: int,
                                       stride_bound: int = 4,
                                       max_level: int = 7) -> torch.Tensor:
-    """:func:`chain_enumerate_strided` in plain PyTorch on any device: the
-    JAX package's shifted-select squarings and a host loop of small gathers
-    for the tail."""
+    """:func:`chain_enumerate_strided` in plain PyTorch on any device, as
+    the JAX package computes it: the level tables ``delta_2L[i] = delta_L[i]
+    + delta_L[i + delta_L[i]]`` by shifted selects over ``delta_L[i + s]``,
+    s in [L, stride_bound*L] (a stalled walk keeps its delta, which is exact),
+    then the doubling fill of the first ``first`` entries and a host loop of
+    small gathers for the tail."""
     k = int(length)
-    levels, first = delta_levels(next_idx, k, stride_bound, max_level, plain=True)
+    levels, first = delta_levels(next_idx, k, stride_bound, max_level)
     return chain_walk_strided_reference(levels, start, k, first).reshape(
         next_idx.shape[:-1] + (k,))
 

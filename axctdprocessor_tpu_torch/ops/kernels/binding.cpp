@@ -9,9 +9,10 @@
 // (n_win,) or (rows, n_win).  A refused launch: the table does not fit in
 // shared memory (rates above ~54 kHz, which the engines decimate first).
 //
-// chain_compose / chain_walk_strided / chain_walk: the level tables of the
-// pointer-doubling chain, (rows, m) per level; the walks take all levels as
-// one (n_levels, rows, m) tensor and return the (rows, k) int64 chain.
+// chain_walk_segments: the bit-edge chain of a (rows, m) int64 successor
+// table, returned as the (rows, k) int64 chain; its scratch is one uint8
+// tensor of the size the kernel asks for.  chain_walk: the frame-sync walk
+// over (n_levels, rows, m) int64 jump tables, to the (rows, k) int64 chain.
 
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -21,11 +22,11 @@ extern "C" int axctd_tone_ratios_launch(const float* x, int rows, long long n,
                                         const float* tm, int window,
                                         int stride, int n_win, float* r400,
                                         float* r7500, void* stream);
-extern "C" int axctd_chain_compose_launch(const int16_t* d, int16_t* out, int rows, long long m,
-                                          int span, int hi, void* stream);
-extern "C" int axctd_chain_walk_strided_launch(const int16_t* levels, int n_levels, int rows,
-                                               long long m, int start, long long k, int first,
-                                               long long* out, void* stream);
+extern "C" long long axctd_chain_segments_scratch(int rows, long long m, long long start,
+                                                  long long k, int sb, int seg, int tpb);
+extern "C" int axctd_chain_segments_launch(const long long* nxt, int rows, long long m,
+                                           long long start, long long k, int sb, int seg, int tpb,
+                                           void* scratch, long long* out, void* stream);
 extern "C" int axctd_chain_walk_launch(const long long* levels, int n_levels, int rows,
                                        long long m, int start, long long k, int first,
                                        long long* out, void* stream);
@@ -66,21 +67,29 @@ std::vector<torch::Tensor> tone_ratios(torch::Tensor x, torch::Tensor tm,
   return out.unbind(0);
 }
 
-void chain_compose(torch::Tensor d, torch::Tensor out, int64_t span, int64_t hi) {
-  TORCH_CHECK(d.is_cuda() && out.is_cuda() && d.device() == out.device(),
-              "chain_compose: d and out must be CUDA tensors on one device");
-  TORCH_CHECK(d.scalar_type() == torch::kInt16 && out.scalar_type() == torch::kInt16,
-              "chain_compose: d and out must be int16");
-  TORCH_CHECK(d.dim() == 2 && d.is_contiguous() && out.is_contiguous() && out.sizes() == d.sizes(),
-              "chain_compose: d and out must be contiguous (rows, m) tensors of one shape");
-  TORCH_CHECK(d.size(0) < 65536 && d.size(1) < (1LL << 31), "chain_compose: table too large");
-  TORCH_CHECK(span >= 1 && hi >= span && hi <= 32767, "chain_compose: bad span/hi");
-  TORCH_CHECK(d.data_ptr() != out.data_ptr(), "chain_compose: out must not alias d");
-  const c10::cuda::CUDAGuard guard(d.device());
-  const int err = axctd_chain_compose_launch(
-      d.data_ptr<int16_t>(), out.data_ptr<int16_t>(), static_cast<int>(d.size(0)), d.size(1),
-      static_cast<int>(span), static_cast<int>(hi), at::cuda::getCurrentCUDAStream().stream());
-  TORCH_CHECK(err == 0, "chain_compose launch failed: ", axctd_cuda_error_string(err));
+torch::Tensor chain_walk_segments(torch::Tensor nxt, int64_t start, int64_t k,
+                                  int64_t stride_bound, int64_t seg, int64_t tpb) {
+  TORCH_CHECK(nxt.is_cuda() && nxt.scalar_type() == torch::kInt64,
+              "chain_walk_segments: nxt must be a CUDA int64 tensor");
+  TORCH_CHECK(nxt.dim() == 2 && nxt.is_contiguous(),
+              "chain_walk_segments: nxt must be a contiguous (rows, m) tensor");
+  const int64_t rows = nxt.size(0), m = nxt.size(1);
+  const long long bytes = axctd_chain_segments_scratch(
+      static_cast<int>(std::min<int64_t>(rows, 65536)), m, start, k,
+      static_cast<int>(stride_bound), static_cast<int>(seg), static_cast<int>(tpb));
+  TORCH_CHECK(bytes >= 0, "chain_walk_segments: bad shape or arguments (rows ", rows, ", m ", m,
+              ", start ", start, ", k ", k, ", stride_bound ", stride_bound, ", seg ", seg,
+              ", tpb ", tpb, ")");
+  const c10::cuda::CUDAGuard guard(nxt.device());
+  auto out = torch::empty({rows, k}, nxt.options());
+  auto scratch = torch::empty({bytes}, nxt.options().dtype(torch::kUInt8));
+  const int err = axctd_chain_segments_launch(
+      reinterpret_cast<const long long*>(nxt.data_ptr<int64_t>()), static_cast<int>(rows), m,
+      start, k, static_cast<int>(stride_bound), static_cast<int>(seg), static_cast<int>(tpb),
+      scratch.data_ptr(), reinterpret_cast<long long*>(out.data_ptr<int64_t>()),
+      at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "chain_walk_segments launch failed: ", axctd_cuda_error_string(err));
+  return out;
 }
 
 static void check_walk(const torch::Tensor& levels, c10::ScalarType dtype, int64_t start,
@@ -101,19 +110,6 @@ static void check_walk(const torch::Tensor& levels, c10::ScalarType dtype, int64
               name, ": bad start/k");
 }
 
-torch::Tensor chain_walk_strided(torch::Tensor levels, int64_t start, int64_t k, int64_t first) {
-  check_walk(levels, torch::kInt16, start, k, first, "chain_walk_strided");
-  const c10::cuda::CUDAGuard guard(levels.device());
-  auto out = torch::empty({levels.size(1), k}, levels.options().dtype(torch::kInt64));
-  const int err = axctd_chain_walk_strided_launch(
-      levels.data_ptr<int16_t>(), static_cast<int>(levels.size(0)),
-      static_cast<int>(levels.size(1)), levels.size(2), static_cast<int>(start), k,
-      static_cast<int>(first), reinterpret_cast<long long*>(out.data_ptr<int64_t>()),
-      at::cuda::getCurrentCUDAStream().stream());
-  TORCH_CHECK(err == 0, "chain_walk_strided launch failed: ", axctd_cuda_error_string(err));
-  return out;
-}
-
 torch::Tensor chain_walk(torch::Tensor levels, int64_t start, int64_t k, int64_t first) {
   check_walk(levels, torch::kInt64, start, k, first, "chain_walk");
   const c10::cuda::CUDAGuard guard(levels.device());
@@ -130,7 +126,7 @@ torch::Tensor chain_walk(torch::Tensor levels, int64_t start, int64_t k, int64_t
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("tone_ratios", &tone_ratios, "Fused tone powers, box mean and log10 ratios (CUDA)");
-  m.def("chain_compose", &chain_compose, "One squaring level of a strided delta table (CUDA)");
-  m.def("chain_walk_strided", &chain_walk_strided, "Chain walk over strided delta tables (CUDA)");
+  m.def("chain_walk_segments", &chain_walk_segments,
+        "Bit-edge chain of a bounded-stride successor table by a segment-parallel walk (CUDA)");
   m.def("chain_walk", &chain_walk, "Chain walk over full jump tables (CUDA)");
 }

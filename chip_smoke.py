@@ -30,17 +30,24 @@ Phases, one line each or more (any failure raises and exits non-zero):
    bytes at 3.35 TB/s against the flop at 66.9 TFLOP/s) and the share of
    it the kernel reaches; and, for reference only, one ``torch.matmul`` of
    the tile view by the segment matrix (the DFT core alone);
-2b. the chain kernels (``chain_compose``, ``chain_walk_strided``,
-   ``chain_walk``) against their plain versions on the card, bit for bit:
-   every call that the 600 s drop's monolithic, segmented and time-sharded
-   (dp 1 x sp 4) decodes, 4 archive rows time-sharded on dp 2 x sp 2,
-   ``decode_batch`` of 8 and of 64 archive rows and 2 x 8 rows through the
-   pipeline hand them (recorded as the paths run), then the walks' edge cases (k = 1, 2; k <= first; k = first;
-   k no multiple of first; a dead table; early stalls; rows of different
-   true lengths with padded tails; a dead row of jumps), each row also equal
-   to its 1-D call.  Per shape the median CUDA-event times of kernel and
-   plain in turns (5 runs of 2 calls), the bytes bound and the share of it,
-   and for the walks the time per dependent step;
+2b. the chain kernels (``chain_walk_segments``, the bit-edge chain, through
+   its wrapper ``chain_enumerate_strided``; ``chain_walk``, frame sync's walk)
+   against their plain versions on the card, bit for bit: every call that the
+   600 s drop's monolithic, segmented and time-sharded (dp 1 x sp 4) decodes,
+   4 archive rows time-sharded on dp 2 x sp 2, ``decode_batch`` of 8 and of
+   64 archive rows and 2 x 8 rows through the pipeline hand them (recorded as
+   the paths run), each row of a recorded bit-edge call equal to its 1-D call;
+   then the edge cases (k = 1, 2; k <= first; k = first; k no multiple of
+   first; a dead table; early stalls; rows of different true lengths with
+   padded tails; a dead row of jumps) and the segment walk's seams (a stride
+   onto every segment boundary; fixed points on a segment's first and last
+   entry and on a tile's last; m < one segment; m no multiple of a segment;
+   k longer than the chain; a dead row beside live ones; 64 rows of different
+   true lengths), each row also equal to its 1-D call.  Per shape the median
+   CUDA-event times of kernel and plain in turns (5 runs of 2 calls), the
+   bytes bound and the share of it, and for ``chain_walk`` the time per
+   dependent step.  ``--only-chain`` runs the build and this phase alone and
+   exits 3 without result lines (a development run);
 3. the monolithic path end to end: the 600 s WAV through
    ``decode_wav(device="cuda", mode="monolithic")``; held to the
    simulator's truth, to the same decode with the plain tone-ratio
@@ -110,7 +117,8 @@ Phases, one line each or more (any failure raises and exits non-zero):
    one batch of 8 of the archive rows (launches, device idle share, the
    upload), one pipelined run of 2 x 8,
    then the tone-ratio kernel's device time at each phase-2 shape and the
-   chain kernels' at each phase-2b shape.
+   chain kernels' at each phase-2b shape (``chain_walk_segments``: the sum of
+   its three kernels per call).
 
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after (each chain kernel must have launched on every path).  At the end neither jax nor any module of the JAX
@@ -143,12 +151,15 @@ KERNEL_SOURCE = "axctdprocessor_tpu_torch/ops/kernels/tone_ratios.cu"
 REPLACES = "axctdprocessor_tpu/ops/pallas/tonepower.py:110"
 CHAIN_SOURCE = "axctdprocessor_tpu_torch/ops/kernels/chain.cu"
 # the chain kernels replace lax.scan and fused XLA of the JAX package, not
-# Pallas kernels: the lines of the JAX code each one stands for
+# Pallas kernels: the lines of the JAX code each one stands for, and the
+# wrapper in ops/chain.py that launches it and counts its launches
 CHAIN_REPLACES = {
-    "chain_compose": "axctdprocessor_tpu/ops/chain.py:284-297",
-    "chain_walk_strided": "axctdprocessor_tpu/ops/chain.py:299-329",
+    "chain_walk_segments": "axctdprocessor_tpu/ops/chain.py:248-329",
     "chain_walk": "axctdprocessor_tpu/ops/chain.py:216-245",
 }
+CHAIN_WRAPPERS = {"chain_walk_segments": "chain_enumerate_strided", "chain_walk": "chain_walk"}
+# the kernels' names in a profiler trace (chain_walk_segments launches three)
+CHAIN_IN_TRACE = {"chain_walk_segments": "chain_segments_", "chain_walk": "chain_walk_kernel"}
 KERNELS = ("tone_ratios",) + tuple(CHAIN_REPLACES)
 PATH_LAUNCHES: dict = {}  # path -> {kernel: launches}, every path this run drives
 
@@ -159,8 +170,8 @@ T0 = time.perf_counter()
 def _kernel_fns() -> dict:
     from axctdprocessor_tpu_torch.ops import chain, tonepower
 
-    return {"tone_ratios": tonepower.tone_ratios, "chain_compose": chain.chain_compose,
-            "chain_walk_strided": chain.chain_walk_strided, "chain_walk": chain.chain_walk}
+    return {"tone_ratios": tonepower.tone_ratios,
+            **{name: getattr(chain, wrapper) for name, wrapper in CHAIN_WRAPPERS.items()}}
 
 
 def zero_counts() -> None:
@@ -343,18 +354,17 @@ def _time_pair(kernel, plain, runs: int = 20, calls: int = 10) -> tuple[float, f
 
 
 def _device_ms(fn, name: str, calls: int = 20):
-    """Mean device time of the kernels whose name holds `name` over `calls`
-    calls, from ``torch.profiler`` (None if it records no device time)."""
+    """Device time per call of `fn` in the kernels whose name holds `name`,
+    over `calls` calls, from ``torch.profiler`` (None if it records no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if name in e.key and e.count:
-            return e.device_time_total / e.count / 1e3
-    return None
+    total = sum(e.device_time_total for e in prof.key_averages() if name in e.key and e.count)
+    return total / calls / 1e3 if total else None
 
 
 def _bound(rows: int, n: int, window: int, n_win: int) -> tuple[float, str]:
@@ -552,41 +562,43 @@ def _record_chain_calls(drops: dict) -> dict:
     ]
     calls = {name: [] for name in CHAIN_REPLACES}
     path = [""]
-    originals = {name: getattr(chain, name) for name in CHAIN_REPLACES}
+    originals = {name: getattr(chain, CHAIN_WRAPPERS[name]) for name in CHAIN_REPLACES}
     for name, fn in originals.items():
-        setattr(chain, name, _Recorder(fn, calls[name], path))
+        setattr(chain, CHAIN_WRAPPERS[name], _Recorder(fn, calls[name], path))
     try:
         for label, run in runs:
             path[0] = label
             run()
     finally:
         for name, fn in originals.items():
-            setattr(chain, name, fn)
+            setattr(chain, CHAIN_WRAPPERS[name], fn)
     for name, made in calls.items():
         missing = {label for label, _ in runs} - {p for p, _, _ in made}
         assert not missing, f"{name}: no call recorded on {sorted(missing)}"
     return {name: [(p, a) for p, a, _ in made] for name, made in calls.items()}
 
 
-def _chain_bound(name: str, rows: int, m: int, k: int, levels: int = 1) -> float:
+def _chain_bound(name: str, rows: int, m: int, k: int) -> float:
     """The least time in ms for the bytes a call must move at 3.35 TB/s (its
-    integer operations, one add or none per entry, take far less): a compose
-    level reads each int16 entry once and writes it once; a walk writes k
-    int64 entries per row and reads the k table entries that lead to them
-    (int16 deltas, or int64 jumps)."""
-    if name == "chain_compose":
-        nbytes = levels * rows * m * 4
+    integer operations, a few per entry, take far less): the bit-edge chain
+    reads the (rows, m) int64 successor table once and writes the (rows, k)
+    int64 chain once; frame sync's walk writes k int64 entries per row and
+    reads the k jump-table entries that lead to them."""
+    if name == "chain_walk_segments":
+        nbytes = rows * (m + k) * 8
     else:
-        nbytes = rows * k * (8 + (2 if name == "chain_walk_strided" else 8))
+        nbytes = rows * k * 16
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
 def _chain_edge_cases(dev) -> list:
-    """(name, successor tables (B, m) int64 on the card, k, strided) of the
-    walks' edge cases."""
+    """(name, successor tables (B, m) int64 on the card, start, k, strided)
+    of the walks' edge cases and of the segment walk's seams."""
     from axctdprocessor_tpu_torch.ops import chain
 
     rng = np.random.default_rng(3)
+    seg = chain.SEGMENT
+    tile = seg * chain.SEGMENTS_PER_BLOCK
 
     def strided(rows, m, stall=0.003):
         nxt = np.arange(m) + rng.integers(1, 5, (rows, m))
@@ -596,60 +608,83 @@ def _chain_edge_cases(dev) -> list:
     def card(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
 
+    def crossing_rows(m, n_valid):
+        # crossings of rows of different true lengths: BIG past n_valid (the
+        # zero-padded tail); a row with n_valid 0 is dead (no crossing)
+        cross = np.cumsum(rng.integers(20, 36, (len(n_valid), m)), axis=1)
+        cross = np.where(np.arange(m) < np.asarray(n_valid)[:, None], cross,
+                         np.iinfo(np.int32).max // 2)
+        return chain.bit_edge_successors(card(cross), card(n_valid), 44100.0, 800.0)
+
     early = strided(3, 6000)
     early[:, 40:60] = np.arange(40, 60)  # stalls a few steps in
-    # crossings of 4 rows of different true lengths: BIG past n_valid (the
-    # zero-padded tail), one row dead (no crossing at all)
-    m = 20000
-    cross = np.cumsum(rng.integers(20, 36, (4, m)), axis=1)
-    n_valid = np.asarray([m, 15000, 3000, 0])
-    cross = np.where(np.arange(m) < n_valid[:, None], cross, np.iinfo(np.int32).max // 2)
-    ragged = chain.bit_edge_successors(card(cross), card(n_valid), 44100.0, 800.0)
+    m4 = 2 * tile + 5 * seg
+    step4 = np.minimum(np.arange(m4) + 4, m4 - 1)  # enters every segment at its first entry
+    fixed = np.stack([step4] * 3)
+    fixed[0, 5 * seg] = 5 * seg                                 # a segment's first entry
+    fixed[1, [8 * seg - 4, 8 * seg - 1]] = 8 * seg - 1          # a segment's last entry
+    fixed[2, [tile - 4, tile - 1]] = tile - 1                   # a tile's last entry
+    dead_beside = strided(3, 7000, stall=0.0)
+    dead_beside[1] = np.arange(7000)
     return [
-        ("k = 1", card(strided(2, 500)), 1, True),
-        ("k = 2", card(strided(2, 500)), 2, True),
-        ("k = 100 <= first (no tail)", card(strided(3, 2000)), 100, True),
-        ("k = 128 = first", card(strided(3, 2000)), 128, True),
-        ("k = 1000, not a multiple of first", card(strided(3, 5000)), 1000, True),
-        ("dead table (all fixed points)", card(np.tile(np.arange(4000), (2, 1))), 3000, True),
-        ("early stalls", card(early), 5000, True),
-        ("4 rows of true lengths 20000, 15000, 3000, 0 (tails BIG-padded)", ragged, 12000, True),
+        ("k = 1", card(strided(2, 500)), 0, 1, True),
+        ("k = 2", card(strided(2, 500)), 0, 2, True),
+        ("k = 100 <= first (no tail)", card(strided(3, 2000)), 0, 100, True),
+        ("k = 128 = first", card(strided(3, 2000)), 0, 128, True),
+        ("k = 1000, not a multiple of first", card(strided(3, 5000)), 0, 1000, True),
+        ("dead table (all fixed points)", card(np.tile(np.arange(4000), (2, 1))), 0, 3000, True),
+        ("early stalls", card(early), 0, 5000, True),
+        ("4 rows of true lengths 20000, 15000, 3000, 0 (tails BIG-padded)",
+         crossing_rows(20000, [20000, 15000, 3000, 0]), 0, 12000, True),
         ("jumps: k = 50 <= first", card(np.minimum(np.arange(3000) + rng.integers(0, 9, (3, 3000)),
-                                                   2999)), 50, False),
+                                                   2999)), 0, 50, False),
         ("jumps: k = 1000, a dead row", card(np.stack([
             np.minimum(np.arange(3000) + rng.integers(0, 9, 3000), 2999), np.arange(3000)])),
-         1000, False),
+         0, 1000, False),
+        ("seam: stride 4 onto every segment boundary", card(step4[None]), 0, m4, True),
+        ("seam: fixed points on a segment's first and last entry and a tile's last",
+         card(fixed), 0, m4, True),
+        ("seam: start inside a segment, stride 4", card(step4[None]), seg + 3, m4, True),
+        ("seam: m < one segment", card(strided(2, seg // 2)), 0, 40, True),
+        ("seam: m no multiple of a segment", card(strided(2, 3 * tile + 77, stall=0.0)), 0, 10000,
+         True),
+        ("seam: k longer than the chain", card(strided(2, 6000, stall=0.01)), 0, 6000, True),
+        ("seam: a dead row beside live ones", card(dead_beside), 0, 5000, True),
+        ("seam: 64 rows of true lengths 0 to 20000",
+         crossing_rows(20000, np.linspace(0, 20000, 64).astype(np.int64)), 0, 12000, True),
     ]
 
 
 def _chain_timed(calls: dict):
-    """(kernel, shape, facts, kernel call, plain call) of every shape timed:
-    per path all compose levels of the decode as one call, and each distinct
-    walk."""
+    """(kernel, shape, facts, kernel call, plain call) of every distinct call
+    of the 600 s monolithic decode and the batches of 8 and 64 rows."""
     from axctdprocessor_tpu_torch.ops import chain
 
     for path in ("600 s", "batch 8 x 60 s", "batch 64 x 60 s"):
-        levels = [a for p, a in calls["chain_compose"] if p == path]
-        rows, m = levels[0][0].shape
-        yield ("chain_compose", f"{path}: {len(levels)} levels of ({rows}, {m}) int16",
-               dict(rows=rows, m=m, levels=len(levels),
-                    bound_ms=_chain_bound("chain_compose", rows, m, 0, len(levels))),
-               lambda levels=levels: [chain.chain_compose(*a) for a in levels],
-               lambda levels=levels: [chain.chain_compose_reference(*a) for a in levels])
         for name, kernel, plain in (
-                ("chain_walk_strided", chain.chain_walk_strided, chain.chain_walk_strided_reference),
+                ("chain_walk_segments", chain.chain_enumerate_strided,
+                 chain.chain_enumerate_strided_reference),
                 ("chain_walk", chain.chain_walk, chain.chain_walk_reference)):
             seen = set()
             for p, a in calls[name]:
-                lv, start, k, first = a
-                if p != path or (lv.shape, k) in seen:
+                if p != path:
                     continue
-                seen.add((lv.shape, k))
-                _, rows, m = lv.shape
-                steps = max(-(-(k - first) // first), 0)
-                yield (name, f"{path}: ({rows}, {m}) tables, k = {k}, first = {first}",
-                       dict(rows=rows, m=m, k=k, first=first, steps=steps,
-                            bound_ms=_chain_bound(name, rows, m, k)),
+                if name == "chain_walk":
+                    lv, start, k, first = a
+                    _, rows, m = lv.shape
+                    steps = max(-(-(k - first) // first), 0)
+                    meta = dict(first=first, steps=steps)
+                    shape = f"{path}: ({rows}, {m}) tables, k = {k}, first = {first}"
+                else:
+                    nxt, start, k = a
+                    rows, m = nxt.shape
+                    meta = {}
+                    shape = f"{path}: ({rows}, {m}) int64 successors, k = {k}"
+                if (rows, m, k) in seen:
+                    continue
+                seen.add((rows, m, k))
+                yield (name, shape,
+                       dict(rows=rows, m=m, k=k, bound_ms=_chain_bound(name, rows, m, k), **meta),
                        lambda a=a, kernel=kernel: kernel(*a),
                        lambda a=a, plain=plain: plain(*a))
 
@@ -660,22 +695,26 @@ def phase2b_chain(drops: dict) -> dict:
     themselves, ``_record_chain_calls``: the 600 s drop's successor tables
     from its crossings, monolithic, segmented and time-sharded, the archive
     rows time-sharded, as batches of 8 and 64 and pipelined, and the
-    frame-sync tables of the same decodes), then at the walks' edge cases.  Times per call (CUDA
-    events, warm, kernel and plain in turns), the bound and the share of it."""
+    frame-sync tables of the same decodes), then at the edge cases and seams.
+    Times per call (CUDA events, warm, kernel and plain in turns), the bound
+    and the share of it."""
     from axctdprocessor_tpu_torch.ops import chain
 
     calls = _record_chain_calls(drops)
-    kernel = {"chain_compose": chain.chain_compose, "chain_walk_strided": chain.chain_walk_strided,
-              "chain_walk": chain.chain_walk}
-    plain = {"chain_compose": chain.chain_compose_reference,
-             "chain_walk_strided": chain.chain_walk_strided_reference,
+    kernel = {"chain_walk_segments": chain.chain_enumerate_strided, "chain_walk": chain.chain_walk}
+    plain = {"chain_walk_segments": chain.chain_enumerate_strided_reference,
              "chain_walk": chain.chain_walk_reference}
     out = {name: [] for name in kernel}
+    n_rows = 0
     for name, recorded in calls.items():
         assert recorded, f"the main paths made no {name} call"
         for path, args in recorded:  # every recorded call, bit for bit
             got, want = kernel[name](*args), plain[name](*args)
             assert got.dtype == want.dtype and torch.equal(got, want), f"{name} differs: {path}"
+            if name == "chain_walk_segments" and got.dim() == 2:
+                for r in range(got.shape[0]):  # each row alone, as a 1-D call
+                    assert torch.equal(kernel[name](args[0][r], *args[1:]), got[r]), (path, r)
+                n_rows += got.shape[0]
     for name, shape, meta, run_kernel, run_plain in _chain_timed(calls):
         km, pm = _time_pair(run_kernel, run_plain, runs=5, calls=2)
         out[name].append(dict(shape=shape, ms=km, plain_ms=pm, share_of_bound=meta["bound_ms"] / km,
@@ -690,21 +729,24 @@ def phase2b_chain(drops: dict) -> dict:
     n_calls = {name: len(c) for name, c in calls.items()}
     paths = sorted({p for c in calls.values() for p, _ in c})
     log(f"[2b] every recorded call of the main paths ({'; '.join(paths)}) bit for bit equal "
-        f"to its plain version: {n_calls}")
+        f"to its plain version: {n_calls}; {n_rows} rows of the batched bit-edge calls each "
+        "equal to its 1-D call")
     dev = torch.device("cuda")
-    for case, nxt, k, strided in _chain_edge_cases(dev):
+    for case, nxt, start, k, strided in _chain_edge_cases(dev):
         if strided:
-            got = chain.chain_enumerate_strided(nxt, 0, k)
-            want = chain.chain_enumerate_strided_reference(nxt, 0, k)
+            got = chain.chain_enumerate_strided(nxt, start, k)
+            want = chain.chain_enumerate_strided_reference(nxt, start, k)
         else:
-            got, want = chain.chain_enumerate(nxt, 0, k), chain.chain_enumerate_reference(nxt, 0, k)
+            got = chain.chain_enumerate(nxt, start, k)
+            want = chain.chain_enumerate_reference(nxt, start, k)
         assert got.shape == (nxt.shape[0], k) and torch.equal(got, want), case
         for r in range(nxt.shape[0]):  # each row alone, as a 1-D call
-            one = (chain.chain_enumerate_strided if strided else chain.chain_enumerate)(nxt[r], 0, k)
+            one = (chain.chain_enumerate_strided if strided else chain.chain_enumerate)(
+                nxt[r], start, k)
             assert torch.equal(one, got[r]), (case, r)
         log(f"[2b] edge case {'strided' if strided else 'full jump table'}, {case}: "
-            f"{tuple(nxt.shape)} -> {tuple(got.shape)} bit for bit equal to the plain version, "
-            "every row equal to its 1-D call")
+            f"{tuple(nxt.shape)}, start {start} -> {tuple(got.shape)} bit for bit equal to the "
+            "plain version, every row equal to its 1-D call")
     return out
 
 
@@ -751,15 +793,11 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict) -> None:
                              f"{r['share_of_bound_device']:.3f}") for r in k["shapes"]))
     # the chain kernels: the main paths' arguments recorded anew (phase 2b
     # kept none, so that no phase between held them on the card)
-    name_in_trace = {"chain_compose": "chain_compose_kernel",
-                     "chain_walk_strided": "chain_walk_kernel",
-                     "chain_walk": "chain_walk_kernel"}
     recs = {name: iter(r) for name, r in ck.items()}
     for name, shape, meta, run_kernel, _ in _chain_timed(_record_chain_calls(drops)):
         rec = next(recs[name])
         assert rec["shape"] == shape, (rec["shape"], shape)
-        per_launch = _device_ms(run_kernel, name_in_trace[name], calls=10)
-        rec["device_ms"] = None if per_launch is None else per_launch * meta.get("levels", 1)
+        rec["device_ms"] = _device_ms(run_kernel, CHAIN_IN_TRACE[name], calls=10)
         log(f"[10] {name} {shape}: device " + (
             "not measured" if rec["device_ms"] is None else
             f"{rec['device_ms']:.4f} ms, share of bound {meta['bound_ms'] / rec['device_ms']:.4f}"
@@ -1019,16 +1057,16 @@ def phase9_batch(drops: dict) -> dict:
             zero_counts()
             kept[name] += batch.decode_batch(sub, fs, device="cuda")
             counts = read_counts(f"decode_batch of {len(sub)} rows")
-            # one launch per batch: the tone ratios, the bit-edge walk, and
+            # per batch: one tone-ratio launch, the bit-edge chain's three,
             # three frame-sync walks (the profile's and the two headers')
             assert counts["tone_ratios"] == 1, counts
-            assert counts["chain_walk_strided"] == 1 and counts["chain_walk"] == 3, counts
+            assert counts["chain_walk_segments"] == 3 and counts["chain_walk"] == 3, counts
         wall = time.perf_counter() - t0
         check(kept[name], len(rows))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out[name] = wall
         log(f"[9] batch {name} x 60 s int16: every row status 2 and serial = truth, one "
-            f"tone_ratios launch, one bit-edge walk and three frame-sync walks per "
+            f"tone_ratios launch, three of the bit-edge chain and three frame-sync walks per "
             f"decode_batch call (launches {counts_text(counts)}); wall {wall:.3f} s "
             f"({64 * 60.0 / wall:.1f}x realtime), peak device memory {peak:.2f} GiB")
     with count_syncs() as syncs:
@@ -1070,7 +1108,7 @@ def phase9a_pipeline(drops: dict, bat: dict) -> dict:
     launches = tonepower.tone_ratios.launches
     counts = read_counts(f"pipeline {n_b} x 8")
     assert launches == n_b, f"{launches} tone_ratios launches for {n_b} pipelined batches"
-    assert counts["chain_walk_strided"] == n_b, counts
+    assert counts["chain_walk_segments"] == 3 * n_b, counts
     flat = [r for b in out for r in b]
     assert [len(b) for b in out] == [8] * n_b
     _rows_equal(flat, bat["rows_8x8"], truth, "pipeline")
@@ -1670,7 +1708,7 @@ def _chain_entry(name: str, recs: list) -> dict:
             "launches_per_path": _per_path(name), "max_abs_err": 0,
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": "bytes", "library_ms": None,
-            "shape": main_rec["shape"],
+            "device_ms": main_rec["device_ms"], "shape": main_rec["shape"],
             "shapes": [{key: r[key] for key in r} for r in recs]}
 
 
@@ -1683,6 +1721,10 @@ def main() -> int:
         if sys.argv[1:] == ["--only-wires"]:  # a development run: no result lines
             phase9e_wires(tmp, drops)
             phase9f_sosfilt(drops)
+            return 3
+        if sys.argv[1:] == ["--only-chain"]:  # a development run: no result lines
+            phase2b_chain(drops)
+            mark("2b")
             return 3
         k = phase2_kernel(drops)
         mark("2")

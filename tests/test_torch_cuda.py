@@ -379,20 +379,44 @@ def _strided_table(rows: int, m: int, seed: int) -> np.ndarray:
     (2, 500, 1),
 ])
 def test_chain_enumerate_strided_kernels_vs_plain(rows, m, k):
-    """Bit for bit; one compose launch per level and one walk per call,
+    """Bit for bit; three launches of ``chain_walk_segments`` per call,
     whatever the rows; each row equal to its 1-D call."""
     _need_cuda()
     from axctdprocessor_tpu_torch.ops import chain
 
     nxt = torch.from_numpy(_strided_table(rows, m, k)).cuda()
-    c0, w0 = chain.chain_compose.launches, chain.chain_walk_strided.launches
+    before = chain.chain_enumerate_strided.launches
     got = chain.chain_enumerate_strided(nxt, 0, k)
-    levels = chain._n_levels(k, chain._first(k, 7)) - 1
-    assert chain.chain_compose.launches == c0 + levels
-    assert chain.chain_walk_strided.launches == w0 + 1
+    assert chain.chain_enumerate_strided.launches == before + 3
     want = chain.chain_enumerate_strided_reference(nxt, 0, k)
     assert got.shape == (rows, k) and torch.equal(got, want)
-    assert torch.equal(chain.chain_enumerate_strided(nxt[-1], 0, k), got[-1])
+    for r in range(rows):
+        assert torch.equal(chain.chain_enumerate_strided(nxt[r], 0, k), got[r])
+
+
+@pytest.mark.cuda
+def test_chain_enumerate_strided_kernel_seams():
+    """The tiling's seams: a chain of stride 4 that enters every segment at
+    its first entry, fixed points on a segment's first and last entry and on
+    a tile's last entry, a table shorter than one segment, start != 0, and k
+    longer than the chain."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops import chain
+
+    seg, tile = chain.SEGMENT, chain.SEGMENT * chain.SEGMENTS_PER_BLOCK
+    m = 3 * tile + 77
+    step4 = np.minimum(np.arange(m) + 4, m - 1)
+    rows = np.stack([step4] * 4)
+    rows[1, 5 * seg] = 5 * seg
+    rows[2, [8 * seg - 4, 8 * seg - 1]] = 8 * seg - 1
+    rows[3, [tile - 4, tile - 1]] = tile - 1
+    nxt = torch.from_numpy(rows).cuda()
+    for start, k in ((0, m), (0, 1), (3, 2 * tile), (tile + 1, 5000)):
+        got = chain.chain_enumerate_strided(nxt, start, k)
+        assert torch.equal(got, chain.chain_enumerate_strided_reference(nxt, start, k)), (start, k)
+    short = torch.from_numpy(np.minimum(np.arange(seg // 2) + 3, seg // 2 - 1)).cuda()
+    assert torch.equal(chain.chain_enumerate_strided(short, 0, 40),
+                       chain.chain_enumerate_strided_reference(short, 0, 40))
 
 
 @pytest.mark.cuda

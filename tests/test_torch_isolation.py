@@ -165,8 +165,11 @@ def _imports(path):
                 yield node.module
 
 
+# the port, and the files that run on the machine with the card (no jax there)
 PORT_FILES = sorted(glob.glob(os.path.join(REPO, "axctdprocessor_tpu_torch", "**", "*.py"),
-                              recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+                              recursive=True)) + [
+    os.path.join(REPO, p) for p in ("chip_smoke.py", "scripts/tone_ratios_variants.py",
+                                    "tests/test_torch_cuda.py")]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, REPO))
