@@ -18,14 +18,16 @@ dimension: one row (n,) as the JAX functions take it, or a batch (B, n)
 with per-row scalars of shape (B,), each row computed as it would be alone
 (the batch dimension written out where the JAX package would ``vmap``).
 
-Two walks are hand-written CUDA kernels on the card
-(``ops/kernels/chain.cu``), where the JAX package runs ``lax.scan`` and fused
-XLA: :func:`chain_enumerate_strided`, the bit-edge chain, as one
-segment-parallel walk of the successor table (no level tables), and
-:func:`chain_walk`, frame sync's doubling fill and tail over full jump tables.
-Each wrapper takes its plain version for a CPU tensor, launches its kernel for
-a CUDA tensor and adds its launches to its ``launches`` count, and raises on
-any other device; nothing falls back.  :func:`chain_enumerate_strided_reference`
+The walks are hand-written CUDA kernels on the card (``ops/kernels/chain.cu``),
+where the JAX package runs ``lax.scan`` and fused XLA: :func:`chain_enumerate_strided`,
+the bit-edge chain, as one segment-parallel walk of the successor table (no
+level tables); :func:`chain_enumerate_frames`, frame sync's chain, as one pass
+over segments of 32 entries with a look-back across tiles (no jump tables);
+and :func:`chain_walk`, the doubling fill and tail over full jump tables of a
+general map (:func:`chain_enumerate`, which no decode path calls).  Each
+wrapper takes its plain version for a CPU tensor, launches its kernel for a
+CUDA tensor and adds its launches to its ``launches`` count, and raises on any
+other device; nothing falls back.  :func:`chain_enumerate_strided_reference`
 (the JAX package's level tables, :func:`chain_compose_reference` and the
 doubling walk) and :func:`chain_enumerate_reference` are the whole
 enumerations in plain PyTorch, for comparison runs.
@@ -299,9 +301,10 @@ def delta_levels(next_idx: torch.Tensor, k: int, stride_bound: int = 4,
 def chain_enumerate(next_idx: torch.Tensor, start: int, length: int,
                     max_level: int = 6) -> torch.Tensor:
     """``chain[j+1] = next_idx[chain[j]]`` for `length` steps along the last
-    dimension (fixed points repeat at the end).  The jump table is squared up
-    to 2^max_level steps, then span-sized chunks are extended with it
-    (:func:`chain_walk`)."""
+    dimension (fixed points repeat at the end), for any map.  The jump table
+    is squared up to 2^max_level steps, then span-sized chunks are extended
+    with it (:func:`chain_walk`).  No decode path calls it: frame sync's
+    bounded-stride chain is :func:`chain_enumerate_frames`."""
     k = int(length)
     levels, first = jump_levels(next_idx, k, max_level)
     return chain_walk(levels, start, k, first).reshape(next_idx.shape[:-1] + (k,))
@@ -313,6 +316,43 @@ def chain_enumerate_reference(next_idx: torch.Tensor, start: int, length: int,
     k = int(length)
     levels, first = jump_levels(next_idx, k, max_level)
     return chain_walk_reference(levels, start, k, first).reshape(next_idx.shape[:-1] + (k,))
+
+
+# chain_walk_frames' tiling: warps of a tile (at most 32), segments of 32
+# entries a warp (1, 2, 4 or 8); swept on the card by tools/chain_variants.py
+# --frames (ops/kernels/chain.cu's header)
+FRAME_STRIDE = 32
+FRAME_WARPS = 16
+FRAME_SEGMENTS_PER_WARP = 4
+
+
+def chain_enumerate_frames(succ: torch.Tensor, start: int, length: int,
+                           max_level: int = 6) -> torch.Tensor:
+    """:func:`chain_enumerate` for successor maps with ``succ[i] - i`` in
+    {0} ∪ [1, FRAME_STRIDE] and ``succ[i] < m`` (frame sync's, from
+    :func:`frame_successors`), along the last dimension.
+
+    On a CPU tensor :func:`chain_enumerate_reference`, the JAX package's
+    structure (jump tables up to 2^max_level, then the tail).  On the card one
+    launch of ``chain_walk_frames`` (and one fill of its look-back flags),
+    which computes ``succ^j(start)`` without jump tables; the result is the
+    same bit for bit, whatever `max_level` the reference would use."""
+    k = int(length)
+    if not _on_card(succ, "chain_enumerate_frames"):
+        return chain_enumerate_reference(succ, start, k, max_level)
+    from .kernels import extension
+
+    m = succ.shape[-1]
+    rows = succ.reshape(-1, m).to(torch.int64).contiguous()
+    if rows.shape[0] == 0 or k == 0:
+        return torch.empty(succ.shape[:-1] + (k,), dtype=torch.int64, device=succ.device)
+    out = extension().chain_walk_frames(rows, int(start), k, FRAME_WARPS,
+                                        FRAME_SEGMENTS_PER_WARP)
+    chain_enumerate_frames.launches += 1
+    return out.reshape(succ.shape[:-1] + (k,))
+
+
+chain_enumerate_frames.launches = 0
 
 
 # chain_walk_segments' tiling: segments of SEGMENT entries (a multiple of 4),
@@ -406,16 +446,17 @@ def enumerate_bit_edges(crossings: torch.Tensor, n_valid, fs: float,
     return chain, n_edges
 
 
-def enumerate_frames(accept: torch.Tensor, n_bits, max_frames: int,
-                     max_level: int = 6):
-    """Frame sync over the whole bit stream: advance 1 bit on a reject, 32
-    on an accepted frame, stop at ``n_bits - 32`` (parse.py:57-89).
+def frame_successors(accept: torch.Tensor, n_bits):
+    """Frame sync's successor table in the accept-compacted domain, along the
+    last dimension: (apos int64[..., cap], the accepted offsets ascending then
+    a fill, cap = n/16 + 1024 (16x the densest real stream's, see the JAX
+    module); n_acc, the true count per row (may exceed cap); succ int64[...,
+    cap], the index of the first accept at or after ``apos[j] + 32``).
 
-    The walk is "next accepted offset at or after s + 32", run in the
-    accept-compacted domain.  Along the last dimension, with `n_bits` a
-    tensor per row.  Returns (frame_starts int64[..., max_frames],
-    n_frames, consumed, overflow int32: bit 0 accepts exceeded the
-    compaction capacity, bit 1 the frame table filled)."""
+    Accepts are distinct and ascending, so ``apos[j + 32] >= apos[j] + 32``
+    and ``succ[j] - j`` lies in [1, FRAME_STRIDE]; the guard makes every
+    other entry (past the kept accepts, or with no accept after it) a fixed
+    point: the precondition of :func:`chain_enumerate_frames`."""
     n = accept.shape[-1]
     dev = accept.device
     cap = min(n, n // 16 + 1024)
@@ -429,8 +470,23 @@ def enumerate_frames(accept: torch.Tensor, n_bits, max_frames: int,
     succ = torch.searchsorted(apos, apos + 32)
     j = torch.arange(cap, device=dev)
     succ = torch.where((j < _col(n_keep)) & (succ < _col(n_keep)), succ, j)
+    return apos, n_acc, succ
 
-    chain = chain_enumerate(succ, 0, max_frames, max_level=max_level)
+
+def enumerate_frames(accept: torch.Tensor, n_bits, max_frames: int,
+                     max_level: int = 6):
+    """Frame sync over the whole bit stream: advance 1 bit on a reject, 32
+    on an accepted frame, stop at ``n_bits - 32`` (parse.py:57-89).
+
+    The walk is "next accepted offset at or after s + 32", run in the
+    accept-compacted domain.  Along the last dimension, with `n_bits` a
+    tensor per row.  Returns (frame_starts int64[..., max_frames],
+    n_frames, consumed, overflow int32: bit 0 accepts exceeded the
+    compaction capacity, bit 1 the frame table filled)."""
+    n = accept.shape[-1]
+    apos, n_acc, succ = frame_successors(accept, n_bits)
+    cap = apos.shape[-1]
+    chain = chain_enumerate_frames(succ, 0, max_frames, max_level=max_level)
     advancing = torch.cat([(n_acc > 0)[..., None], chain[..., 1:] > chain[..., :-1]], -1)
     is_frame = torch.cumprod(advancing.to(torch.int64), -1).to(torch.bool)
     n_frames = is_frame.to(torch.int64).sum(-1)

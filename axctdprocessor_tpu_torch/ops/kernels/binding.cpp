@@ -11,8 +11,12 @@
 //
 // chain_walk_segments: the bit-edge chain of a (rows, m) int64 successor
 // table, returned as the (rows, k) int64 chain; its scratch is one uint8
-// tensor of the size the kernel asks for.  chain_walk: the frame-sync walk
-// over (n_levels, rows, m) int64 jump tables, to the (rows, k) int64 chain.
+// tensor of the size the kernel asks for.  chain_walk_frames: frame sync's
+// chain of a (rows, m) int64 successor table of stride at most 32, to the
+// (rows, k) int64 chain; its look-back flags and tile counter are one int32
+// tensor of zeros (one fill), its tiles' records one int32 tensor.  chain_walk:
+// the walk of a general map over (n_levels, rows, m) int64 jump tables, to the
+// (rows, k) int64 chain.
 
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -27,6 +31,11 @@ extern "C" long long axctd_chain_segments_scratch(int rows, long long m, long lo
 extern "C" int axctd_chain_segments_launch(const long long* nxt, int rows, long long m,
                                            long long start, long long k, int sb, int seg, int tpb,
                                            void* scratch, long long* out, void* stream);
+extern "C" long long axctd_chain_frames_tiles(int rows, long long m, long long start, long long k,
+                                              int warps, int spw);
+extern "C" int axctd_chain_frames_launch(const long long* succ, int rows, long long m,
+                                         long long start, long long k, int warps, int spw,
+                                         int* flags, void* recs, long long* out, void* stream);
 extern "C" int axctd_chain_walk_launch(const long long* levels, int n_levels, int rows,
                                        long long m, int start, long long k, int first,
                                        long long* out, void* stream);
@@ -92,6 +101,32 @@ torch::Tensor chain_walk_segments(torch::Tensor nxt, int64_t start, int64_t k,
   return out;
 }
 
+torch::Tensor chain_walk_frames(torch::Tensor succ, int64_t start, int64_t k, int64_t warps,
+                                int64_t spw) {
+  TORCH_CHECK(succ.is_cuda() && succ.scalar_type() == torch::kInt64,
+              "chain_walk_frames: succ must be a CUDA int64 tensor");
+  TORCH_CHECK(succ.dim() == 2 && succ.is_contiguous(),
+              "chain_walk_frames: succ must be a contiguous (rows, m) tensor");
+  const int64_t rows = succ.size(0), m = succ.size(1);
+  const long long tiles = rows < (1LL << 31)
+      ? axctd_chain_frames_tiles(static_cast<int>(rows), m, start, k, static_cast<int>(warps),
+                                 static_cast<int>(spw))
+      : -1;
+  TORCH_CHECK(tiles >= 0, "chain_walk_frames: bad shape or arguments (rows ", rows, ", m ", m,
+              ", start ", start, ", k ", k, ", warps ", warps, ", spw ", spw, ")");
+  const c10::cuda::CUDAGuard guard(succ.device());
+  auto out = torch::empty({rows, k}, succ.options());
+  auto flags = torch::zeros({tiles + 1}, succ.options().dtype(torch::kInt32));
+  auto recs = torch::empty({tiles * 33 * 2}, succ.options().dtype(torch::kInt32));
+  const int err = axctd_chain_frames_launch(
+      reinterpret_cast<const long long*>(succ.data_ptr<int64_t>()), static_cast<int>(rows), m,
+      start, k, static_cast<int>(warps), static_cast<int>(spw), flags.data_ptr<int32_t>(),
+      recs.data_ptr(), reinterpret_cast<long long*>(out.data_ptr<int64_t>()),
+      at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "chain_walk_frames launch failed: ", axctd_cuda_error_string(err));
+  return out;
+}
+
 static void check_walk(const torch::Tensor& levels, c10::ScalarType dtype, int64_t start,
                        int64_t k, int64_t first, const char* name) {
   TORCH_CHECK(levels.is_cuda(), name, ": levels must be a CUDA tensor");
@@ -128,5 +163,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("tone_ratios", &tone_ratios, "Fused tone powers, box mean and log10 ratios (CUDA)");
   m.def("chain_walk_segments", &chain_walk_segments,
         "Bit-edge chain of a bounded-stride successor table by a segment-parallel walk (CUDA)");
+  m.def("chain_walk_frames", &chain_walk_frames,
+        "Frame sync's chain of a successor table of stride <= 32, one pass with look-back (CUDA)");
   m.def("chain_walk", &chain_walk, "Chain walk over full jump tables (CUDA)");
 }

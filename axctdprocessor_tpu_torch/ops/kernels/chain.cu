@@ -59,8 +59,62 @@
 // scan 32 registers, 1,280 static bytes and 32 per tile of the row (14,080 for
 // the 600 s drop); write 39 registers, 20,480 dynamic bytes.
 //
-// chain_walk_kernel: frame sync's walk over full jump tables, the lax.scan of
-// chain.py:216-245 (nc = J_last[nc]).  One block per row: the block fills
+// chain_walk_frames: frame sync's chain chain[j] = succ^j(start), j < k, of the
+// (rows, m) int64 successor table in the accept-compacted domain
+// (ops/chain.py frame_successors), where succ[i] - i is in {0} ∪ [1, 32]: accept
+// positions are distinct and ascending, so the next accept 32 bits on lies at
+// most 32 entries on.  It replaces axctdprocessor_tpu/ops/chain.py:197-245
+// (chain_enumerate: jump tables squared by gathers, the doubling fill and the
+// lax.scan tail) for enumerate_frames, with no jump tables.  One kernel, in
+// one pass, with a decoupled look-back across tiles (Merrill and Garland,
+// "Single-pass parallel prefix scan with decoupled look-back", NVIDIA 2016):
+//  * a chain enters a segment of 32 entries at one of its first 32, because
+//    no step is longer than 32: one entry state per lane of a warp.  A warp
+//    takes spw consecutive segments; lane e loads entry e of each (coalesced)
+//    and finds where the walk from e leaves the segment (the exit offset into
+//    the next one, or STOP with the terminal, a fixed point) and the entries
+//    it passes, by pointer jumping: 5 rounds of __shfl_sync, no dependent
+//    load.  The rounds' pointers (succ^1, ^2, ^4, ^8, ^16 inside the segment)
+//    stay in one register, 6 bits each, for the write.  Two maps compose with
+//    one shuffle per lane (a monoid); the warp's run of segments in spw - 1
+//    compositions;
+//  * the block's warps' maps are scanned inclusively in shared memory
+//    (Hillis-Steele, log2(warps) levels): the tile's map and each warp's
+//    prefix;
+//  * tiles take their ids from an atomic counter, so a tile's predecessors
+//    are running.  A tile publishes its map (32 records) with flag 1, then
+//    warp 0 looks back: lane i reads tile j - i's flag, the nearest tile with
+//    flag 2 has published the state in which the walk leaves it (entry into
+//    the next tile, rank), and the maps of the tiles between are folded in
+//    front of the state, one shuffle per lane each, their loads kFold at a
+//    time (one L2 round trip each after another made the 600 s walk 15 us).
+//    The tile then publishes its own exit state with flag 2;
+//  * write: each warp's entry from the tile's and its warp prefix; each live
+//    segment's positions from its true entry by a doubling fill through the
+//    rounds' pointers (5 rounds, lane i then holds chain[rank + i]), stored
+//    as coalesced 8-byte stores while below k.  The row's last tile writes
+//    chain[length:k] with the terminal, as JAX's walk repeats a fixed point.
+//  The flags and the tile counter must be zero at the launch (the binding
+//  allocates them with torch.zeros: one fill).  `start` is the origin of the
+//  tiling, so tile 0 is entered at offset 0 with rank 0.
+// Bound.  The table read once and the chain written once: 0.137 us at 3.35 TB/s
+// for the 600 s drop's frames (38,528 entries, k = 18,760); a few hundred
+// nanoseconds at the other shapes.  At these sizes the launch itself and each
+// step's latency (the tile id's atomic, load, 5 shuffle rounds, the warps'
+// scan, the look-back's L2 round trips, the fill) are what the call takes.
+// Tiling (ops/chain.py FRAME_WARPS, FRAME_SEGMENTS_PER_WARP): 16 warps x 4
+// segments (tiles of 2,048 entries), chosen by tools/chain_variants.py --frames
+// --sweep (NVIDIA H100 80GB HBM3, 700.00 W) over 1-32 warps x 1-8 segments at
+// the decodes' tables; us per call queued behind a sleep (the flags' fill
+// included) at the 600 s frames / a header window / 8 and 64 rows of 60 s:
+// 16 x 4 10.5 / 7.1 / 8.9 / 10.3, the fastest or within 0.1 us of it at every
+// shape; 8 x 2 13.1 / 7.8 / 9.4 / 15.4; 1 x 1 33.5 / 10.6 / 19.4 / 76.4.
+// ptxas (sm_90a): 62 registers at 4 segments a warp, no spills (8 segments: 64
+// registers and 12 bytes of spills), 16,400 bytes of static shared memory.
+//
+// chain_walk_kernel: the walk over full jump tables of a general map, the
+// lax.scan of chain.py:216-245 (nc = J_last[nc]); off the decode paths since
+// chain_walk_frames took frame sync.  One block per row: the block fills
 // chain[:first] in shared memory, one barrier per level, then thread t walks
 // head t ceil((k - first) / first) dependent steps and writes
 // out[row, j * first + t] while below k.  Bound by the latency of its dependent
@@ -70,7 +124,8 @@
 // versions in ops/chain.py, on any grid.  The tables must be valid, as the
 // callers' successor maps are by construction; nothing checks on the card:
 // start lies in [0, m); for chain_walk_segments next[i] - i is in
-// {0} ∪ [1, SB] and next[i] < m; for chain_walk every value lies in [0, m).
+// {0} ∪ [1, SB] and next[i] < m; for chain_walk_frames succ[i] - i is in
+// {0} ∪ [1, 32] and succ[i] < m; for chain_walk every value lies in [0, m).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +138,11 @@ constexpr int kMaxTile = 65536;   // positions within a tile are uint16
 constexpr int kLanes = 32;        // the scan's lanes (one warp per row)
 constexpr int kScanThreads = 256;  // the scan's block, which stages the row's tile maps
 constexpr int kMaxShared = 232448;
+constexpr int kFrameStride = 32;  // chain_walk_frames: frame sync's stride bound, a warp's lanes
+constexpr int kMaxWarps = 32;     // chain_walk_frames: warps of a tile
+constexpr int kNone = 32;         // a frame segment's pointer once the walk has left it or stopped
+constexpr int kFold = 8;          // chain_walk_frames: predecessors' maps loaded at once in the look-back
+constexpr unsigned kFull = 0xffffffffu;
 
 // A map entry: the exit offset into the next segment or tile (st >= 0), or
 // STOP with st = -1 - terminal (a position relative to the tile, or to the
@@ -392,9 +452,12 @@ bool segments_args_ok(int rows, long long m, long long start, long long k, int s
   if (rows < 1 || rows > 65535 || m < 1 || m >= (1LL << 31) || start < 0 || start >= m || k < 1) {
     return false;
   }
-  if (sb != kStride || seg < sb || seg % 4 || tpb < kLanes || tpb > 1024 || (tpb & (tpb - 1))) {
-    return false;
-  }
+#ifdef AXCTD_CHAIN_VARIANTS  // tools/chain_variants.py: the same walk at frame sync's stride bound
+  if (sb != kStride && sb != kFrameStride) return false;
+#else
+  if (sb != kStride) return false;
+#endif
+  if (seg < sb || seg % 4 || tpb < kLanes || tpb > 1024 || (tpb & (tpb - 1))) return false;
   return 1LL * seg * tpb <= kMaxTile && records_smem(seg, tpb, sb) <= kMaxShared &&
          write_smem(seg, tpb, sb) <= kMaxShared &&
          scan_smem(m, start, sb, seg, tpb) + kLanes * (sb + 1) * sizeof(Rec) <= kMaxShared;
@@ -431,6 +494,193 @@ __global__ void chain_walk_kernel(const T* __restrict__ levels, int n_levels, lo
   }
 }
 
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// The lane's state a, then the map of which lane e holds entry e in b; every
+// lane of the warp takes part.
+__device__ __forceinline__ Rec then_warp(Rec a, Rec b) {
+  const int q = a.st >= 0 ? a.st : 0;
+  const int st = __shfl_sync(kFull, b.st, q);
+  const int cnt = __shfl_sync(kFull, b.cnt, q);
+  return a.st >= 0 ? Rec{st, a.cnt + cnt} : a;
+}
+
+// Frame maps: st >= 0 the exit offset into the next segment, warp run or tile;
+// st < 0 STOP at the terminal -1 - st (an entry of the row, from start); cnt the
+// chain entries passed.  One block a tile of warps x SPW segments of 32.
+template <int SPW>
+__global__ void __launch_bounds__(1024)
+chain_frames_kernel(const long long* __restrict__ succ, long long m, long long start, long long k,
+                    int n_tiles, int n_ids, int* __restrict__ flags, int2* __restrict__ agg,
+                    int2* __restrict__ inc, long long* __restrict__ out) {
+  __shared__ Rec pre[2][kMaxWarps][kLanes];  // the warps' maps, scanned (double buffer)
+  __shared__ Rec tile_in;                    // the walk's entry into the tile and its rank
+  __shared__ int tile_id;
+  const int lane = threadIdx.x & (kLanes - 1), w = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  if (threadIdx.x == 0) tile_id = atomicAdd(flags + n_ids, 1);
+  __syncthreads();
+  const int id = tile_id, row = id / n_tiles, b = id - row * n_tiles;
+  const long long n = m - start;
+  const long long lo = (static_cast<long long>(b) * n_warps + w) * (SPW * kLanes);  // from start
+  const long long* src = succ + static_cast<long long>(row) * m + start;
+
+  long long v[SPW];  // every load in flight before the first shuffle
+#pragma unroll
+  for (int s = 0; s < SPW; ++s) {
+    const long long i = lo + s * kLanes + lane;
+    v[s] = i < n ? src[i] : start + i;  // past the row's end: fixed points, never reached
+  }
+  unsigned lv[SPW];  // the pointers of the 5 rounds, 6 bits each (kNone: left or stopped)
+  Rec mp[SPW];       // the segments' maps
+#pragma unroll
+  for (int s = 0; s < SPW; ++s) {
+    const long long base = lo + s * kLanes;
+    const int d = static_cast<int>(v[s] - (start + base + lane));
+    int p = d == 0 ? -1 - lane : lane + d;  // < 0 stop at -1 - p; [0, 32) inside; else exit
+    int c = 1;
+    unsigned word = 0;
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {  // p = succ^(2^(r+1)) from the lane's entry
+      const bool in = p >= 0 && p < kLanes;
+      word |= static_cast<unsigned>(in ? p : kNone) << (6 * r);
+      const int q = in ? p : lane;
+      const int pq = __shfl_sync(kFull, p, q);
+      const int cq = __shfl_sync(kFull, c, q);
+      if (in) {
+        p = pq;
+        c += cq;
+      }
+    }
+    lv[s] = word;
+    mp[s] = p < 0 ? Rec{static_cast<int>(-1 - (base + (-1 - p))), c} : Rec{p - kLanes, c};
+  }
+  Rec run = mp[0];
+#pragma unroll
+  for (int s = 1; s < SPW; ++s) run = then_warp(run, mp[s]);
+  pre[0][w][lane] = run;
+  int cur = 0;
+  for (int off = 1; off < n_warps; off *= 2) {  // inclusive scan over the warps
+    __syncthreads();
+    Rec x = pre[cur][w][lane];
+    if (w >= off) {
+      const Rec a = pre[cur][w - off][lane];
+      x = a.st >= 0 ? Rec{pre[cur][w][a.st].st, a.cnt + pre[cur][w][a.st].cnt} : a;
+    }
+    pre[cur ^ 1][w][lane] = x;
+    cur ^= 1;
+  }
+  __syncthreads();
+  const Rec* whole = pre[cur][n_warps - 1];  // the tile's map
+  const int first_id = row * n_tiles;
+  const bool last = b == n_tiles - 1;  // no tile looks back at the row's last
+  if (w == 0) {
+    Rec in{0, 0};
+    if (b > 0) {
+      if (!last) {
+        agg[static_cast<long long>(id) * kLanes + lane] =
+            make_int2(whole[lane].st, whole[lane].cnt);
+        __threadfence();
+        __syncwarp();
+        if (lane == 0) st_release(flags + id, 1);
+      }
+      Rec c{lane, 0};  // the maps of the tiles after the one found, folded: identity at first
+      for (int j = b - 1;; j -= kLanes) {
+        const int t = j - lane;
+        int f = 0;
+        if (t >= 0) {
+          do {
+            f = ld_acquire(flags + first_id + t);
+          } while (f == 0);
+        }
+        const unsigned ready = __ballot_sync(kFull, f == 2);
+        const int upto = ready ? __ffs(ready) - 1 : kLanes;
+        __threadfence();
+        for (int i0 = 0; i0 < upto; i0 += kFold) {  // kFold maps' loads in flight at once
+          int2 a[kFold];
+#pragma unroll
+          for (int u = 0; u < kFold; ++u) {
+            if (i0 + u < upto) {
+              a[u] = __ldcg(agg + static_cast<long long>(first_id + j - i0 - u) * kLanes + lane);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kFold; ++u) {
+            if (i0 + u < upto) c = then_warp(Rec{a[u].x, a[u].y}, c);
+          }
+        }
+        if (ready) {
+          const int2 x = __ldcg(inc + first_id + j - upto);
+          in = Rec{x.x, x.y};
+          if (in.st >= 0) {
+            const int st = __shfl_sync(kFull, c.st, in.st);
+            const int cnt = __shfl_sync(kFull, c.cnt, in.st);
+            in = Rec{st, in.cnt + cnt};
+          }
+          break;
+        }
+      }
+    }
+    if (lane == 0) {
+      tile_in = in;
+      if (!last) {
+        const Rec e = in.st >= 0 ? Rec{whole[in.st].st, in.cnt + whole[in.st].cnt} : in;
+        inc[id] = make_int2(e.st, e.cnt);
+        __threadfence();
+        st_release(flags + id, 2);
+      }
+    }
+  }
+  __syncthreads();
+  long long* orow = out + static_cast<long long>(row) * k;
+  Rec x = tile_in;
+  if (w > 0 && x.st >= 0) {
+    const Rec p = pre[cur][w - 1][x.st];
+    x = Rec{p.st, x.cnt + p.cnt};
+  }
+#pragma unroll
+  for (int s = 0; s < SPW; ++s) {
+    if (x.st < 0 || x.cnt >= k) break;  // the same for every lane
+    int pos = lane == 0 ? x.st : kNone;     // lane i: chain[rank + i], by doubling from the entry
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      const int q = __shfl_sync(kFull, pos, lane >= (1 << r) ? lane - (1 << r) : 0);
+      const unsigned lq = __shfl_sync(kFull, lv[s], q == kNone ? 0 : q);
+      if (lane >= (1 << r) && lane < (2 << r)) pos = q == kNone ? kNone : (lq >> (6 * r)) & 63;
+    }
+    const long long j = x.cnt + lane;
+    if (pos != kNone && j < k) orow[j] = start + lo + s * kLanes + pos;
+    x = then_warp(x, mp[s]);
+  }
+  if (last) {  // the row's walk ends at a fixed point: the terminal repeats to k
+    const Rec in = tile_in;
+    const Rec e = in.st >= 0 ? Rec{whole[in.st].st, in.cnt + whole[in.st].cnt} : in;
+    const long long term = start + (-1 - e.st);
+    for (long long j = e.cnt + threadIdx.x; j < k; j += blockDim.x) orow[j] = term;
+  }
+}
+
+int frame_tiles(long long m, long long start, int warps, int spw) {
+  const long long tile = 1LL * warps * spw * kLanes;
+  return static_cast<int>((m - start + tile - 1) / tile);
+}
+
+bool frames_args_ok(int rows, long long m, long long start, long long k, int warps, int spw) {
+  if (rows < 1 || m < 1 || m >= (1LL << 31) || start < 0 || start >= m || k < 1 ||
+      k >= (1LL << 31) || warps < 1 || warps > kMaxWarps) {
+    return false;
+  }
+  if (spw != 1 && spw != 2 && spw != 4 && spw != 8) return false;
+  return 1LL * rows * frame_tiles(m, start, warps, spw) < (1LL << 31) / kLanes;
+}
+
 }  // namespace
 
 // Bytes of scratch chain_walk_segments needs, or -1 if it does not take these
@@ -447,8 +697,56 @@ extern "C" int axctd_chain_segments_launch(const long long* nxt, int rows, long 
   if (!segments_args_ok(rows, m, start, k, sb, seg, tpb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#ifdef AXCTD_CHAIN_VARIANTS
+  if (sb == kFrameStride) {
+    return segments<kFrameStride>(nxt, rows, m, start, k, seg, tpb,
+                                  static_cast<unsigned char*>(scratch), out,
+                                  static_cast<cudaStream_t>(stream));
+  }
+#endif
   return segments<kStride>(nxt, rows, m, start, k, seg, tpb, static_cast<unsigned char*>(scratch),
                            out, static_cast<cudaStream_t>(stream));
+}
+
+// Tiles of one chain_walk_frames call (its flags are one more int32, the
+// counter, zeroed; its records 33 int2 a tile), or -1 if it does not take
+// these arguments.
+extern "C" long long axctd_chain_frames_tiles(int rows, long long m, long long start, long long k,
+                                              int warps, int spw) {
+  if (!frames_args_ok(rows, m, start, k, warps, spw)) return -1;
+  return static_cast<long long>(rows) * frame_tiles(m, start, warps, spw);
+}
+
+extern "C" int axctd_chain_frames_launch(const long long* succ, int rows, long long m,
+                                         long long start, long long k, int warps, int spw,
+                                         int* flags, void* recs, long long* out, void* stream) {
+  if (!frames_args_ok(rows, m, start, k, warps, spw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = frame_tiles(m, start, warps, spw);
+  const int n_ids = rows * n_tiles;
+  int2* agg = static_cast<int2*>(recs);
+  int2* inc = agg + static_cast<long long>(n_ids) * kLanes;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = warps * kLanes;
+  switch (spw) {
+    case 1:
+      chain_frames_kernel<1><<<n_ids, threads, 0, s>>>(succ, m, start, k, n_tiles, n_ids, flags,
+                                                       agg, inc, out);
+      break;
+    case 2:
+      chain_frames_kernel<2><<<n_ids, threads, 0, s>>>(succ, m, start, k, n_tiles, n_ids, flags,
+                                                       agg, inc, out);
+      break;
+    case 4:
+      chain_frames_kernel<4><<<n_ids, threads, 0, s>>>(succ, m, start, k, n_tiles, n_ids, flags,
+                                                       agg, inc, out);
+      break;
+    default:
+      chain_frames_kernel<8><<<n_ids, threads, 0, s>>>(succ, m, start, k, n_tiles, n_ids, flags,
+                                                       agg, inc, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int axctd_chain_walk_launch(const long long* levels, int n_levels, int rows,

@@ -1,5 +1,6 @@
-"""Time the bit-edge chain's kernels on one GPU: the checkout's segment walk
-against an earlier ``chain.cu`` in the same process, and the walk's tiling.
+"""Time the chain kernels on one GPU: the checkout's bit-edge segment walk
+against an earlier ``chain.cu`` in the same process, and the walk's tiling;
+with ``--frames``, frame sync's walk against the other ways to compute it.
 
 The checkout's ``axctdprocessor_tpu_torch/ops/kernels/chain.cu`` is built as
 ``current``; ``--old PATH`` adds an earlier ``chain.cu`` with the level-table
@@ -25,10 +26,23 @@ monolithic, and ``decode_batch`` of 8 and of 64 archive rows.  At each one:
   block of the grid below that fits in shared memory, each checked and
   timed queued.
 
+With ``--frames`` the tables are frame sync's instead (``chain_enumerate_frames``'
+recorded calls: the 600 s drop's profile frames and header windows, the batches
+of 8 and 64 rows), and the versions, each held bit for bit to
+``chain_enumerate_reference`` and timed in turns (CUDA events, back to back and
+queued) and on device (profiler): ``chain_walk_frames`` at its tiling (its
+binding, and the kernel alone with its flags' fill), the bit-edge walk's three
+kernels instantiated at 32 entry states (``chain_segments_*<32>``, built with
+``-DAXCTD_CHAIN_VARIANTS``), the jump tables + ``chain_walk`` (``chain_enumerate``),
+and an empty kernel (the launch floor); with ``--sweep`` also
+``chain_walk_frames`` at every warps x segments-per-warp tiling and the 32-state
+segment walk at a few tilings, each checked and timed queued.
+
 One JSON line per shape and build.  Needs one NVIDIA GPU; run as a file, from
 the repository root:
 
     python axctdprocessor_tpu_torch/tools/chain_variants.py [--old PATH/chain.cu] [--sweep]
+    python axctdprocessor_tpu_torch/tools/chain_variants.py --frames [--sweep]
 """
 
 from __future__ import annotations
@@ -53,12 +67,15 @@ from axctdprocessor_tpu_torch.ops import chain  # noqa: E402
 BUILD = os.path.join(ROOT, "axctdprocessor_tpu_torch", "_build", "variants")
 PATHS = ("600 s", "batch 8 x 60 s", "batch 64 x 60 s")
 SWEEP = [(seg, tpb) for seg in (8, 16, 32, 64, 128) for tpb in (64, 128, 256, 512, 1024)]
+FRAME_PATHS = ("600 s", "batch 8 x 60 s", "batch 64 x 60 s")
+FRAME_SWEEP = [(w, spw) for w in (1, 2, 4, 8, 16, 32) for spw in (1, 2, 4, 8)]
+SEG32_SWEEP = [(32, 32), (32, 64), (32, 128), (64, 32), (64, 64)]
 P = ctypes.c_void_p
 LL = ctypes.c_longlong
 I = ctypes.c_int
 
 
-def build(sources: dict) -> dict:
+def build(sources: dict, defines: tuple = ()) -> dict:
     from torch.utils.cpp_extension import CUDA_HOME
 
     os.makedirs(BUILD, exist_ok=True)
@@ -67,7 +84,7 @@ def build(sources: dict) -> dict:
         out = os.path.join(BUILD, f"libchain_{name}.so")
         cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), "-gencode=arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", out, src]
+               *[f"-D{d}" for d in defines], "-o", out, src]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -88,6 +105,11 @@ def build(sources: dict) -> dict:
             lib.axctd_chain_segments_scratch.restype = LL
             lib.axctd_chain_segments_launch.argtypes = [P, I, LL, LL, LL, I, I, I, P, P, P]
             lib.axctd_chain_segments_launch.restype = I
+        if hasattr(lib, "axctd_chain_frames_launch"):
+            lib.axctd_chain_frames_tiles.argtypes = [I, LL, LL, LL, I, I]
+            lib.axctd_chain_frames_tiles.restype = LL
+            lib.axctd_chain_frames_launch.argtypes = [P, I, LL, LL, LL, I, I, P, P, P, P]
+            lib.axctd_chain_frames_launch.restype = I
         if hasattr(lib, "axctd_chain_compose_launch"):
             lib.axctd_chain_compose_launch.argtypes = [P, P, I, LL, I, I, P]
             lib.axctd_chain_compose_launch.restype = I
@@ -116,6 +138,26 @@ def segments_call(lib, nxt, k: int, seg: int, tpb: int, sb: int = 4):
         _check(lib.axctd_chain_segments_launch(
             nxt.data_ptr(), rows, m, 0, k, sb, seg, tpb, scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream), "chain_segments")
+        return out
+    return call
+
+
+def frames_call(lib, succ, k: int, warps: int, spw: int):
+    """This build's chain_walk_frames at a tiling (the flags zeroed before each
+    launch, as the binding's torch.zeros does), as a function of nothing."""
+    rows, m = succ.shape
+    tiles = lib.axctd_chain_frames_tiles(rows, m, 0, k, warps, spw)
+    if tiles < 0:
+        raise ValueError(f"the kernel does not take {warps} warps x {spw}")
+    flags = torch.zeros(tiles + 1, dtype=torch.int32, device=succ.device)
+    recs = torch.empty(tiles * 66, dtype=torch.int32, device=succ.device)
+    out = torch.empty((rows, k), dtype=torch.int64, device=succ.device)
+
+    def call():
+        flags.zero_()
+        _check(lib.axctd_chain_frames_launch(
+            succ.data_ptr(), rows, m, 0, k, warps, spw, flags.data_ptr(), recs.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream), "chain_frames")
         return out
     return call
 
@@ -208,11 +250,70 @@ def _kernel_split(fn, calls: int = 10) -> dict:
             for part in ("records", "scan", "write")}
 
 
+def frames_main(sweep: bool) -> int:
+    """``--frames``: frame sync's walk, every version at each recorded shape."""
+    smi, _ = cs.phase0_device()
+    lib = build({"variants": os.path.join(ROOT, cs.CHAIN_SOURCE)},
+                defines=("AXCTD_CHAIN_VARIANTS",))["variants"]
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        calls = cs._record_chain_calls(cs.phase1_drops(tmp))["chain_walk_frames"]
+    shapes = {}
+    for path, (succ, start, k) in calls:
+        succ = succ.reshape(-1, succ.shape[-1])
+        if path in FRAME_PATHS and (path, succ.shape, k) not in shapes:
+            shapes[path, succ.shape, k] = succ
+    floor = statistics.median(queued_ms(cs._empty_kernel, 10) for _ in range(7))
+    floor_device = cs._device_total_ms(cs._empty_kernel, calls=20)
+    profiled = []
+    for (path, (rows, m), k), succ in shapes.items():
+        want = chain.chain_enumerate_reference(succ, 0, k)
+        rec = dict(card=smi, shape=f"{path}: ({rows}, {m}) frame successors, k = {k}",
+                   bound_us=1e3 * cs._chain_bound(rows, m, k), launch_floor_queued_ms=floor,
+                   launch_floor_device_ms=floor_device,
+                   tiling=f"{chain.FRAME_WARPS}x{chain.FRAME_SEGMENTS_PER_WARP}")
+        fns = {"frames": lambda succ=succ, k=k: chain.chain_enumerate_frames(succ, 0, k),
+               "frames kernel": frames_call(lib, succ, k, chain.FRAME_WARPS,
+                                            chain.FRAME_SEGMENTS_PER_WARP),
+               "segments<32>": segments_call(lib, succ, k, 32, 128, sb=32),
+               "jump tables + chain_walk": lambda succ=succ, k=k: chain.chain_enumerate(succ, 0, k)}
+        for name, fn in fns.items():
+            assert torch.equal(fn(), want), f"{path}: {name} differs from the plain version"
+        rec.update(_in_turns(fns))
+        if sweep:
+            grid = {}
+            for w, spw in FRAME_SWEEP:
+                fn = frames_call(lib, succ, k, w, spw)
+                assert torch.equal(fn(), want), f"{path}: frames {w} x {spw} differs"
+                grid[f"frames {w}x{spw}"] = statistics.median(queued_ms(fn) for _ in range(7))
+            for seg, tpb in SEG32_SWEEP:
+                if lib.axctd_chain_segments_scratch(rows, m, 0, k, 32, seg, tpb) < 0:
+                    continue
+                fn = segments_call(lib, succ, k, seg, tpb, sb=32)
+                assert torch.equal(fn(), want), f"{path}: segments<32> {seg} x {tpb} differs"
+                grid[f"segments<32> {seg}x{tpb}"] = statistics.median(
+                    queued_ms(fn) for _ in range(7))
+            rec["sweep_queued_ms"] = grid
+        profiled.append((rec, fns))
+    for rec, fns in profiled:  # the profiler last: it slows later launches
+        rec["device_ms"] = {
+            "frames kernel": cs._device_ms(fns["frames kernel"], "chain_frames_kernel", calls=10),
+            "frames call": cs._device_total_ms(fns["frames"]),
+            "segments<32>": cs._device_ms(fns["segments<32>"], "chain_segments_", calls=10),
+            "jump tables + chain_walk": cs._device_total_ms(fns["jump tables + chain_walk"])}
+        rec["share_of_bound_device"] = (rec["bound_us"] / 1e3 / rec["device_ms"]["frames kernel"]
+                                        if rec["device_ms"]["frames kernel"] else None)
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", help="an earlier chain.cu with the level-table kernels")
     ap.add_argument("--sweep", action="store_true", help="time every tiling of the grid")
+    ap.add_argument("--frames", action="store_true", help="frame sync's walk instead")
     args = ap.parse_args()
+    if args.frames:
+        return frames_main(args.sweep)
     smi, _ = cs.phase0_device()
     sources = {"current": os.path.join(ROOT, cs.CHAIN_SOURCE)}
     if args.old:
@@ -230,7 +331,7 @@ def main() -> int:
         rows, m = nxt.shape
         want = chain.chain_enumerate_strided_reference(nxt, 0, k)
         rec = dict(card=smi, shape=f"{path}: ({rows}, {m}) int64 successors, k = {k}",
-                   bound_us=1e3 * cs._chain_bound("chain_walk_segments", rows, m, k))
+                   bound_us=1e3 * cs._chain_bound(rows, m, k))
         fns = {"new": segments_call(libs["current"], nxt, k, chain.SEGMENT,
                                     chain.SEGMENTS_PER_BLOCK)}
         if "old" in libs:

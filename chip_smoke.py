@@ -31,23 +31,32 @@ Phases, one line each or more (any failure raises and exits non-zero):
    it the kernel reaches; and, for reference only, one ``torch.matmul`` of
    the tile view by the segment matrix (the DFT core alone);
 2b. the chain kernels (``chain_walk_segments``, the bit-edge chain, through
-   its wrapper ``chain_enumerate_strided``; ``chain_walk``, frame sync's walk)
-   against their plain versions on the card, bit for bit: every call that the
-   600 s drop's monolithic, segmented and time-sharded (dp 1 x sp 4) decodes,
-   4 archive rows time-sharded on dp 2 x sp 2, ``decode_batch`` of 8 and of
-   64 archive rows and 2 x 8 rows through the pipeline hand them (recorded as
-   the paths run), each row of a recorded bit-edge call equal to its 1-D call;
-   then the edge cases (k = 1, 2; k <= first; k = first; k no multiple of
-   first; a dead table; early stalls; rows of different true lengths with
-   padded tails; a dead row of jumps) and the segment walk's seams (a stride
-   onto every segment boundary; fixed points on a segment's first and last
-   entry and on a tile's last; m < one segment; m no multiple of a segment;
-   k longer than the chain; a dead row beside live ones; 64 rows of different
-   true lengths), each row also equal to its 1-D call.  Per shape the median
-   CUDA-event times of kernel and plain in turns (5 runs of 2 calls), the
-   bytes bound and the share of it, and for ``chain_walk`` the time per
-   dependent step.  ``--only-chain`` runs the build and this phase alone and
-   exits 3 without result lines (a development run);
+   its wrapper ``chain_enumerate_strided``; ``chain_walk_frames``, frame
+   sync's chain, through ``chain_enumerate_frames``) against their plain
+   versions on the card, bit for bit: every call that the 600 s drop's
+   monolithic, segmented and time-sharded (dp 1 x sp 4) decodes, 4 archive
+   rows time-sharded on dp 2 x sp 2, ``decode_batch`` of 8 and of 64 archive
+   rows and 2 x 8 rows through the pipeline hand them (recorded as the paths
+   run), each row of a recorded call equal to its 1-D call, each frame walk
+   also equal to ``chain_enumerate`` (jump tables and ``chain_walk``, the
+   general map's kernel) on the same table; then the edge cases (k = 1, 2;
+   k <= first; k = first; k no multiple of first; a dead table; early stalls;
+   rows of different true lengths with padded tails; ``chain_walk`` on
+   general maps with a dead row), the segment walk's seams (a stride onto
+   every segment boundary; fixed points on a segment's first and last entry
+   and on a tile's last; m < one segment; m no multiple of a segment; k
+   longer than the chain; a dead row beside live ones; 64 rows of different
+   true lengths) and the frame walk's (a stride of 32 onto every segment and
+   tile boundary; fixed points on a warp's first and last lane and a tile's
+   last entry; cap < 32; cap no multiple of a segment; a dead row (no
+   accept) beside live ones; accepts overflowing cap; k = 1; k longer than
+   the chain; 64 rows of different kept accepts), each row also equal to its
+   1-D call.  Per shape the median CUDA-event times of kernel and plain in
+   turns (5 runs of 2 calls), the bytes bound and the share of it; for the
+   frame walk also the jump-table walk it replaced (jump tables +
+   ``chain_walk``) in the same turns and the time of an empty kernel (the launch floor).
+   ``--only-chain`` runs the build and this phase alone and exits 3 without
+   result lines (a development run);
 3. the monolithic path end to end: the 600 s WAV through
    ``decode_wav(device="cuda", mode="monolithic")``; held to the
    simulator's truth, to the same decode with the plain tone-ratio
@@ -118,10 +127,15 @@ Phases, one line each or more (any failure raises and exits non-zero):
    upload), one pipelined run of 2 x 8,
    then the tone-ratio kernel's device time at each phase-2 shape and the
    chain kernels' at each phase-2b shape (``chain_walk_segments``: the sum of
-   its three kernels per call).
+   its three kernels per call; ``chain_walk_frames``: its kernel, and its whole
+   call with the flags' fill, beside the device time of the jump tables'
+   gathers and of the jump-table walk's whole call on the same table, and of an empty
+   kernel); no jump table is built in those decodes (``jump_levels`` is
+   counted), and one frame-sync call's launches are counted.
 
 Each path is driven with every kernel's launch count set to 0 just before
-and read just after (each chain kernel must have launched on every path).  At the end neither jax nor any module of the JAX
+and read just after (each chain kernel must have launched on every path, and
+``chain_walk``, the general map's walk, never).  At the end neither jax nor any module of the JAX
 package (``axctdprocessor_tpu``) may be loaded.  Then come the line
 ``{"kernels": [...]}`` (each kernel's launches on every path; per shape:
 times, bound and share of bound), the
@@ -155,11 +169,13 @@ CHAIN_SOURCE = "axctdprocessor_tpu_torch/ops/kernels/chain.cu"
 # wrapper in ops/chain.py that launches it and counts its launches
 CHAIN_REPLACES = {
     "chain_walk_segments": "axctdprocessor_tpu/ops/chain.py:248-329",
-    "chain_walk": "axctdprocessor_tpu/ops/chain.py:216-245",
+    "chain_walk_frames": "axctdprocessor_tpu/ops/chain.py:197-245",
 }
-CHAIN_WRAPPERS = {"chain_walk_segments": "chain_enumerate_strided", "chain_walk": "chain_walk"}
+CHAIN_WRAPPERS = {"chain_walk_segments": "chain_enumerate_strided",
+                  "chain_walk_frames": "chain_enumerate_frames"}
 # the kernels' names in a profiler trace (chain_walk_segments launches three)
-CHAIN_IN_TRACE = {"chain_walk_segments": "chain_segments_", "chain_walk": "chain_walk_kernel"}
+CHAIN_IN_TRACE = {"chain_walk_segments": "chain_segments_",
+                  "chain_walk_frames": "chain_frames_kernel"}
 KERNELS = ("tone_ratios",) + tuple(CHAIN_REPLACES)
 PATH_LAUNCHES: dict = {}  # path -> {kernel: launches}, every path this run drives
 
@@ -176,17 +192,24 @@ def _kernel_fns() -> dict:
 
 def zero_counts() -> None:
     """Every kernel's launch count to 0, just before a path is driven."""
+    from axctdprocessor_tpu_torch.ops import chain
+
     for fn in _kernel_fns().values():
         fn.launches = 0
+    chain.chain_walk.launches = 0
 
 
 def read_counts(path: str) -> dict:
     """Every kernel's launch count just after `path` ran; every path walks
     the bit-edge chain and frame-syncs, so each chain kernel must have been
-    launched at least once."""
+    launched at least once, and the general map's walk (jump tables and
+    ``chain_walk``) never."""
+    from axctdprocessor_tpu_torch.ops import chain
+
     got = {name: fn.launches for name, fn in _kernel_fns().items()}
     missing = [k for k in CHAIN_REPLACES if got[k] < 1]
     assert not missing, f"{path}: no launch of {missing}: {got}"
+    assert chain.chain_walk.launches == 0, f"{path}: frame sync launched chain_walk"
     PATH_LAUNCHES[path] = got
     return got
 
@@ -343,14 +366,8 @@ def _event_ms(fn, calls: int = 1) -> float:
 def _time_pair(kernel, plain, runs: int = 20, calls: int = 10) -> tuple[float, float]:
     """Median CUDA-event times per call of `kernel` and `plain` over `runs`
     runs of `calls` back-to-back calls each, in turns, after a warm-up."""
-    for _ in range(3):
-        kernel()
-        plain()
-    k_ms, p_ms = [], []
-    for _ in range(runs):
-        k_ms.append(_event_ms(kernel, calls))
-        p_ms.append(_event_ms(plain, calls))
-    return statistics.median(k_ms), statistics.median(p_ms)
+    ms = _time_turns({"kernel": kernel, "plain": plain}, runs, calls)
+    return ms["kernel"], ms["plain"]
 
 
 def _device_ms(fn, name: str, calls: int = 20):
@@ -578,22 +595,19 @@ def _record_chain_calls(drops: dict) -> dict:
     return {name: [(p, a) for p, a, _ in made] for name, made in calls.items()}
 
 
-def _chain_bound(name: str, rows: int, m: int, k: int) -> float:
-    """The least time in ms for the bytes a call must move at 3.35 TB/s (its
-    integer operations, a few per entry, take far less): the bit-edge chain
-    reads the (rows, m) int64 successor table once and writes the (rows, k)
-    int64 chain once; frame sync's walk writes k int64 entries per row and
-    reads the k jump-table entries that lead to them."""
-    if name == "chain_walk_segments":
-        nbytes = rows * (m + k) * 8
-    else:
-        nbytes = rows * k * 16
-    return 1e3 * nbytes / HBM_BYTES_PER_S
+def _chain_bound(rows: int, m: int, k: int) -> float:
+    """The least time in ms for the bytes a chain call must move at 3.35 TB/s
+    (its integer operations, a few per entry, take far less): the (rows, m)
+    int64 successor table read once and the (rows, k) int64 chain written
+    once."""
+    return 1e3 * rows * (m + k) * 8 / HBM_BYTES_PER_S
 
 
 def _chain_edge_cases(dev) -> list:
-    """(name, successor tables (B, m) int64 on the card, start, k, strided)
-    of the walks' edge cases and of the segment walk's seams."""
+    """(name, successor tables (B, m) int64 on the card, start, k, kind) of the
+    walks' edge cases and of the two segment walks' seams; kind "strided"
+    (``chain_enumerate_strided``), "frames" (``chain_enumerate_frames``) or
+    "jumps" (``chain_enumerate``, a general map)."""
     from axctdprocessor_tpu_torch.ops import chain
 
     rng = np.random.default_rng(3)
@@ -616,6 +630,19 @@ def _chain_edge_cases(dev) -> list:
                          np.iinfo(np.int32).max // 2)
         return chain.bit_edge_successors(card(cross), card(n_valid), 44100.0, 800.0)
 
+    def accepts(rows, n, density, runs=True):
+        # random accepts; with `runs`, a run of frames every 32 bits in each row
+        a = rng.random((rows, n)) < density
+        for r in range(rows if runs else 0):
+            s0 = int(rng.integers(0, n // 2))
+            a[r, s0: s0 + n // 3: 32] = True
+        return a
+
+    def frames(acc, n_bits):
+        # frame sync's successor table, built on the card as the decodes build it
+        _, _, succ = chain.frame_successors(torch.from_numpy(acc).to(dev), card(n_bits))
+        return succ
+
     early = strided(3, 6000)
     early[:, 40:60] = np.arange(40, 60)  # stalls a few steps in
     m4 = 2 * tile + 5 * seg
@@ -626,67 +653,131 @@ def _chain_edge_cases(dev) -> list:
     fixed[2, [tile - 4, tile - 1]] = tile - 1                   # a tile's last entry
     dead_beside = strided(3, 7000, stall=0.0)
     dead_beside[1] = np.arange(7000)
+    fseg = chain.FRAME_STRIDE
+    ftile = fseg * chain.FRAME_WARPS * chain.FRAME_SEGMENTS_PER_WARP
+    fm = 3 * ftile + 77
+    s32 = np.minimum(np.arange(fm) + fseg, fm - 1)  # enters every segment and tile at offset 0
+    fixed32 = np.stack([s32] * 3)
+    fixed32[0, 5 * fseg] = 5 * fseg                        # a warp's first lane
+    fixed32[1, [7 * fseg, 8 * fseg - 1]] = 8 * fseg - 1    # a warp's last lane, by a step of 31
+    fixed32[2, [ftile - fseg, ftile - 1]] = ftile - 1      # a tile's last entry
+    nb = 40000  # bits: cap 3,524
+    live = accepts(2, nb, 0.05)
     return [
-        ("k = 1", card(strided(2, 500)), 0, 1, True),
-        ("k = 2", card(strided(2, 500)), 0, 2, True),
-        ("k = 100 <= first (no tail)", card(strided(3, 2000)), 0, 100, True),
-        ("k = 128 = first", card(strided(3, 2000)), 0, 128, True),
-        ("k = 1000, not a multiple of first", card(strided(3, 5000)), 0, 1000, True),
-        ("dead table (all fixed points)", card(np.tile(np.arange(4000), (2, 1))), 0, 3000, True),
-        ("early stalls", card(early), 0, 5000, True),
+        ("k = 1", card(strided(2, 500)), 0, 1, "strided"),
+        ("k = 2", card(strided(2, 500)), 0, 2, "strided"),
+        ("k = 100 <= first (no tail)", card(strided(3, 2000)), 0, 100, "strided"),
+        ("k = 128 = first", card(strided(3, 2000)), 0, 128, "strided"),
+        ("k = 1000, not a multiple of first", card(strided(3, 5000)), 0, 1000, "strided"),
+        ("dead table (all fixed points)", card(np.tile(np.arange(4000), (2, 1))), 0, 3000,
+         "strided"),
+        ("early stalls", card(early), 0, 5000, "strided"),
         ("4 rows of true lengths 20000, 15000, 3000, 0 (tails BIG-padded)",
-         crossing_rows(20000, [20000, 15000, 3000, 0]), 0, 12000, True),
+         crossing_rows(20000, [20000, 15000, 3000, 0]), 0, 12000, "strided"),
         ("jumps: k = 50 <= first", card(np.minimum(np.arange(3000) + rng.integers(0, 9, (3, 3000)),
-                                                   2999)), 0, 50, False),
+                                                   2999)), 0, 50, "jumps"),
         ("jumps: k = 1000, a dead row", card(np.stack([
             np.minimum(np.arange(3000) + rng.integers(0, 9, 3000), 2999), np.arange(3000)])),
-         0, 1000, False),
-        ("seam: stride 4 onto every segment boundary", card(step4[None]), 0, m4, True),
+         0, 1000, "jumps"),
+        ("seam: stride 4 onto every segment boundary", card(step4[None]), 0, m4, "strided"),
         ("seam: fixed points on a segment's first and last entry and a tile's last",
-         card(fixed), 0, m4, True),
-        ("seam: start inside a segment, stride 4", card(step4[None]), seg + 3, m4, True),
-        ("seam: m < one segment", card(strided(2, seg // 2)), 0, 40, True),
+         card(fixed), 0, m4, "strided"),
+        ("seam: start inside a segment, stride 4", card(step4[None]), seg + 3, m4, "strided"),
+        ("seam: m < one segment", card(strided(2, seg // 2)), 0, 40, "strided"),
         ("seam: m no multiple of a segment", card(strided(2, 3 * tile + 77, stall=0.0)), 0, 10000,
-         True),
-        ("seam: k longer than the chain", card(strided(2, 6000, stall=0.01)), 0, 6000, True),
-        ("seam: a dead row beside live ones", card(dead_beside), 0, 5000, True),
+         "strided"),
+        ("seam: k longer than the chain", card(strided(2, 6000, stall=0.01)), 0, 6000, "strided"),
+        ("seam: a dead row beside live ones", card(dead_beside), 0, 5000, "strided"),
         ("seam: 64 rows of true lengths 0 to 20000",
-         crossing_rows(20000, np.linspace(0, 20000, 64).astype(np.int64)), 0, 12000, True),
+         crossing_rows(20000, np.linspace(0, 20000, 64).astype(np.int64)), 0, 12000, "strided"),
+        ("frame seam: stride 32 onto every segment and tile boundary", card(s32[None]), 0, fm,
+         "frames"),
+        ("frame seam: fixed points on a warp's first and last lane and a tile's last entry",
+         card(fixed32), 0, fm, "frames"),
+        ("frame seam: start inside a segment, stride 32", card(s32[None]), fseg + 5, 400, "frames"),
+        ("frame seam: cap < 32", frames(accepts(2, 20, 0.3, runs=False), [20, 15]), 0, 12,
+         "frames"),
+        ("frame seam: cap no multiple of a segment", card(np.minimum(
+            np.arange(fm) + rng.integers(1, fseg + 1, (2, fm)), fm - 1)), 0, 2000, "frames"),
+        ("frame seam: a dead row (no accept) beside live rows", frames(
+            np.stack([live[0], np.zeros(nb, bool), live[1]]), [nb] * 3), 0, nb // 32 + 2, "frames"),
+        ("frame seam: accepts overflowing cap", frames(accepts(2, nb, 0.9, runs=False),
+                                                       [nb, nb - 1000]), 0, 2000, "frames"),
+        ("frame seam: k = 1", frames(live, [nb, nb]), 0, 1, "frames"),
+        ("frame seam: k longer than the chain", frames(accepts(2, nb, 0.01), [nb, 30000]), 0, 3000,
+         "frames"),
+        ("frame seam: 64 rows of different kept accepts", frames(
+            accepts(64, nb, 0.05), np.linspace(0, nb, 64).astype(np.int64)), 0, 1300, "frames"),
     ]
 
 
+def _time_turns(fns: dict, runs: int = 5, calls: int = 2) -> dict:
+    """Median CUDA-event ms per call of each function over `runs` runs of
+    `calls` back-to-back calls, the functions in turns, after a warm-up."""
+    for fn in fns.values():
+        fn()
+        fn()
+    ms = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            ms[name].append(_event_ms(fn, calls))
+    return {name: statistics.median(v) for name, v in ms.items()}
+
+
+def _device_total_ms(fn, calls: int = 10):
+    """Device time per call of everything `fn` runs on the card (kernels,
+    fills, copies), from ``torch.profiler``'s device events (None if it
+    records none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    return total / calls / 1e3 if total else None
+
+
+def _empty_kernel() -> None:
+    """One launch of a kernel that does nothing (``torch.cuda._sleep(0)``):
+    the launch floor."""
+    torch.cuda._sleep(0)
+
+
 def _chain_timed(calls: dict):
-    """(kernel, shape, facts, kernel call, plain call) of every distinct call
-    of the 600 s monolithic decode and the batches of 8 and 64 rows."""
+    """(kernel, shape, facts, {version: call}) of every distinct call of the
+    600 s monolithic decode and the batches of 8 and 64 rows: the kernel's
+    wrapper and its plain version; for the frame walk also the jump-table walk
+    it replaced (jump tables + ``chain_walk``: ``chain_enumerate``) and its jump tables
+    alone (``jump_levels``)."""
     from axctdprocessor_tpu_torch.ops import chain
 
+    versions = {"chain_walk_segments": (chain.chain_enumerate_strided,
+                                        chain.chain_enumerate_strided_reference),
+                "chain_walk_frames": (chain.chain_enumerate_frames, chain.chain_enumerate_reference)}
     for path in ("600 s", "batch 8 x 60 s", "batch 64 x 60 s"):
-        for name, kernel, plain in (
-                ("chain_walk_segments", chain.chain_enumerate_strided,
-                 chain.chain_enumerate_strided_reference),
-                ("chain_walk", chain.chain_walk, chain.chain_walk_reference)):
+        for name, (kernel, plain) in versions.items():
             seen = set()
             for p, a in calls[name]:
                 if p != path:
                     continue
-                if name == "chain_walk":
-                    lv, start, k, first = a
-                    _, rows, m = lv.shape
-                    steps = max(-(-(k - first) // first), 0)
-                    meta = dict(first=first, steps=steps)
-                    shape = f"{path}: ({rows}, {m}) tables, k = {k}, first = {first}"
-                else:
-                    nxt, start, k = a
-                    rows, m = nxt.shape
-                    meta = {}
-                    shape = f"{path}: ({rows}, {m}) int64 successors, k = {k}"
+                nxt, start, k = a[:3]
+                m = nxt.shape[-1]
+                rows = nxt.numel() // m
                 if (rows, m, k) in seen:
                     continue
                 seen.add((rows, m, k))
-                yield (name, shape,
-                       dict(rows=rows, m=m, k=k, bound_ms=_chain_bound(name, rows, m, k), **meta),
-                       lambda a=a, kernel=kernel: kernel(*a),
-                       lambda a=a, plain=plain: plain(*a))
+                what = "int64 successors" if name == "chain_walk_segments" else "frame successors"
+                fns = {"kernel": lambda a=a, f=kernel: f(*a), "plain": lambda a=a, f=plain: f(*a)}
+                if name == "chain_walk_frames":
+                    fns["jump_walk"] = lambda a=a: chain.chain_enumerate(*a)
+                    fns["jump_tables"] = lambda a=a: chain.jump_levels(a[0], a[2])
+                yield (name, f"{path}: ({rows}, {m}) {what}, k = {k}",
+                       dict(rows=rows, m=m, k=k, bound_ms=_chain_bound(rows, m, k)), fns)
 
 
 def phase2b_chain(drops: dict) -> dict:
@@ -697,56 +788,71 @@ def phase2b_chain(drops: dict) -> dict:
     rows time-sharded, as batches of 8 and 64 and pipelined, and the
     frame-sync tables of the same decodes), then at the edge cases and seams.
     Times per call (CUDA events, warm, kernel and plain in turns), the bound
-    and the share of it."""
+    and the share of it; for the frame walk also the jump-table walk's whole
+    call and the launch floor."""
     from axctdprocessor_tpu_torch.ops import chain
 
     calls = _record_chain_calls(drops)
-    kernel = {"chain_walk_segments": chain.chain_enumerate_strided, "chain_walk": chain.chain_walk}
+    kernel = {name: getattr(chain, wrapper) for name, wrapper in CHAIN_WRAPPERS.items()}
     plain = {"chain_walk_segments": chain.chain_enumerate_strided_reference,
-             "chain_walk": chain.chain_walk_reference}
+             "chain_walk_frames": chain.chain_enumerate_reference}
     out = {name: [] for name in kernel}
-    n_rows = 0
+    n_rows = {name: 0 for name in kernel}
     for name, recorded in calls.items():
         assert recorded, f"the main paths made no {name} call"
         for path, args in recorded:  # every recorded call, bit for bit
             got, want = kernel[name](*args), plain[name](*args)
             assert got.dtype == want.dtype and torch.equal(got, want), f"{name} differs: {path}"
-            if name == "chain_walk_segments" and got.dim() == 2:
+            if name == "chain_walk_frames":  # and jump tables + chain_walk
+                assert torch.equal(chain.chain_enumerate(*args), got), f"{name} vs chain_walk: {path}"
+            if got.dim() == 2:
                 for r in range(got.shape[0]):  # each row alone, as a 1-D call
-                    assert torch.equal(kernel[name](args[0][r], *args[1:]), got[r]), (path, r)
-                n_rows += got.shape[0]
-    for name, shape, meta, run_kernel, run_plain in _chain_timed(calls):
-        km, pm = _time_pair(run_kernel, run_plain, runs=5, calls=2)
-        out[name].append(dict(shape=shape, ms=km, plain_ms=pm, share_of_bound=meta["bound_ms"] / km,
-                              device_ms=None, **meta))
+                    assert torch.equal(kernel[name](args[0][r], *args[1:]), got[r]), (name, path, r)
+                n_rows[name] += got.shape[0]
+    floor = _time_turns({"empty": _empty_kernel}, runs=5, calls=10)["empty"]
+    for name, shape, meta, fns in _chain_timed(calls):
+        timed = fns if name == "chain_walk_frames" else {
+            v: fns[v] for v in ("kernel", "plain")}
+        ms = _time_turns({v: fn for v, fn in timed.items() if v != "jump_tables"})
+        rec = dict(shape=shape, ms=ms["kernel"], plain_ms=ms["plain"],
+                   share_of_bound=meta["bound_ms"] / ms["kernel"], device_ms=None, **meta)
+        if name == "chain_walk_frames":
+            rec.update(jump_walk_ms=ms["jump_walk"], launch_floor_ms=floor,
+                       share_of_floor=floor / ms["kernel"])
+        out[name].append(rec)
     for name, recs in out.items():
         for r in recs:
             log(f"[2b] {name} {r['shape']}: bit for bit equal to the plain version; kernel "
-                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.2f} "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.3f} "
                 f"us (bytes), share of bound {r['share_of_bound']:.4f}"
-                + (f"; {r['steps']} dependent steps, {1e3 * r['ms'] / max(r['steps'], 1):.3f} "
-                   "us per step" if "steps" in r else ""))
+                + (f"; jump tables + chain_walk {r['jump_walk_ms']:.4f} ms; an empty kernel "
+                   f"{r['launch_floor_ms']:.4f} ms, share of that floor {r['share_of_floor']:.3f}"
+                   if "jump_walk_ms" in r else ""))
     n_calls = {name: len(c) for name, c in calls.items()}
     paths = sorted({p for c in calls.values() for p, _ in c})
     log(f"[2b] every recorded call of the main paths ({'; '.join(paths)}) bit for bit equal "
-        f"to its plain version: {n_calls}; {n_rows} rows of the batched bit-edge calls each "
-        "equal to its 1-D call")
+        f"to its plain version: {n_calls}, each frame walk also to jump tables + chain_walk; "
+        f"rows of the batched calls each equal to its 1-D call: {n_rows}")
     dev = torch.device("cuda")
-    for case, nxt, start, k, strided in _chain_edge_cases(dev):
-        if strided:
-            got = chain.chain_enumerate_strided(nxt, start, k)
-            want = chain.chain_enumerate_strided_reference(nxt, start, k)
-        else:
-            got = chain.chain_enumerate(nxt, start, k)
-            want = chain.chain_enumerate_reference(nxt, start, k)
+    wrapper = {"strided": (chain.chain_enumerate_strided, chain.chain_enumerate_strided_reference),
+               "frames": (chain.chain_enumerate_frames, chain.chain_enumerate_reference),
+               "jumps": (chain.chain_enumerate, chain.chain_enumerate_reference)}
+    for case, nxt, start, k, kind in _chain_edge_cases(dev):
+        run, ref = wrapper[kind]
+        before = run.launches if kind != "jumps" else chain.chain_walk.launches
+        got = run(nxt, start, k)
+        launched = (run.launches if kind != "jumps" else chain.chain_walk.launches) - before
+        assert launched == {"strided": 3, "frames": 1, "jumps": 1}[kind], (case, launched)
+        want = ref(nxt, start, k)
         assert got.shape == (nxt.shape[0], k) and torch.equal(got, want), case
+        if kind == "frames":
+            assert torch.equal(chain.chain_enumerate(nxt, start, k), got), case
         for r in range(nxt.shape[0]):  # each row alone, as a 1-D call
-            one = (chain.chain_enumerate_strided if strided else chain.chain_enumerate)(
-                nxt[r], start, k)
-            assert torch.equal(one, got[r]), (case, r)
-        log(f"[2b] edge case {'strided' if strided else 'full jump table'}, {case}: "
-            f"{tuple(nxt.shape)}, start {start} -> {tuple(got.shape)} bit for bit equal to the "
-            "plain version, every row equal to its 1-D call")
+            assert torch.equal(run(nxt[r], start, k), got[r]), (case, r)
+        log(f"[2b] edge case ({kind}) {case}: {tuple(nxt.shape)}, start {start} -> "
+            f"{tuple(got.shape)} bit for bit equal to the plain version"
+            + (" and to jump tables + chain_walk" if kind == "frames" else "")
+            + ", every row equal to its 1-D call")
     return out
 
 
@@ -765,9 +871,11 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict) -> None:
     raw, fs = seg["raw"], seg["fs"]
     log("[10] 600 s segmented decode: "
         + profile_run(lambda: segmented.decode_waveform_segmented(raw, fs, device="cuda")))
-    log("[10] 600 s monolithic decode: "
-        + profile_run(lambda: engine.decode_waveform(raw, fs, device="cuda",
-                                                     mode="monolithic")))
+    with _frame_sync_watched() as frame_calls:
+        log("[10] 600 s monolithic decode: "
+            + profile_run(lambda: engine.decode_waveform(raw, fs, device="cuda",
+                                                         mode="monolithic")))
+    _frame_sync_alone(frame_calls)
     mesh = make_mesh({"dp": 1, "sp": 4}, [torch.device("cuda", 0)] * 4)
     log("[10] 600 s time-sharded decode, dp 1 x sp 4 on the one card: "
         + profile_run(lambda: timeshard.decode_batch_timesharded(raw[None], fs, mesh=mesh)))
@@ -794,15 +902,85 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict) -> None:
     # the chain kernels: the main paths' arguments recorded anew (phase 2b
     # kept none, so that no phase between held them on the card)
     recs = {name: iter(r) for name, r in ck.items()}
-    for name, shape, meta, run_kernel, _ in _chain_timed(_record_chain_calls(drops)):
+    floor = _device_total_ms(_empty_kernel, calls=20)
+    log("[10] an empty kernel (torch.cuda._sleep(0)), the launch floor: device "
+        + ("not measured" if floor is None else f"{floor:.4f} ms"))
+    for name, shape, meta, fns in _chain_timed(_record_chain_calls(drops)):
         rec = next(recs[name])
         assert rec["shape"] == shape, (rec["shape"], shape)
-        rec["device_ms"] = _device_ms(run_kernel, CHAIN_IN_TRACE[name], calls=10)
-        log(f"[10] {name} {shape}: device " + (
-            "not measured" if rec["device_ms"] is None else
-            f"{rec['device_ms']:.4f} ms, share of bound {meta['bound_ms'] / rec['device_ms']:.4f}"
-            + (f", {1e3 * rec['device_ms'] / max(meta['steps'], 1):.3f} us per dependent step"
-               if "steps" in meta else "")))
+        rec["device_ms"] = _device_ms(fns["kernel"], CHAIN_IN_TRACE[name], calls=10)
+        text = ("not measured" if rec["device_ms"] is None else
+                f"{rec['device_ms']:.4f} ms, share of bound {meta['bound_ms'] / rec['device_ms']:.4f}")
+        if name == "chain_walk_frames":
+            rec.update(call_device_ms=_device_total_ms(fns["kernel"]),
+                       jump_walk_device_ms=_device_total_ms(fns["jump_walk"]),
+                       jump_tables_device_ms=_device_total_ms(fns["jump_tables"]),
+                       launch_floor_device_ms=floor)
+            text += "; " + "; ".join(f"{what} {_ms_text(rec[key])}" for what, key in (
+                ("the whole call (the flags' fill too)", "call_device_ms"),
+                ("the jump-table walk's whole call (jump tables + chain_walk)", "jump_walk_device_ms"),
+                ("its jump tables alone (jump_levels)", "jump_tables_device_ms"),
+                ("an empty kernel", "launch_floor_device_ms")))
+        log(f"[10] {name} {shape}: device {text}")
+
+
+def _ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+@contextlib.contextmanager
+def _frame_sync_watched():
+    """While the block runs: every ``enumerate_frames`` call's arguments
+    recorded (yielded list), and ``jump_levels`` counted; no frame-sync call on
+    the card may build jump tables."""
+    from axctdprocessor_tpu_torch.ops import chain
+
+    made, tables = [], [0]
+    enumerate_frames, jump_levels = chain.enumerate_frames, chain.jump_levels
+
+    def recorded(*args, **kwargs):
+        made.append((args, kwargs))
+        return enumerate_frames(*args, **kwargs)
+
+    def counted(*args, **kwargs):
+        tables[0] += 1
+        return jump_levels(*args, **kwargs)
+
+    chain.enumerate_frames, chain.jump_levels = recorded, counted
+    try:
+        yield made
+    finally:
+        chain.enumerate_frames, chain.jump_levels = enumerate_frames, jump_levels
+    assert made, "no frame-sync call recorded"
+    assert tables[0] == 0, f"frame sync built jump tables {tables[0]} times"
+
+
+def _frame_sync_alone(frame_calls: list) -> None:
+    """The largest recorded frame-sync call (the 600 s profile's) alone under
+    the profiler: its launches and its gather kernels (``jump_levels`` made six
+    of them a call before its tables were dropped; PyTorch's gather and
+    scatter share a kernel, so the frame starts' gather and the compaction's
+    scatter count here too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from axctdprocessor_tpu_torch.ops import chain
+
+    args, kwargs = max(frame_calls, key=lambda c: c[0][0].shape[-1])
+    chain.enumerate_frames(*args, **kwargs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chain.enumerate_frames(*args, **kwargs)
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for e in events)
+    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    gathers = sum("gather" in name.lower() for name in kernels)
+    frames = sum(CHAIN_IN_TRACE["chain_walk_frames"] in name for name in kernels)
+    log(f"[10] frame sync of the 600 s profile alone (enumerate_frames, {len(frame_calls)} calls "
+        f"in the decode, none built jump tables): {launches} kernel launches, {len(kernels)} "
+        f"device activities, of them {gathers} gather kernels and {frames} chain_walk_frames")
+    assert frames == 1, kernels
 
 
 def _agreement(a, b) -> float:
@@ -1060,7 +1238,7 @@ def phase9_batch(drops: dict) -> dict:
             # per batch: one tone-ratio launch, the bit-edge chain's three,
             # three frame-sync walks (the profile's and the two headers')
             assert counts["tone_ratios"] == 1, counts
-            assert counts["chain_walk_segments"] == 3 and counts["chain_walk"] == 3, counts
+            assert counts["chain_walk_segments"] == 3 and counts["chain_walk_frames"] == 3, counts
         wall = time.perf_counter() - t0
         check(kept[name], len(rows))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30

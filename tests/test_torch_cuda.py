@@ -422,7 +422,8 @@ def test_chain_enumerate_strided_kernel_seams():
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,m,k", [(1, 38_528, 18_760), (8, 4_778, 1_884), (3, 3000, 50)])
 def test_chain_enumerate_kernel_vs_plain(rows, m, k):
-    """The frame-sync walk over full jump tables: bit for bit, one launch."""
+    """The walk of a general map over full jump tables: bit for bit, one
+    launch."""
     _need_cuda()
     from axctdprocessor_tpu_torch.ops import chain
 
@@ -434,6 +435,81 @@ def test_chain_enumerate_kernel_vs_plain(rows, m, k):
     got = chain.chain_enumerate(nxt, 0, k)
     assert chain.chain_walk.launches == before + 1
     assert torch.equal(got, chain.chain_enumerate_reference(nxt, 0, k))
+
+
+def _frame_table(rows: int, n: int, k: int, density: float = 0.05) -> torch.Tensor:
+    """Frame sync's successor table on the card, built as the decodes build
+    it from random accepts with a run of frames every 32 bits; rows cut short
+    at different n_bits, the last one with no accept at all."""
+    from axctdprocessor_tpu_torch.ops import chain
+
+    rng = np.random.default_rng(k)
+    acc = rng.random((rows, n)) < density
+    for r in range(rows):
+        s0 = int(rng.integers(0, n // 2))
+        acc[r, s0: s0 + n // 3: 32] = True
+    n_bits = np.linspace(n, n // 3, rows).astype(np.int64)
+    if rows > 1:
+        acc[-1] = False
+    _, _, succ = chain.frame_successors(torch.from_numpy(acc).cuda(),
+                                        torch.from_numpy(n_bits).cuda())
+    return succ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,k", [
+    (1, 600_064, 18_760),   # the 600 s drop's profile frames: cap 38,528
+    (8, 60_064, 1_885),     # 8 rows of 60 s: cap 4,778
+    (64, 60_064, 1_885),
+    (1, 2_400, 77),         # a header window: cap 1,174
+    (8, 2_400, 77),
+    (3, 20, 12),            # cap < 32
+    (2, 40_000, 1),
+    (2, 40_000, 3_000),     # k longer than the chain
+])
+def test_chain_enumerate_frames_kernel_vs_plain(rows, n, k):
+    """Frame sync's walk: bit for bit the plain version and the jump-table
+    walk, one launch of ``chain_walk_frames`` per call and no ``chain_walk``,
+    each row equal to its 1-D call."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops import chain
+
+    succ = _frame_table(rows, n, k)
+    before, walks = chain.chain_enumerate_frames.launches, chain.chain_walk.launches
+    got = chain.chain_enumerate_frames(succ, 0, k)
+    assert chain.chain_enumerate_frames.launches == before + 1
+    assert chain.chain_walk.launches == walks
+    assert got.shape == (rows, k)
+    assert torch.equal(got, chain.chain_enumerate_reference(succ, 0, k))
+    assert torch.equal(got, chain.chain_enumerate(succ, 0, k))
+    for r in range(rows):
+        assert torch.equal(chain.chain_enumerate_frames(succ[r], 0, k), got[r])
+
+
+@pytest.mark.cuda
+def test_chain_enumerate_frames_kernel_seams():
+    """The frame walk's seams: a stride of 32 that enters every segment and
+    tile at offset 0, fixed points on a warp's first and last lane and a
+    tile's last entry, a start inside a segment, a table that is no multiple
+    of a segment, accepts that overflow the capacity."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops import chain
+
+    seg = chain.FRAME_STRIDE
+    tile = seg * chain.FRAME_WARPS * chain.FRAME_SEGMENTS_PER_WARP
+    m = 3 * tile + 77
+    s32 = np.minimum(np.arange(m) + seg, m - 1)
+    rows = np.stack([s32] * 4)
+    rows[1, 5 * seg] = 5 * seg
+    rows[2, [7 * seg, 8 * seg - 1]] = 8 * seg - 1
+    rows[3, [tile - seg, tile - 1]] = tile - 1
+    succ = torch.from_numpy(rows).cuda()
+    for start, k in ((0, m), (0, 1), (seg + 5, 400), (tile + 1, 5000)):
+        got = chain.chain_enumerate_frames(succ, start, k)
+        assert torch.equal(got, chain.chain_enumerate_reference(succ, start, k)), (start, k)
+    over = _frame_table(2, 40_000, 2_000, density=0.9)
+    assert torch.equal(chain.chain_enumerate_frames(over, 0, 2_000),
+                       chain.chain_enumerate_reference(over, 0, 2_000))
 
 
 @pytest.mark.cuda
