@@ -156,11 +156,11 @@ def zero_phase_decimate2(x: torch.Tensor, decim_sos: torch.Tensor,
                          nfft: int) -> torch.Tensor:
     """The order-8 Chebyshev-I anti-alias response applied as |H|^2 in the
     FFT domain (zero phase, scipy.signal.decimate for >50 kHz inputs), then
-    a stride-2 slice; unmasked."""
+    a stride-2 slice, along the last dimension (rows as ``apply_response``
+    takes them); unmasked."""
     h = sos_response_on_device(decim_sos, nfft)
     zero_phase = (h * torch.conj(h)).real
-    spec = torch.fft.rfft(x, nfft) * zero_phase
-    return torch.fft.irfft(spec, nfft)[: x.shape[0]][::2]
+    return apply_response(x, zero_phase, nfft)[..., : x.shape[-1]][..., ::2]
 
 
 def decimate2_on_device(x: torch.Tensor, n_valid, decim_sos: torch.Tensor):
@@ -175,10 +175,30 @@ def decimate2_on_device(x: torch.Tensor, n_valid, decim_sos: torch.Tensor):
 BIG = torch.iinfo(torch.int32).max // 2  # fill of empty crossing slots
 
 
+# Whether the FFT filter transforms a batch one row per call, by device
+# type: a row of a batch must be the row alone bit for bit.  cuFFT filters
+# every row of a (B, nfft) call bit for bit as the row alone (measured on an
+# H100 at the decodes' sizes: chip_smoke.py phase 2c, PERF.md), so the card
+# transforms a batch in one call.  pocketfft (the CPU) vectorises across the
+# rows of a call and rounds a row of a batch otherwise: the CPU goes row by
+# row.
+FFT_ROW_BY_ROW = {"cpu": True, "cuda": False}
+
+
+def _response_rows(x: torch.Tensor, response: torch.Tensor, nfft: int) -> torch.Tensor:
+    return torch.fft.irfft(torch.fft.rfft(x, nfft) * response, nfft)
+
+
 def apply_response(x: torch.Tensor, response: torch.Tensor, nfft: int) -> torch.Tensor:
     """`x` filtered in the FFT domain over `nfft` points by a response at
-    the rfft bins (``sos_response_on_device``)."""
-    return torch.fft.irfft(torch.fft.rfft(x, nfft) * response, nfft)
+    the rfft bins (``sos_response_on_device``), along the last dimension:
+    (..., nfft) from (..., n).  Leading dimensions are rows of a batch, in
+    one FFT call or row by row (``FFT_ROW_BY_ROW``)."""
+    if x.dim() < 2 or not FFT_ROW_BY_ROW.get(x.device.type, False):
+        return _response_rows(x, response, nfft)
+    rows = x.reshape(-1, x.shape[-1])
+    out = torch.stack([_response_rows(row, response, nfft) for row in rows])
+    return out.reshape(x.shape[:-1] + (nfft,))
 
 
 def fft_filter(x: torch.Tensor, sos: torch.Tensor, nfft: int) -> torch.Tensor:
@@ -193,14 +213,22 @@ def find_crossings(filtered: torch.Tensor, length: int, g_off, n_valid,
     i + 1, i in [0, length), kept where the global position ``i + g_off``
     lies in [edge_pad, n_valid - 1) (no bit edges in a zero-padded tail),
     compacted with the per-row cap.  A crossing past the last sample of
-    `filtered` does not exist.  Returns (local positions int64[size], then
-    ``BIG``; the exact count; the row-overflow flag)."""
+    `filtered` does not exist.  `filtered` is one row (..., >= length) or
+    rows along leading dimensions, with `g_off` and `n_valid` scalars or
+    one per row.  Returns (local positions int64 (..., size), then ``BIG``;
+    the exact counts; the row-overflow flags)."""
     nonneg = filtered >= 0
-    nxt = nonneg[1: length + 1]
-    if nxt.shape[0] < length:
-        nxt = torch.cat([nxt, nonneg[length - 1: length]])
-    gpos = torch.arange(length, device=filtered.device) + g_off
-    is_cross = (nonneg[:length] != nxt) & (gpos >= edge_pad) & (gpos < n_valid - 1)
+    nxt = nonneg[..., 1: length + 1]
+    if nxt.shape[-1] < length:
+        nxt = torch.cat([nxt, nonneg[..., length - 1: length]], -1)
+    lead = filtered.dim() - 1
+
+    def per_row(v):  # a scalar, or one value per row along the last axis
+        return v[..., None] if isinstance(v, torch.Tensor) and v.dim() == lead > 0 else v
+
+    gpos = torch.arange(length, device=filtered.device) + per_row(g_off)
+    is_cross = ((nonneg[..., :length] != nxt) & (gpos >= edge_pad)
+                & (gpos < per_row(n_valid) - 1))
     return chain_ops.compact_indices_rowcap(
         is_cross, size, BIG, row_cap=chain_ops.rowcap_for_fs(fs))
 
@@ -209,9 +237,10 @@ def probe_ratio(filtered: torch.Tensor, starts: torch.Tensor, npcm: int,
                 bit_trig: torch.Tensor) -> torch.Tensor:
     """Per-bit confidence ratio ``space / max(mark, 1e-30)`` of the
     `npcm`-sample windows at `starts`: one stream carries both the bit
-    decision and the calibration histogram (``stage15_core``)."""
-    probes = goertzel.tone_power_at(filtered, starts, npcm, bit_trig)
-    return probes[:, 1] / torch.clamp(probes[:, 0], min=1e-30)
+    decision and the calibration histogram (``stage15_core``); one row or a
+    batch (``goertzel.probe_at``)."""
+    probes = goertzel.probe_at(filtered, starts, npcm, bit_trig)
+    return probes[..., 1] / torch.clamp(probes[..., 0], min=1e-30)
 
 
 def demod_core(x: torch.Tensor, sos: torch.Tensor, bit_trig: torch.Tensor,
@@ -221,25 +250,26 @@ def demod_core(x: torch.Tensor, sos: torch.Tensor, bit_trig: torch.Tensor,
     bit-edge chain and per-bit mark (``s1``) and space (``s2``) powers over
     the inset window.
 
-    `x` is one waveform (n,) or a batch (B, n) with (B,) ``n_valid``.  The
-    filter, the crossings and the probes run row by row (a batched FFT or
-    probe product may round differently with the batch size); the bit-edge
-    chain, integer throughout, runs over the whole batch at once (one walk
-    launch on the card)."""
+    `x` is one waveform (n,) or a batch (B, n) with (B,) ``n_valid``: the
+    B = 1 case and the batch are one pass over (B, n) rows, with no loop
+    over rows (the JAX package's ``jax.vmap`` of stage 1).  The filter goes
+    through :func:`apply_response` (one FFT call for the batch on the card,
+    where cuFFT filters a row of a batch bit for bit as the row alone), the
+    crossings' compaction is integer, and the probes are
+    ``goertzel.probe_at`` (a fixed order of sums per probe): each row of a
+    batch is the row alone bit for bit.  The bit-edge chain of all rows is
+    one walk launch on the card."""
     nfft = iir.next_pow2(dims.n + 4096)
     response = sos_response_on_device(sos, nfft)
     rows, nv = x.reshape(-1, x.shape[-1]), n_valid.reshape(-1)
-    filtered = [apply_response(r, response, nfft)[: dims.n].to(x.dtype) for r in rows]
-    crossings, n_cross, rovf = (torch.stack(c) for c in zip(*[
-        find_crossings(f, dims.n, 0, nv[b], edge_pad, dims.max_crossings, fs)
-        for b, f in enumerate(filtered)]))
+    filtered = apply_response(rows, response, nfft)[:, : dims.n].to(x.dtype)
+    crossings, n_cross, rovf = find_crossings(filtered, dims.n, 0, nv, edge_pad,
+                                              dims.max_crossings, fs)
     edge_idx, n_edges = chain_ops.enumerate_bit_edges(
         crossings, n_cross, fs, bitrate, dims.max_edges)
     edge_samples = torch.gather(crossings, -1,
                                 torch.clamp(edge_idx, 0, dims.max_crossings - 1))
-    probes = torch.stack([goertzel.tone_power_at(f, edge_samples[b] + bit_inset,
-                                                 dims.npcm, bit_trig)
-                          for b, f in enumerate(filtered)])
+    probes = goertzel.probe_at(filtered, edge_samples + bit_inset, dims.npcm, bit_trig)
     overflow = (n_cross > dims.max_crossings).to(torch.int32) | rovf
     out = dict(edge_samples=edge_samples, n_edges=n_edges, s1=probes[..., 0],
                s2=probes[..., 1], overflow=overflow)
@@ -560,10 +590,10 @@ def stage1_core(pcm, n_valid, power_trig, sos, bit_trig, dims: EngineDims,
     Returns ``r400``, ``r7500``, ``edge_samples``, ``n_edges``, the per-bit
     mark and space powers ``s1`` and ``s2``, and ``overflow``: what
     :func:`batched_back_half` takes.  A (B, N) batch with (B,) ``n_valid``
-    is conditioned as one tensor, its tone ratios are ONE kernel launch and
-    its bit-edge chains one walk; the filter, crossings and probes run row
-    by row (:func:`demod_core`), with no host sync, and every output gains
-    a leading batch dimension."""
+    is conditioned as one tensor, its tone ratios are ONE kernel launch, and
+    the demod front end (:func:`demod_core`: filter, crossings, bit-edge
+    chains, probes) one pass over the rows, with no host sync; every
+    output gains a leading batch dimension."""
     x = conditioned(pcm, n_valid)
     ratios = tonepower.tone_ratios if use_kernel else tonepower.tone_ratios_reference
     r400, r7500 = ratios(x.to(torch.float32).contiguous(), power_trig,

@@ -134,32 +134,38 @@ def rowcap_for_fs(fs: float) -> int:
 
 def compact_indices_rowcap(mask: torch.Tensor, size: int, fill: int,
                            row_cap: int = 16):
-    """Crossing-mask compaction with a per-128-row survivor cap.
+    """Crossing-mask compaction with a per-128-row survivor cap, along the
+    last dimension (leading dimensions are rows of a batch, each compacted
+    on its own).
 
-    Each row's ascending set positions come from one ``topk`` of
-    ``-lane``; rows keep at most `row_cap`.  Returns (indices int64[size],
-    exact true count, row_overflow int32 flag)."""
-    n = mask.shape[0]
+    Each 128-sample block's ascending set positions come from one ``topk``
+    of ``-lane``; blocks keep at most `row_cap`.  Returns (indices int64
+    (..., size), the exact true count (...), the row-overflow int32 flag
+    (...)); a 1-D mask gives int64[size] and two scalars.  Integer
+    throughout, so a row of a batch is exactly the 1-D call on it."""
+    *lead, n = mask.shape
     dev = mask.device
     b = 128
     n_blk = -(-n // b)
     m = torch.nn.functional.pad(mask.to(torch.int32), (0, n_blk * b - n))
-    m = m.reshape(n_blk, b)
-    lane = torch.arange(b, device=dev, dtype=torch.int32).expand(n_blk, b)
-    neg, _ = torch.topk(torch.where(m > 0, -lane, -(2 ** 30)), row_cap, dim=1)
-    lanes = -neg.to(torch.int64)                      # (n_blk, row_cap)
-    cnt = m.sum(dim=1, dtype=torch.int64)
-    total = cnt.sum()
-    row_ovf = (cnt.max() > row_cap).to(torch.int32)
+    m = m.reshape(-1, n_blk, b)
+    rows = m.shape[0]
+    lane = torch.arange(b, device=dev, dtype=torch.int32).expand(rows, n_blk, b)
+    neg, _ = torch.topk(torch.where(m > 0, -lane, -(2 ** 30)), row_cap, dim=-1)
+    lanes = -neg.to(torch.int64)                      # (rows, n_blk, row_cap)
+    cnt = m.sum(dim=-1, dtype=torch.int64)            # (rows, n_blk)
+    total = cnt.sum(-1)
+    row_ovf = (cnt.amax(-1) > row_cap).to(torch.int32)
     cntc = torch.clamp(cnt, max=row_cap)
-    coff = torch.cumsum(cntc, 0) - cntc
-    j = torch.arange(row_cap, device=dev).expand(n_blk, row_cap)
-    valid = j < cntc[:, None]
-    slot = torch.where(valid, coff[:, None] + j, size).clamp(max=size)
+    coff = torch.cumsum(cntc, -1) - cntc
+    j = torch.arange(row_cap, device=dev)
+    valid = j < cntc[..., None]
+    slot = torch.where(valid, coff[..., None] + j, size).clamp(max=size)
     base = torch.arange(n_blk, device=dev)[:, None] * b
-    out = torch.full((size + 1,), fill, dtype=torch.int64, device=dev)
-    out.scatter_(0, slot.reshape(-1), (lanes + base).reshape(-1))
-    return out[:size], total, row_ovf
+    out = torch.full((rows, size + 1), fill, dtype=torch.int64, device=dev)
+    out.scatter_(-1, slot.reshape(rows, -1), (lanes + base).reshape(rows, -1))
+    return (out[:, :size].reshape(*lead, size), total.reshape(lead),
+            row_ovf.reshape(lead))
 
 
 def _first(k: int, max_level: int) -> int:

@@ -9,10 +9,15 @@
   as one small matmul per stride-aligned table segment plus shifted adds
   (no (n_win, window) frame matrix).
 * :func:`tone_power_at` — tone power of short frames at arbitrary starts
-  (the bit edges): a row gather of the frames, then one matmul.  The JAX
-  version correlates at every sample and gathers the results, because TPU
-  gathers pay per element; on the GPU the (n_starts, window) gather is
-  small and the matmul stays out of cuDNN's TF32 convolutions.
+  (the bit edges), one row or a batch of rows: a row gather of the frames,
+  then one matmul.  The JAX version correlates at every sample and gathers
+  the results, because TPU gathers pay per element.  It is the plain
+  version of :func:`probe_at`.
+* :func:`probe_at` — the dispatcher of the per-bit probe: on a CPU tensor
+  :func:`tone_power_at`; on a CUDA tensor the hand-written sm_90a kernel
+  (``ops/kernels/probe.cu``: no (n_starts, window) gather, no index
+  tensor), adding one to ``probe_at.launches`` per launch.  A build or
+  launch failure raises; nothing falls back.
 
 Power is ``sqrt(re^2 + im^2)`` per tone.
 """
@@ -85,12 +90,42 @@ def framed_tone_power_tiled(x: torch.Tensor, window: int, stride: int,
 
 def tone_power_at(x: torch.Tensor, starts: torch.Tensor, window: int,
                   trig: torch.Tensor) -> torch.Tensor:
-    """Tone power of frames beginning at arbitrary indices: (len(starts), F).
+    """Tone power of frames beginning at arbitrary indices: (K, F) for one
+    row `x` (L,) and `starts` (K,), or (B, K, F) for rows (B, L) and starts
+    (B, K), each row's starts into its own row.
 
-    Starts are clamped into the waveform (callers mask invalid entries).
+    Starts are clamped into [0, L - window] (callers mask invalid entries).
     """
     trig = trig.to(x.dtype)
-    starts = starts.to(torch.int64).clamp(0, x.shape[0] - window)
+    rows = x.reshape(-1, x.shape[-1])
+    st = starts.to(torch.int64).clamp(0, x.shape[-1] - window).reshape(rows.shape[0], -1)
     offs = torch.arange(window, device=x.device)
-    frames = x[starts[:, None] + offs[None, :]]
-    return _magnitudes(frames @ trig)
+    frames = rows[torch.arange(rows.shape[0], device=x.device)[:, None, None],
+                  st[..., None] + offs]
+    return _magnitudes(frames @ trig).reshape(starts.shape + (trig.shape[1] // 2,))
+
+
+def probe_at(x: torch.Tensor, starts: torch.Tensor, window: int,
+             trig: torch.Tensor) -> torch.Tensor:
+    """Mark and space magnitudes of the `window`-sample frames of `x` at
+    `starts`: :func:`tone_power_at`'s function, (K, 2) or (B, K, 2), with
+    the (window, 4) table.  The plain version for a CPU tensor; the CUDA
+    kernel for a CUDA tensor (float32 `x` with its last dimension
+    contiguous; raises on anything else).  A call with no start launches
+    nothing."""
+    if x.device.type == "cpu":
+        return tone_power_at(x, starts, window, trig)
+    if x.device.type != "cuda":
+        raise ValueError(f"probe_at: unsupported device {x.device}")
+    if trig.shape != (window, 4):
+        raise ValueError(f"probe_at: the table must be ({window}, 4), got {tuple(trig.shape)}")
+    from .kernels import extension
+
+    out = extension().probe_at(x, starts.to(torch.int64).contiguous(),
+                               trig.to(torch.float32).contiguous())
+    if starts.numel():  # no start, no launch
+        probe_at.launches += 1
+    return out
+
+
+probe_at.launches = 0

@@ -1,5 +1,6 @@
-"""Build and load the port's hand-written CUDA kernels: the tone ratios
-(``tone_ratios.cu``) and the chain walks (``chain.cu``), one extension.
+"""Build and load the port's hand-written CUDA kernels: the tone ratios and
+their raw-powers variant (``tone_ratios.cu``), the per-bit probe
+(``probe.cu``) and the chain walks (``chain.cu``), one extension.
 
 The kernels are compiled from the sources in this directory at first use,
 with ``torch.utils.cpp_extension.load``, into ``axctdprocessor_tpu_torch/
@@ -16,7 +17,7 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "_build")
-SOURCES = ("binding.cpp", "tone_ratios.cu", "chain.cu")
+SOURCES = ("binding.cpp", "tone_ratios.cu", "probe.cu", "chain.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-// PyTorch binding of the hand-written kernels (tone_ratios.cu, chain.cu).
+// PyTorch binding of the hand-written kernels (tone_ratios.cu, probe.cu,
+// chain.cu).
 //
 // The only file that includes PyTorch's headers, so that nvcc compiles the
 // kernels without them.  Each function checks device, dtype, shape and
@@ -8,6 +9,14 @@
 // tone_ratios: ``x`` is one signal (n,) or a batch (rows, n); the outputs are
 // (n_win,) or (rows, n_win).  A refused launch: the table does not fit in
 // shared memory (rates above ~54 kHz, which the engines decimate first).
+//
+// tone_powers: the same kernel's raw powers, (n_win, 3) or (rows, n_win, 3),
+// of a (n,) or (rows, n) ``x`` whose last dimension is contiguous (rows may
+// lie further apart: a view of a wider tensor).
+//
+// probe_at: the (K, 2) or (rows, K, 2) mark and space magnitudes of the
+// frames of a (L,) or (rows, L) ``x`` (last dimension contiguous) at the
+// int64 ``starts`` of shape (K,) or (rows, K), against the (window, 4) table.
 //
 // chain_walk_segments: the bit-edge chain of a (rows, m) int64 successor
 // table, returned as the (rows, k) int64 chain; its scratch is one uint8
@@ -26,6 +35,12 @@ extern "C" int axctd_tone_ratios_launch(const float* x, int rows, long long n,
                                         const float* tm, int window,
                                         int stride, int n_win, float* r400,
                                         float* r7500, void* stream);
+extern "C" int axctd_tone_powers_launch(const float* x, int rows, long long ld, long long n,
+                                        const float* tm, int window, int stride, int n_win,
+                                        float* powers, void* stream);
+extern "C" int axctd_probe_launch(const float* x, long long ld, long long len, int rows,
+                                  const long long* starts, long long k, const float* tab,
+                                  int window, float* out, void* stream);
 extern "C" long long axctd_chain_segments_scratch(int rows, long long m, long long start,
                                                   long long k, int sb, int seg, int tpb);
 extern "C" int axctd_chain_segments_launch(const long long* nxt, int rows, long long m,
@@ -43,6 +58,7 @@ extern "C" const char* axctd_cuda_error_string(int code);
 
 constexpr int64_t kMaxSegments = 3;  // tone_ratios.cu: windows of at most 3 strides
 constexpr int64_t kMaxFirst = 1024;  // chain.cu: chain heads per block
+constexpr int64_t kMaxProbeWindow = 3072;  // probe.cu: the table in 48 KB of shared memory
 
 std::vector<torch::Tensor> tone_ratios(torch::Tensor x, torch::Tensor tm,
                                        int64_t window, int64_t stride,
@@ -74,6 +90,78 @@ std::vector<torch::Tensor> tone_ratios(torch::Tensor x, torch::Tensor tm,
       at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "tone_ratios launch failed: ", axctd_cuda_error_string(err));
   return out.unbind(0);
+}
+
+static void check_tone_args(const torch::Tensor& x, torch::Tensor& tm, int64_t window,
+                            int64_t stride, int64_t n_win, const char* name) {
+  TORCH_CHECK(x.is_cuda() && tm.is_cuda(), name, ": x and tm must be CUDA tensors");
+  TORCH_CHECK(x.device() == tm.device(), name, ": x and tm on different devices");
+  TORCH_CHECK(x.scalar_type() == torch::kFloat32 && tm.scalar_type() == torch::kFloat32,
+              name, ": x and tm must be float32");
+  TORCH_CHECK(tm.dim() == 2 && tm.size(0) == window && tm.size(1) == 6 && tm.is_contiguous(),
+              name, ": tm must be a contiguous (window, 6) table");
+  TORCH_CHECK(window > 0 && stride > 0 && n_win >= 0 && n_win < (1LL << 31),
+              name, ": bad window/stride/n_win");
+  TORCH_CHECK((window + stride - 1) / stride <= kMaxSegments,
+              name, ": window must span at most 3 strides");
+  // the kernel copies the table in 16-byte pieces
+  if (reinterpret_cast<uintptr_t>(tm.data_ptr()) % 16 != 0) tm = tm.clone();
+}
+
+torch::Tensor tone_powers(torch::Tensor x, torch::Tensor tm, int64_t window, int64_t stride,
+                          int64_t n_win) {
+  check_tone_args(x, tm, window, stride, n_win, "tone_powers");
+  TORCH_CHECK((x.dim() == 1 || x.dim() == 2) && x.stride(-1) == 1 &&
+                  (x.dim() == 1 || x.size(0) <= 1 || x.stride(0) >= x.size(1)),
+              "tone_powers: x must be (n,) or (rows, n) with its last dimension contiguous");
+  const int64_t rows = x.dim() == 2 ? x.size(0) : 1;
+  TORCH_CHECK(rows < 65536, "tone_powers: at most 65535 rows");
+  const int64_t ld = x.dim() == 2 && rows > 1 ? x.stride(0) : x.size(-1);
+  const c10::cuda::CUDAGuard guard(x.device());
+  std::vector<int64_t> shape = {n_win, 3};
+  if (x.dim() == 2) shape.insert(shape.begin(), rows);
+  auto out = torch::empty(shape, x.options());
+  const int err = axctd_tone_powers_launch(
+      x.data_ptr<float>(), static_cast<int>(rows), ld, x.size(-1), tm.data_ptr<float>(),
+      static_cast<int>(window), static_cast<int>(stride), static_cast<int>(n_win),
+      out.data_ptr<float>(), at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "tone_powers launch failed: ", axctd_cuda_error_string(err));
+  return out;
+}
+
+torch::Tensor probe_at(torch::Tensor x, torch::Tensor starts, torch::Tensor tab) {
+  TORCH_CHECK(x.is_cuda() && starts.is_cuda() && tab.is_cuda(),
+              "probe_at: x, starts and tab must be CUDA tensors");
+  TORCH_CHECK(x.device() == starts.device() && x.device() == tab.device(),
+              "probe_at: x, starts and tab on different devices");
+  TORCH_CHECK(x.scalar_type() == torch::kFloat32 && tab.scalar_type() == torch::kFloat32 &&
+                  starts.scalar_type() == torch::kInt64,
+              "probe_at: x and tab must be float32, starts int64");
+  TORCH_CHECK((x.dim() == 1 || x.dim() == 2) && x.stride(-1) == 1 &&
+                  (x.dim() == 1 || x.size(0) <= 1 || x.stride(0) >= x.size(1)),
+              "probe_at: x must be (L,) or (rows, L) with its last dimension contiguous");
+  TORCH_CHECK(starts.dim() == x.dim() && starts.is_contiguous() &&
+                  (x.dim() == 1 || starts.size(0) == x.size(0)),
+              "probe_at: starts must be a contiguous (K,) or (rows, K) tensor matching x");
+  const int64_t window = tab.size(0);
+  TORCH_CHECK(tab.dim() == 2 && tab.size(1) == 4 && tab.is_contiguous() && window > 0 &&
+                  window <= kMaxProbeWindow,
+              "probe_at: tab must be a contiguous (window, 4) table, window at most 3072");
+  TORCH_CHECK(x.size(-1) >= window, "probe_at: rows shorter than the window");
+  const int64_t rows = x.dim() == 2 ? x.size(0) : 1;
+  TORCH_CHECK(rows < (1LL << 31), "probe_at: too many rows");
+  const int64_t ld = x.dim() == 2 && rows > 1 ? x.stride(0) : x.size(-1);
+  const c10::cuda::CUDAGuard guard(x.device());
+  std::vector<int64_t> shape = starts.sizes().vec();
+  shape.push_back(2);
+  auto out = torch::empty(shape, x.options());
+  const int err = axctd_probe_launch(
+      x.data_ptr<float>(), ld, x.size(-1), static_cast<int>(rows),
+      reinterpret_cast<const long long*>(starts.data_ptr<int64_t>()), starts.size(-1),
+      tab.data_ptr<float>(), static_cast<int>(window), out.data_ptr<float>(),
+      at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "probe_at launch failed: ", axctd_cuda_error_string(err));
+  return out;
 }
 
 torch::Tensor chain_walk_segments(torch::Tensor nxt, int64_t start, int64_t k,
@@ -161,6 +249,8 @@ torch::Tensor chain_walk(torch::Tensor levels, int64_t start, int64_t k, int64_t
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("tone_ratios", &tone_ratios, "Fused tone powers, box mean and log10 ratios (CUDA)");
+  m.def("tone_powers", &tone_powers, "Raw tone powers of every strided window (CUDA)");
+  m.def("probe_at", &probe_at, "Mark and space magnitudes of frames at given starts (CUDA)");
   m.def("chain_walk_segments", &chain_walk_segments,
         "Bit-edge chain of a bounded-stride successor table by a segment-parallel walk (CUDA)");
   m.def("chain_walk_frames", &chain_walk_frames,

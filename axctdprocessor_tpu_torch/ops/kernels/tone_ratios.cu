@@ -1,4 +1,4 @@
-// Fused tone-ratio kernel for Hopper (sm_90a).
+// Fused tone-ratio kernel for Hopper (sm_90a), and its raw-powers variant.
 //
 // Replaces the Pallas kernel axctdprocessor_tpu/ops/pallas/tonepower.py
 // (fused_tone_ratios): for every window of `window` samples at `stride`,
@@ -61,9 +61,22 @@
 // half, where the plain version's matmul would propagate it.
 //
 // Batch: grid (ceil(n_win / kRun), rows), blockIdx.y the row, 64-bit row
-// offsets (64 rows of 60 s at 44.1 kHz are 169M samples).  x must lie in a
-// 16-byte aligned allocation (every CUDA tensor's storage does): a copy
-// may start up to 12 bytes before a row, never before its storage.
+// offsets (64 rows of 60 s at 44.1 kHz are 169M samples).  Rows lie `ld`
+// floats apart (a view of a wider tensor, its last dimension contiguous).
+// x must lie in a 16-byte aligned allocation (every CUDA tensor's storage
+// does): a copy may start up to 12 bytes before a row, never before its
+// storage.
+//
+// tone_powers (POWERS = true) is the same kernel up to the powers of its
+// windows and writes them raw, (rows, n_win, 3) for [400 Hz, 7500 Hz, dead]:
+// no box mean, no log.  It stands for the segmented and time-sharded paths'
+// framed_tone_power_tiled (the JAX package's axctdprocessor_tpu/ops/goertzel.py
+// under jax.vmap in _segment_program_grouped and _resident_program), whose
+// callers smooth the gathered series themselves.  Its blocks still compute
+// the 5 halo windows before their run (4% more arithmetic), so that a
+// window's powers are the tone-ratio kernel's bit for bit; as there, a
+// window's sum depends only on its index and its row, never on how many
+// rows share the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -151,11 +164,11 @@ __host__ __device__ inline int table_floats(int window) {
   return ((window + kKc) * kCols + 3) & ~3;
 }
 
-template <int NSEG>
+template <int NSEG, bool POWERS>
 __global__ void __launch_bounds__(kThreads, 1)
-tone_ratios_kernel(const float* __restrict__ x, long long n, const float* __restrict__ tm,
-                   int window, int stride, int n_win, float* __restrict__ r400,
-                   float* __restrict__ r7500) {
+tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
+                   const float* __restrict__ tm, int window, int stride, int n_win,
+                   float* __restrict__ r400, float* __restrict__ r7500) {
   constexpr int kTiles = tiles_per_block<NSEG>();
   constexpr int kXs = kWpw + NSEG - 1;  // tiles one warp reads
   constexpr int kStageFloats = kTiles * kPitch;
@@ -171,7 +184,7 @@ tone_ratios_kernel(const float* __restrict__ x, long long n, const float* __rest
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const long long row = blockIdx.y;
-  const float* xr = x + row * n;
+  const float* xr = x + row * ld;
   const long long w0 = static_cast<long long>(blockIdx.x) * kRun;
   const long long tile0 = w0 - kSmooth;  // tile of local window 0
   const uintptr_t xr_word = reinterpret_cast<uintptr_t>(xr) >> 2;
@@ -332,6 +345,15 @@ tone_ratios_kernel(const float* __restrict__ x, long long n, const float* __rest
   }
   __syncthreads();
 
+  if constexpr (POWERS) {  // r400 is the (rows, n_win, 3) powers
+    for (int i = tid; i < kRun; i += kThreads) {
+      const long long w = w0 + i;
+      if (w >= n_win) break;
+#pragma unroll
+      for (int f = 0; f < 3; ++f) r400[(row * n_win + w) * 3 + f] = pw[(i + kSmooth) * 3 + f];
+    }
+    return;
+  }
   for (int i = tid; i < kRun; i += kThreads) {
     const long long w = w0 + i;
     if (w >= n_win) break;
@@ -350,15 +372,15 @@ tone_ratios_kernel(const float* __restrict__ x, long long n, const float* __rest
   }
 }
 
-template <int NSEG>
-int launch(const float* x, int rows, long long n, const float* tm, int window, int stride,
-           int n_win, float* r400, float* r7500, cudaStream_t stream) {
+template <int NSEG, bool POWERS>
+int launch(const float* x, int rows, long long ld, long long n, const float* tm, int window,
+           int stride, int n_win, float* r400, float* r7500, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) *
                    (table_floats(window) + kStages * tiles_per_block<NSEG>() * kPitch);
   // the opt-in above 48 KB, set once per device and size (host calls that
   // cost more than a small launch)
   static int optin[kMaxDevices];
-  static int granted[kMaxDevices][kMaxSeg + 1];
+  static int granted[kMaxDevices][kMaxSeg + 1];  // one per instance of the template
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -369,15 +391,28 @@ int launch(const float* x, int rows, long long n, const float* tm, int window, i
   }
   if (smem > optin[dev]) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > granted[dev][NSEG]) {
-    err = cudaFuncSetAttribute(tone_ratios_kernel<NSEG>,
+    err = cudaFuncSetAttribute(tone_ratios_kernel<NSEG, POWERS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     granted[dev][NSEG] = smem;
   }
   const dim3 grid((n_win + kRun - 1) / kRun, rows);
-  tone_ratios_kernel<NSEG><<<grid, kThreads, smem, stream>>>(x, n, tm, window, stride, n_win,
-                                                            r400, r7500);
+  tone_ratios_kernel<NSEG, POWERS><<<grid, kThreads, smem, stream>>>(
+      x, ld, n, tm, window, stride, n_win, r400, r7500);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool POWERS>
+int dispatch(const float* x, int rows, long long ld, long long n, const float* tm, int window,
+             int stride, int n_win, float* r400, float* r7500, void* stream) {
+  if (n_win <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((window + stride - 1) / stride) {
+    case 1: return launch<1, POWERS>(x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s);
+    case 2: return launch<2, POWERS>(x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s);
+    case 3: return launch<3, POWERS>(x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -386,14 +421,13 @@ extern "C" int axctd_tone_ratios_launch(const float* x, int rows, long long n,
                                         const float* tm, int window,
                                         int stride, int n_win, float* r400,
                                         float* r7500, void* stream) {
-  if (n_win <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((window + stride - 1) / stride) {
-    case 1: return launch<1>(x, rows, n, tm, window, stride, n_win, r400, r7500, s);
-    case 2: return launch<2>(x, rows, n, tm, window, stride, n_win, r400, r7500, s);
-    case 3: return launch<3>(x, rows, n, tm, window, stride, n_win, r400, r7500, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(x, rows, n, n, tm, window, stride, n_win, r400, r7500, stream);
+}
+
+extern "C" int axctd_tone_powers_launch(const float* x, int rows, long long ld, long long n,
+                                        const float* tm, int window, int stride, int n_win,
+                                        float* powers, void* stream) {
+  return dispatch<true>(x, rows, ld, n, tm, window, stride, n_win, powers, nullptr, stream);
 }
 
 extern "C" const char* axctd_cuda_error_string(int code) {

@@ -8,6 +8,12 @@ axctdprocessor_tpu/ops/pallas/tonepower.py (``fused_tone_ratios``).
   (``ops/kernels/tone_ratios.cu``) and adds one to ``tone_ratios.launches``
   (a call with no window launches nothing).  A build or launch failure
   raises; nothing falls back.
+* :func:`tone_powers` — the raw (..., n_win, 3) powers of the same windows,
+  no box mean and no log: on a CPU tensor the plain tiled version
+  (``goertzel.framed_tone_power_tiled``), on a CUDA tensor the same kernel's
+  powers-only variant (``tone_powers.launches``).  The segmented and
+  time-sharded paths take it and smooth the gathered series themselves
+  (:func:`ratios_from_powers`).
 
 Both take one signal ``x`` of shape (n,) or a batch (B, n), and the
 (window, 6) ``tone_matrix`` for [400 Hz, 7500 Hz, dead] with interleaved
@@ -66,3 +72,29 @@ def tone_ratios(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int):
 
 
 tone_ratios.launches = 0
+
+
+def tone_powers_reference(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int):
+    """Plain version of :func:`tone_powers`: the tiled tone powers."""
+    return goertzel.framed_tone_power_tiled(x, window, stride, tm)
+
+
+def tone_powers(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int):
+    """Raw powers (n_win, 3) of one signal (n,), or (B, n_win, 3) of rows
+    (B, n): the CUDA kernel for a CUDA tensor (float32, last dimension
+    contiguous; rows may be a view of a wider tensor), the plain version for
+    a CPU tensor.  Each row's windows are the 1-D call's bit for bit."""
+    if x.device.type == "cpu":
+        return tone_powers_reference(x, tm, window, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"tone_powers: unsupported device {x.device}")
+    from .kernels import extension
+
+    n_win = n_windows(x.shape[-1], window, stride)
+    out = extension().tone_powers(x, tm, window, stride, n_win)
+    if out.numel():  # no window, no launch
+        tone_powers.launches += 1
+    return out
+
+
+tone_powers.launches = 0

@@ -30,10 +30,14 @@ block's partial result to the row's first device and a sum or maximum there
 **in shard order**, so it is the same on every run.  Every shard's work
 stays on its device's current stream.
 
-The tone powers are the plain tiled version (``ops.goertzel``), not the
-tone-ratio kernel, as the JAX path's are a plain matmul: smoothing needs the
-gathered series.  Outputs match ``engine.stage1_core``'s contract, so the
-back half and the host finish are shared with the batch path.
+The tone powers are raw (``tonepower.tone_powers``: the tone kernel's
+powers-only variant on the card), as the JAX path's are a plain matmul:
+smoothing needs the gathered series.  A block's front end runs over the
+``b`` rows of its mesh row in one pass (filter, crossings, probes at every
+crossing with ``goertzel.probe_at``), as the JAX ``shard_map`` body runs over
+its rows; each row is the row alone bit for bit.  Outputs match
+``engine.stage1_core``'s contract, so the back half and the host finish are
+shared with the batch path.
 """
 
 from __future__ import annotations
@@ -121,9 +125,10 @@ def _halo(neighbour, cut, like: torch.Tensor, width: int) -> torch.Tensor:
 def block_powers(x_blk: torch.Tensor, right_raw: torch.Tensor, power_trig: torch.Tensor,
                  dims: eng.EngineDims) -> torch.Tensor:
     """Raw tone powers of the ``block / d_pcm`` windows that start in a
-    block, given ``n_power`` raw samples of the next one: (b, n_win_blk, 3)."""
-    x_ext = torch.cat([x_blk, right_raw], dim=1)
-    return goertzel.framed_tone_power_tiled(x_ext, dims.n_power, dims.d_pcm, power_trig)
+    block, given ``n_power`` raw samples of the next one: (b, n_win_blk, 3)
+    for the block's (b, block) rows, one pass."""
+    x_ext = torch.cat([x_blk, right_raw], dim=-1)
+    return tonepower.tone_powers(x_ext, power_trig, dims.n_power, dims.d_pcm)
 
 
 def filter_nfft(block: int) -> int:
@@ -131,36 +136,39 @@ def filter_nfft(block: int) -> int:
     return iir.next_pow2(block + WARMUP)
 
 
-def block_filter(x_row: torch.Tensor, left_raw: torch.Tensor,
+def block_filter(x_blk: torch.Tensor, left_raw: torch.Tensor,
                  response: torch.Tensor) -> torch.Tensor:
-    """The demod filter over one row's block with the ``WARMUP`` raw samples
-    before it (overlap-save: the warm-up absorbs both the filter's ring-in
-    and the circular wrap-around); `response` is the SOS cascade's at
-    ``filter_nfft(block)`` points.  One row at a time: a batched FFT may
-    round differently per batch size."""
-    block = x_row.shape[0]
-    x_warm = torch.cat([left_raw, x_row])
+    """The demod filter over a block, one row (block,) or the block's rows
+    (b, block) in one pass, with the ``WARMUP`` raw samples before each
+    (overlap-save: the warm-up absorbs both the filter's ring-in and the
+    circular wrap-around); `response` is the SOS cascade's at
+    ``filter_nfft(block)`` points.  A row is filtered alike in any batch
+    and alone (``engine.apply_response``)."""
+    block = x_blk.shape[-1]
+    x_warm = torch.cat([left_raw, x_blk], dim=-1)
     filt = eng.apply_response(x_warm, response, filter_nfft(block))
-    return filt[WARMUP: WARMUP + block].to(x_row.dtype)
+    return filt[..., WARMUP: WARMUP + block].to(x_blk.dtype)
 
 
 def block_crossings(filt: torch.Tensor, right_f: torch.Tensor, n_valid, sp_i: int,
                     bit_trig: torch.Tensor, dims: eng.EngineDims, fs: float,
                     bit_inset: int, edge_pad: int, max_cross_blk: int):
-    """The zero crossings of one row's filtered block (the one between its
-    last sample and the next block's first belongs to it) and the mark and
-    space powers at every one of them, given ``cross_halo`` filtered samples
-    of the next block.  Returns (global positions int64[max_cross_blk], then
-    ``BIG``; mark powers; space powers; the truncation flag)."""
-    block = filt.shape[0]
-    f_ext = torch.cat([filt, right_f])
+    """The zero crossings of a filtered block, one row (block,) or the
+    block's rows (b, block) with (b,) `n_valid`, in one pass (the crossing
+    between a block's last sample and the next block's first belongs to it),
+    and the mark and space powers at every one of them, given ``cross_halo``
+    filtered samples of the next block.  Returns (global positions int64
+    (..., max_cross_blk), then ``BIG``; mark powers; space powers; the
+    truncation flags)."""
+    block = filt.shape[-1]
+    f_ext = torch.cat([filt, right_f], dim=-1)
     pos, cnt, rovf = eng.find_crossings(f_ext, block, sp_i * block, n_valid, edge_pad,
                                         max_cross_blk, fs)
-    probes = goertzel.tone_power_at(f_ext, torch.clamp(pos, 0, block - 1) + bit_inset,
-                                    dims.npcm, bit_trig)
+    probes = goertzel.probe_at(f_ext, torch.clamp(pos, 0, block - 1) + bit_inset,
+                               dims.npcm, bit_trig)
     gpos = torch.where(pos < BIG, pos + sp_i * block, BIG)
     ovf = (cnt > max_cross_blk).to(torch.int32) | rovf
-    return gpos, probes[:, 0], probes[:, 1], ovf
+    return gpos, probes[..., 0], probes[..., 1], ovf
 
 
 def _sharded_frontend(blocks: list, n_valid: dict, tables: dict, dims: eng.EngineDims,
@@ -175,7 +183,7 @@ def _sharded_frontend(blocks: list, n_valid: dict, tables: dict, dims: eng.Engin
     mark and space powers alike, overflow (b,)), on the block's device: what
     the JAX module's ``shard_map`` body returns per shard."""
     n_sp = len(blocks)
-    b_local, block = blocks[0].shape
+    block = blocks[0].shape[-1]
     cross_halo = dims.npcm + bit_inset + 1
     # crossing capacity is duration-based (ops.chain.CROSSINGS_PER_SECOND),
     # as the bound EngineDims.for_waveform uses for the whole waveform
@@ -192,20 +200,15 @@ def _sharded_frontend(blocks: list, n_valid: dict, tables: dict, dims: eng.Engin
         right_raw = _halo(neighbour(blocks, j + 1), slice(0, dims.n_power), x, dims.n_power)
         powers.append(block_powers(x, right_raw, t["power_trig"], dims))
         left_raw = _halo(neighbour(blocks, j - 1), slice(block - WARMUP, block), x, WARMUP)
-        filt.append([block_filter(x[r], left_raw[r], t["response"])
-                     for r in range(b_local)])
+        filt.append(block_filter(x, left_raw, t["response"]))
 
     out = []
     for j, x in enumerate(blocks):
-        t, nv = tables[x.device], n_valid[x.device]
-        rows = []
-        for r in range(b_local):
-            nxt = neighbour(filt, j + 1)
-            right_f = _halo(None if nxt is None else nxt[r], slice(0, cross_halo),
-                            filt[j][r], cross_halo)
-            rows.append(block_crossings(filt[j][r], right_f, nv[r], j, t["bit_trig"], dims,
-                                        fs, bit_inset, edge_pad, max_cross_blk))
-        gpos, p1, p2, ovf = (torch.stack(col) for col in zip(*rows))
+        t = tables[x.device]
+        right_f = _halo(neighbour(filt, j + 1), slice(0, cross_halo), filt[j], cross_halo)
+        gpos, p1, p2, ovf = block_crossings(filt[j], right_f, n_valid[x.device], j,
+                                            t["bit_trig"], dims, fs, bit_inset, edge_pad,
+                                            max_cross_blk)
         out.append((powers[j], gpos, p1, p2, ovf))
     return out
 

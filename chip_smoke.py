@@ -8,9 +8,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    no GPU -> exit 1 before anything else;
-1. build the hand-written CUDA kernels (``tone_ratios.cu`` and ``chain.cu``,
-   one extension) and the wire encoders' C library from the sources in the
-   checkout (both into
+1. build the hand-written CUDA kernels (``tone_ratios.cu``, ``probe.cu`` and
+   ``chain.cu``, one extension) and the wire encoders' C library from the
+   sources in the checkout (both into
    ``axctdprocessor_tpu_torch/_build/``), time the builds and say which
    encoder runs; then synthesize the drops once: the 600 s bench drop
    (simulator seed 11) as an int16 WAV, and the bench's 64 x 60 s int16
@@ -56,7 +56,35 @@ Phases, one line each or more (any failure raises and exits non-zero):
    frame walk also the jump-table walk it replaced (jump tables +
    ``chain_walk``) in the same turns and the time of an empty kernel (the launch floor).
    ``--only-chain`` runs the build and this phase alone and exits 3 without
-   result lines (a development run);
+   result lines (a development run); then ``chain_walk`` alone (the general
+   map's walk, on no path) on the jump tables of the 600 s decode's largest
+   frame-sync table, bit for bit its plain version, timed;
+2c. the FFT: whether cuFFT filters a row of a (B, nfft) call bit for bit as
+   the row alone (the demod filter: ``rfft``, the response, ``irfft``), at
+   nfft 2^20 (the 600 s drop cut into its 26 haloed segments) for B = 1, 2,
+   4, 8, 26 and at the 60 s row's nfft (the conditioned archive rows) for
+   B = 8, 64; the ``rfft`` alone; in fixed chunks of 2, 4 and 8 rows against
+   the row alone in a padded chunk; one call against row by row, timed; then
+   the port's rule (``engine.FFT_ROW_BY_ROW["cuda"]``) must hold: every row of
+   ``engine.apply_response`` over a batch equal to the 1-D call;
+2d. the demod front end's kernels (``tone_powers``, the tone kernel's raw
+   powers, and ``probe_at``, the per-bit probe) against their plain versions
+   (rtol = atol = 2e-4) at every call that the 600 s drop's monolithic,
+   segmented (groups of 4), prestaged ``fused`` (26 segments in one pass)
+   and time-sharded (dp 1 x sp 4) decodes and ``decode_batch`` of 8 and 64
+   archive rows hand them (recorded as the paths run), each row of a
+   batched call bit-equal to its 1-D call; the edge cases (starts at 0, at
+   L - window and clamped beyond both ends, rows one window long, K = 0 and
+   no window launching nothing, rows that are views of a wider tensor); at
+   the first call of each path the times of kernel, plain version and the
+   library product (``frames @ trig`` of the gathered frames; the tile view
+   times the segment matrix) in turns, the bound and the share of it;
+2e. the batched front end against its 1-D calls, bit for bit: the 600 s
+   drop's 26 segments in one pass and in groups of 4 against each segment
+   alone (every output), the 64 archive rows (conditioned as one batch)
+   through ``FusedDecoder.stage1`` in one pass against each row alone;
+   ``--only-frontend`` runs the build and phases 2c-2e alone and exits 3
+   without result lines (a development run);
 3. the monolithic path end to end: the 600 s WAV through
    ``decode_wav(device="cuda", mode="monolithic")``; held to the
    simulator's truth, to the same decode with the plain tone-ratio
@@ -93,8 +121,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
    explicit device list that repeats ``cuda:0``.  The 600 s drop as a (1, n)
    int16 batch through ``decode_batch_timesharded`` on ``{"dp": 1, "sp": 4}``
    (phase 3's gates, agreement with phase 3's monolithic decode >= 0.99, no
-   kernel launch: the time-sharded front end uses plain tone powers, as the
-   JAX one; warm walls, host syncs, peak memory); 4 archive rows on
+   ``tone_ratios`` launch: the time-sharded front end takes raw powers
+   (``tone_powers``) and smooths the gathered series, as the JAX one; warm
+   walls, host syncs, peak memory); 4 archive rows on
    ``{"dp": 2, "sp": 2}``; the first 16 archive rows through
    ``decode_batch(mesh={"dp": 2})``, every row equal to phase 9's, one
    kernel launch per ``dp`` run; 2 batches of 8 through
@@ -122,23 +151,27 @@ Phases, one line each or more (any failure raises and exits non-zero):
    600 s drop on the card against ``iir.sosfilt_fft`` and its CPU run;
 10. ``torch.profiler`` last, after every wall (a process that has run the
    profiler launches more slowly from then on): one segmented, one
-   monolithic and one time-sharded decode of the 600 s drop and
-   one batch of 8 of the archive rows (launches, device idle share, the
-   upload), one pipelined run of 2 x 8,
+   prestaged ``fused``, one monolithic and one time-sharded decode of the
+   600 s drop and one batch of 8 of the archive rows (launches, device idle
+   share, the upload), one pipelined run of 2 x 8,
    then the tone-ratio kernel's device time at each phase-2 shape and the
    chain kernels' at each phase-2b shape (``chain_walk_segments``: the sum of
    its three kernels per call; ``chain_walk_frames``: its kernel, and its whole
    call with the flags' fill, beside the device time of the jump tables'
    gathers and of the jump-table walk's whole call on the same table, and of an empty
    kernel); no jump table is built in those decodes (``jump_levels`` is
-   counted), and one frame-sync call's launches are counted.
+   counted), and one frame-sync call's launches are counted; ``chain_walk``
+   alone, and ``tone_powers`` and ``probe_at`` at each phase-2d shape.
 
 Each path is driven with every kernel's launch count set to 0 just before
-and read just after (each chain kernel must have launched on every path, and
+and read just after (each chain kernel and ``probe_at`` must have launched on
+every path, exactly one of ``tone_ratios`` and ``tone_powers``, and
 ``chain_walk``, the general map's walk, never).  At the end neither jax nor any module of the JAX
 package (``axctdprocessor_tpu``) may be loaded.  Then come the line
-``{"kernels": [...]}`` (each kernel's launches on every path; per shape:
-times, bound and share of bound), the
+``{"kernels": [...]}`` (``tone_ratios``, ``tone_powers``, ``probe_at``,
+``chain_walk_segments``, ``chain_walk_frames`` and ``chain_walk``: each
+kernel's launches on every path; per shape: times, bound and share of
+bound), the
 card's name and power limit, and, last, ``{"ok": true, "device": {...}}``.
 Temporary WAVs live in a directory inside the checkout that is removed at
 the end.
@@ -176,7 +209,16 @@ CHAIN_WRAPPERS = {"chain_walk_segments": "chain_enumerate_strided",
 # the kernels' names in a profiler trace (chain_walk_segments launches three)
 CHAIN_IN_TRACE = {"chain_walk_segments": "chain_segments_",
                   "chain_walk_frames": "chain_frames_kernel"}
-KERNELS = ("tone_ratios",) + tuple(CHAIN_REPLACES)
+# the demod front end's kernels over a batch: the raw-powers variant of the
+# tone kernel and the per-bit probe.  The JAX package runs both as plain XLA
+# under jax.vmap (goertzel.framed_tone_power_tiled and tone_power_at in
+# _segment_program_grouped, _resident_program, _batched_stage1, _batched_fused)
+FRONTEND_SOURCE = {"tone_powers": KERNEL_SOURCE,
+                   "probe_at": "axctdprocessor_tpu_torch/ops/kernels/probe.cu"}
+FRONTEND_REPLACES = {"tone_powers": "axctdprocessor_tpu/ops/goertzel.py:55-88",
+                     "probe_at": "axctdprocessor_tpu/ops/goertzel.py:91-110"}
+FRONTEND_IN_TRACE = {"tone_powers": "tone_ratios_kernel", "probe_at": "probe_kernel"}
+KERNELS = ("tone_ratios",) + tuple(FRONTEND_REPLACES) + tuple(CHAIN_REPLACES)
 PATH_LAUNCHES: dict = {}  # path -> {kernel: launches}, every path this run drives
 
 
@@ -184,9 +226,10 @@ T0 = time.perf_counter()
 
 
 def _kernel_fns() -> dict:
-    from axctdprocessor_tpu_torch.ops import chain, tonepower
+    from axctdprocessor_tpu_torch.ops import chain, goertzel, tonepower
 
-    return {"tone_ratios": tonepower.tone_ratios,
+    return {"tone_ratios": tonepower.tone_ratios, "tone_powers": tonepower.tone_powers,
+            "probe_at": goertzel.probe_at,
             **{name: getattr(chain, wrapper) for name, wrapper in CHAIN_WRAPPERS.items()}}
 
 
@@ -201,14 +244,18 @@ def zero_counts() -> None:
 
 def read_counts(path: str) -> dict:
     """Every kernel's launch count just after `path` ran; every path walks
-    the bit-edge chain and frame-syncs, so each chain kernel must have been
-    launched at least once, and the general map's walk (jump tables and
-    ``chain_walk``) never."""
+    the bit-edge chain, probes its bits and frame-syncs, so each chain kernel
+    and ``probe_at`` must have been launched at least once, and the general
+    map's walk (jump tables and ``chain_walk``) never; the tone powers come
+    from exactly one of the tone kernel's two forms (the ratios on the
+    monolithic and batch paths, the raw powers on the segmented, prestaged,
+    stream and time-sharded ones)."""
     from axctdprocessor_tpu_torch.ops import chain
 
     got = {name: fn.launches for name, fn in _kernel_fns().items()}
-    missing = [k for k in CHAIN_REPLACES if got[k] < 1]
+    missing = [k for k in ("probe_at",) + tuple(CHAIN_REPLACES) if got[k] < 1]
     assert not missing, f"{path}: no launch of {missing}: {got}"
+    assert (got["tone_ratios"] > 0) != (got["tone_powers"] > 0), f"{path}: tone kernels {got}"
     assert chain.chain_walk.launches == 0, f"{path}: frame sync launched chain_walk"
     PATH_LAUNCHES[path] = got
     return got
@@ -251,7 +298,8 @@ def phase1_build() -> None:
     t0 = time.perf_counter()
     kernels.extension()
     dt = time.perf_counter() - t0
-    log(f"[1] built the kernels (one extension: {KERNEL_SOURCE}, {CHAIN_SOURCE}; sm_90a) in "
+    log(f"[1] built the kernels (one extension: {KERNEL_SOURCE}, {FRONTEND_SOURCE['probe_at']}, "
+        f"{CHAIN_SOURCE}; sm_90a) in "
         f"{dt:.1f} s")
     t0 = time.perf_counter()
     lib = native.get_library()
@@ -780,6 +828,18 @@ def _chain_timed(calls: dict):
                        dict(rows=rows, m=m, k=k, bound_ms=_chain_bound(rows, m, k)), fns)
 
 
+def _chain_walk_args(calls: dict):
+    """(shape, jump tables, start, k, first) for ``chain_walk`` alone: the
+    jump tables of the 600 s monolithic decode's largest frame-sync table."""
+    from axctdprocessor_tpu_torch.ops import chain
+
+    nxt, start, k = max((a[:3] for p, a in calls["chain_walk_frames"] if p == "600 s"),
+                        key=lambda a: a[0].shape[-1])
+    levels, first = chain.jump_levels(nxt, k)
+    return (f"600 s: ({levels.shape[0]}, {levels.shape[1]}, {levels.shape[2]}) int64 jump "
+            f"tables, k = {k}", levels, start, k, first)
+
+
 def phase2b_chain(drops: dict) -> dict:
     """The chain kernels against their plain versions on the card, bit for
     bit, at the shapes the main paths give them (recorded from the decodes
@@ -828,6 +888,17 @@ def phase2b_chain(drops: dict) -> dict:
                 + (f"; jump tables + chain_walk {r['jump_walk_ms']:.4f} ms; an empty kernel "
                    f"{r['launch_floor_ms']:.4f} ms, share of that floor {r['share_of_floor']:.3f}"
                    if "jump_walk_ms" in r else ""))
+    shape, levels, start, k, first = _chain_walk_args(calls)
+    walk = {"kernel": lambda: chain.chain_walk(levels, start, k, first),
+            "plain": lambda: chain.chain_walk_reference(levels, start, k, first)}
+    assert torch.equal(walk["kernel"](), walk["plain"]()), "chain_walk"
+    ms = _time_turns(walk)
+    bound_ms = 1e3 * 8 * (levels.numel() + levels.shape[1] * k) / HBM_BYTES_PER_S
+    out["chain_walk"] = [dict(shape=shape, ms=ms["kernel"], plain_ms=ms["plain"],
+                              bound_ms=bound_ms, device_ms=None)]
+    log(f"[2b] chain_walk alone (the general map's walk, on no decode path) {shape}: bit for bit "
+        f"equal to the plain version; kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+        f"bound {1e3 * bound_ms:.3f} us (bytes)")
     n_calls = {name: len(c) for name, c in calls.items()}
     paths = sorted({p for c in calls.values() for p, _ in c})
     log(f"[2b] every recorded call of the main paths ({'; '.join(paths)}) bit for bit equal "
@@ -856,21 +927,398 @@ def phase2b_chain(drops: dict) -> dict:
     return out
 
 
-def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict) -> None:
+def _filter_rows(x, response, nfft: int, width):
+    """The FFT filter over the rows of `x` (B, n), `width` rows per FFT call
+    (None: all rows in one call; the last chunk padded with zero rows)."""
+    def one(rows):
+        return torch.fft.irfft(torch.fft.rfft(rows, nfft) * response, nfft)
+
+    if width is None:
+        return one(x)
+    b = x.shape[0]
+    pad = -b % width
+    xp = torch.cat([x, x.new_zeros((pad, x.shape[1]))]) if pad else x
+    return torch.cat([one(xp[i: i + width]) for i in range(0, b + pad, width)])[:b]
+
+
+def _fft_cases(drops: dict) -> list:
+    """(name, rows on the card, the demod filter's response, nfft, batch
+    sizes): the 600 s drop conditioned on the card and cut into the
+    segmented path's haloed extensions (nfft 2^20), and the archive rows
+    conditioned on the card (the 60 s row's nfft)."""
+    from axctdprocessor_tpu_torch.models import engine, segmented
+    from axctdprocessor_tpu_torch.ops import iir
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+    from axctdprocessor_tpu_torch.utils.wavio import read_wav_raw16
+
+    dev = torch.device("cuda")
+    cfg = DecoderConfig()
+    raw, fs = read_wav_raw16(drops["wav"])
+    n = len(raw)
+    x = engine.condition_integer(torch.from_numpy(raw).to(dev), n, torch.full((), n, device=dev))
+    _, _, seg_len, right, _ = segmented._seg_geometry(float(fs))
+    ext_len = segmented.LEFT_HALO + seg_len + right
+    n_seg = -(-n // seg_len)
+    xp = torch.nn.functional.pad(x, (segmented.LEFT_HALO, n_seg * seg_len + right - n))
+    segs = xp.unfold(0, ext_len, seg_len)[:n_seg].contiguous()
+    rows = drops["batch"]
+    nb = rows.shape[1]
+    cond = engine.condition_integer(torch.from_numpy(rows).to(dev), nb,
+                                    torch.full((rows.shape[0],), nb, device=dev))
+
+    def response(fs_, n_, nfft):
+        dims = engine.EngineDims.for_waveform(n_, fs_, cfg.bitrate, engine.probe_window(cfg, fs_))
+        sos = torch.from_numpy(engine.engine_tables(cfg, fs_, dims)["sos"]).to(dev)
+        return engine.sos_response_on_device(sos, nfft)
+
+    nfft60 = iir.next_pow2(nb + 4096)
+    return [(f"600 s segments ({n_seg} x {ext_len}), nfft 2^20", segs,
+             response(float(fs), seg_len, segmented.SEG_NFFT), segmented.SEG_NFFT,
+             (1, 2, 4, 8, n_seg)),
+            (f"60 s archive rows ({nb}), nfft {nfft60}", cond,
+             response(float(drops["batch_fs"]), nb, nfft60), nfft60, (8, 64))]
+
+
+def phase2c_fft(drops: dict) -> list:
+    """Whether cuFFT filters a row of a batch bit for bit as the row alone:
+    at each batch size B, the demod filter (``rfft``, times the response,
+    ``irfft``) over (B, nfft) in one call against each row in a call of its
+    own, and the ``rfft`` alone; then in chunks of a fixed width W against the
+    row alone in a chunk of W padded with zero rows; the time of one call
+    against row by row.  Last, the rule the port runs
+    (``engine.FFT_ROW_BY_ROW["cuda"]``) is held to it: every row of
+    ``engine.apply_response`` over the batch equal to the 1-D call."""
+    from axctdprocessor_tpu_torch.models import engine
+
+    found = []
+    policy_rows = []
+    for name, allx, resp, nfft, sizes in _fft_cases(drops):
+        for b in (b for b in sizes if b <= allx.shape[0]):
+            xb = allx[:b]
+            whole = _filter_rows(xb, resp, nfft, None)
+            spec = torch.fft.rfft(xb, nfft)
+            alone = [_filter_rows(xb[r: r + 1], resp, nfft, None)[0] for r in range(b)]
+            eq = sum(torch.equal(whole[r], alone[r]) for r in range(b))
+            eq_rfft = sum(torch.equal(spec[r], torch.fft.rfft(xb[r], nfft)) for r in range(b))
+            eq_1d = torch.equal(_filter_rows(xb[:1], resp, nfft, None)[0],
+                                torch.fft.irfft(torch.fft.rfft(xb[0], nfft) * resp, nfft))
+            diff = max(float((whole[r] - alone[r]).abs().max()) for r in range(b))
+            chunks = {}
+            for w in (2, 4, 8) if b > 1 else ():
+                got = _filter_rows(xb, resp, nfft, w)
+                chunks[w] = sum(torch.equal(got[r], _filter_rows(xb[r: r + 1], resp, nfft, w)[0])
+                                for r in range(b))
+            del whole, spec, alone
+            ms = _time_turns({"one call": lambda: _filter_rows(xb, resp, nfft, None),
+                              "row by row": lambda: _filter_rows(xb, resp, nfft, 1)},
+                             runs=3, calls=1)
+            rec = dict(case=name, rows=b, nfft=nfft, rows_equal=eq, rfft_rows_equal=eq_rfft,
+                       row_2d_equal_1d=eq_1d, max_abs_diff=diff, chunked_rows_equal=chunks,
+                       one_call_ms=ms["one call"], row_by_row_ms=ms["row by row"])
+            found.append(rec)
+            log(f"[2c] FFT filter, {name}, B = {b}: rows of one (B, nfft) call bit-equal to the "
+                f"row alone {eq}/{b} (rfft alone {eq_rfft}/{b}, largest difference {diff:.3g}); "
+                f"a (1, nfft) call equal to the 1-D call: {eq_1d}; in fixed chunks of W rows "
+                f"(padded) equal to the row alone in a chunk of W: "
+                + (", ".join(f"W = {w}: {c}/{b}" for w, c in chunks.items()) or "not run")
+                + f"; one call {ms['one call']:.3f} ms, row by row {ms['row by row']:.3f} ms")
+            got = engine.apply_response(xb, resp, nfft)
+            policy_rows.append((name, b, sum(torch.equal(got[r], engine.apply_response(
+                xb[r], resp, nfft)) for r in range(b))))
+            del got
+    log(f"[2c] the port's rule, engine.FFT_ROW_BY_ROW['cuda'] = "
+        f"{engine.FFT_ROW_BY_ROW['cuda']}: rows of "
+        f"engine.apply_response over a batch equal to the 1-D call: "
+        + "; ".join(f"{name} B = {b}: {e}/{b}" for name, b, e in policy_rows))
+    assert all(e == b for _, b, e in policy_rows), policy_rows
+    return found
+
+
+def _record_frontend_calls(drops: dict) -> dict:
+    """The front-end kernels' arguments as the main paths hand them over: the
+    600 s drop monolithic, segmented (groups of 4), prestaged (``fused``: every
+    segment in one pass) and time-sharded on dp 1 x sp 4, and the archive
+    batch's first 8 rows and all 64 through ``decode_batch``.  Returns
+    {kernel: [(path, args), ...]}."""
+    from axctdprocessor_tpu_torch.models import engine, segmented
+    from axctdprocessor_tpu_torch.ops import goertzel, tonepower
+    from axctdprocessor_tpu_torch.parallel import batch, timeshard
+    from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
+    from axctdprocessor_tpu_torch.utils.wavio import read_wav_raw16
+
+    raw, fs = read_wav_raw16(drops["wav"])
+    rows, bfs = drops["batch"], drops["batch_fs"]
+    card = torch.device("cuda", 0)
+    staged = segmented.prestage_waveform(raw, fs, device="cuda", fused=True)
+    runs = [
+        ("600 s", lambda: engine.decode_waveform(raw, fs, device="cuda", mode="monolithic")),
+        ("600 s segmented", lambda: engine.decode_waveform(raw, fs, device="cuda",
+                                                           mode="segmented")),
+        ("600 s prestaged, fused", staged.decode),
+        ("600 s time-sharded, dp 1 x sp 4", lambda: timeshard.decode_batch_timesharded(
+            raw[None], fs, mesh=make_mesh({"dp": 1, "sp": 4}, [card] * 4))),
+        ("batch 8 x 60 s", lambda: batch.decode_batch(rows[:8], bfs, device="cuda")),
+        ("batch 64 x 60 s", lambda: batch.decode_batch(rows, bfs, device="cuda")),
+    ]
+    where = {"probe_at": goertzel, "tone_powers": tonepower}
+    calls = {name: [] for name in where}
+    path = [""]
+    originals = {name: getattr(mod, name) for name, mod in where.items()}
+    for name, mod in where.items():
+        setattr(mod, name, _Recorder(originals[name], calls[name], path))
+    try:
+        for label, run in runs:
+            path[0] = label
+            run()
+    finally:
+        for name, mod in where.items():
+            setattr(mod, name, originals[name])
+    assert {p for p, _, _ in calls["probe_at"]} == {label for label, _ in runs}, "probe_at"
+    assert calls["tone_powers"], "no tone_powers call recorded"
+    return {name: [(p, a) for p, a, _ in made] for name, made in calls.items()}
+
+
+def _probe_bound(x, starts, window: int) -> tuple[float, str]:
+    """The least time for ``probe_at``'s work: the samples its frames cover
+    read once (counted from this call's starts), the starts, the table and
+    the (.., K, 2) output; against 8 flop a frame sample."""
+    rows = x.reshape(-1, x.shape[-1])
+    st = starts.reshape(rows.shape[0], -1).clamp(0, x.shape[-1] - window)
+    k_all = st.numel()
+    if k_all:
+        srt = torch.sort(st, dim=-1).values
+        covered = int(torch.clamp(srt.diff(dim=-1), max=window).sum()) + window * st.shape[0]
+    else:
+        covered = 0
+    nbytes = 4 * covered + 8 * k_all + 16 * window + 8 * k_all
+    flop = 8 * window * k_all
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _powers_bound(rows: int, n: int, window: int, n_win: int) -> tuple[float, str]:
+    """The least time for ``tone_powers``' work: the samples and the table
+    read once, the (rows, n_win, 3) powers written once, against six
+    length-`window` dot products and three magnitudes a window."""
+    nbytes = 4 * (rows * n + window * 6 + 3 * rows * n_win)
+    flop = rows * n_win * (12 * window + 9)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _frontend_fns():
+    from axctdprocessor_tpu_torch.ops import goertzel, tonepower
+
+    return {"probe_at": (goertzel.probe_at, goertzel.tone_power_at),
+            "tone_powers": (tonepower.tone_powers, tonepower.tone_powers_reference)}
+
+
+def _frontend_timed(calls: dict):
+    """(kernel, path, shape, args) of the first call of each path: the shapes
+    the kernels are timed at."""
+    for name, recorded in calls.items():
+        seen = set()
+        for path, args in recorded:
+            if path in seen:
+                continue
+            seen.add(path)
+            x = args[0]
+            rows = x.shape[0] if x.dim() == 2 else 1
+            shape = (f"{path}: x ({rows}, {x.shape[-1]}), K = {args[1].shape[-1]}, window "
+                     f"{args[2]}" if name == "probe_at" else
+                     f"{path}: x ({rows}, {x.shape[-1]}), window {args[2]}, stride {args[3]}")
+            yield name, path, shape, args
+
+
+def _frontend_library(name: str, args):
+    """The one PyTorch call timed beside a front-end kernel: for the probe the
+    product ``frames @ trig`` of the gathered frames alone (not the same
+    function: no gather, no magnitudes); for the powers one ``torch.matmul``
+    of the tile view by the (stride, 18) segment matrix (the DFT core alone)."""
+    if name == "probe_at":
+        x, starts, window, trig = args
+        rows = x.reshape(-1, x.shape[-1])
+        st = starts.reshape(rows.shape[0], -1).clamp(0, x.shape[-1] - window)
+        frames = rows[torch.arange(rows.shape[0], device=x.device)[:, None, None],
+                      st[..., None] + torch.arange(window, device=x.device)].reshape(-1, window)
+        return lambda: torch.matmul(frames, trig)
+    x, tm, window, stride = args
+    n_tiles = x.shape[-1] // stride
+    tiles = x[..., : n_tiles * stride].reshape(-1, stride)
+    segs = torch.zeros((3, stride, 6), device=x.device)
+    for j in range(3):
+        seg = tm[j * stride: min((j + 1) * stride, window)]
+        segs[j, : seg.shape[0]] = seg
+    seg_mat = segs.permute(1, 0, 2).reshape(stride, 18).contiguous()
+    return lambda: torch.matmul(tiles, seg_mat)
+
+
+def _frontend_edge_cases(dev) -> None:
+    """``probe_at`` at a start of 0, at L - window, clamped beyond both ends,
+    on rows exactly one window long, and with no start (no launch);
+    ``tone_powers`` on a view of a wider tensor (equal to its contiguous
+    copy), at n % 4 = 1, and with no window (no launch).  Each against its
+    plain version (rtol = atol = 2e-4), each row of a batch bit-equal to its
+    1-D call."""
+    from axctdprocessor_tpu_torch.ops import goertzel, tonepower
+
+    rng = np.random.default_rng(4)
+    fs, npcm = 44100.0, 39
+    trig = torch.from_numpy(goertzel.tone_matrix(npcm, [400.0, 800.0], fs, np.float32)).to(dev)
+    for length in (5000, npcm):
+        x = torch.from_numpy(rng.standard_normal((3, length)).astype(np.float32)).to(dev)
+        last = length - npcm
+        st = torch.tensor([[0, last, last + 1, length + 100, -5, last // 2]] * 3,
+                          dtype=torch.int64, device=dev)
+        got = goertzel.probe_at(x, st, npcm, trig)
+        _max_err([got], [goertzel.tone_power_at(x, st, npcm, trig)], f"probe_at L = {length}")
+        clamped = goertzel.probe_at(x, st.clamp(0, last), npcm, trig)
+        assert torch.equal(got, clamped), f"probe_at L = {length}: clamping"
+        for r in range(3):
+            assert torch.equal(goertzel.probe_at(x[r], st[r], npcm, trig), got[r]), (length, r)
+        before = goertzel.probe_at.launches
+        none = goertzel.probe_at(x, st[:, :0], npcm, trig)
+        assert none.shape == (3, 0, 2) and goertzel.probe_at.launches == before, "K = 0"
+    window, stride, tm = _table(fs)
+    wide = torch.from_numpy(rng.standard_normal((4, 60000)).astype(np.float32)).to(dev)
+    for x in (wide[:, 4096: 4096 + 50001], wide[:, 3: 3 + 44101]):
+        got = tonepower.tone_powers(x, tm, window, stride)
+        assert torch.equal(got, tonepower.tone_powers(x.contiguous(), tm, window, stride))
+        want = tonepower.tone_powers_reference(x, tm, window, stride)
+        _max_err([got], [want], "tone_powers view")
+        for r in range(x.shape[0]):
+            assert torch.equal(tonepower.tone_powers(x[r], tm, window, stride), got[r]), r
+    before = tonepower.tone_powers.launches
+    none = tonepower.tone_powers(wide[:, :window - 5], tm, window, stride)
+    assert none.shape == (4, 0, 3) and tonepower.tone_powers.launches == before, "no window"
+    log("[2d] edge cases: probe_at at starts 0 and L - window and clamped beyond both ends, on "
+        "rows of one window, K = 0 launching nothing; tone_powers on views of a wider tensor "
+        "(rows not 16-byte aligned, n % 4 = 1) equal to their contiguous copies, no window "
+        "launching nothing; each against its plain version, every row equal to its 1-D call")
+
+
+def phase2d_frontend(drops: dict) -> dict:
+    """``probe_at`` and ``tone_powers`` against their plain versions on the
+    card (rtol = atol = 2e-4) at every call the main paths hand them
+    (recorded as the paths run), each row of a batched call bit-equal to its
+    1-D call; then the edge cases.  At the first call of each path: times
+    per call of kernel, plain version and the library product in turns, the
+    bound and the share of it."""
+    calls = _record_frontend_calls(drops)
+    fns = _frontend_fns()
+    worst = {name: 0.0 for name in fns}
+    n_rows = {name: 0 for name in fns}
+    for name, recorded in calls.items():
+        kernel, plain = fns[name]
+        for path, args in recorded:
+            got = kernel(*args)
+            worst[name] = max(worst[name], _max_err([got], [plain(*args)], f"{name} {path}"))
+            if args[0].dim() == 2:
+                for r in range(args[0].shape[0]):
+                    one = (kernel(args[0][r], args[1][r], *args[2:]) if name == "probe_at"
+                           else kernel(args[0][r], *args[1:]))
+                    assert torch.equal(one, got[r]), (name, path, r)
+                n_rows[name] += args[0].shape[0]
+    log(f"[2d] every recorded call of the main paths within rtol = atol = {RTOL} of its plain "
+        f"version: { {k: len(v) for k, v in calls.items()} } calls, largest error {worst}; rows "
+        f"of the batched calls each bit-equal to its 1-D call: {n_rows}")
+    out = {name: [] for name in fns}
+    for name, path, shape, args in _frontend_timed(calls):
+        kernel, plain = fns[name]
+        ms = _time_turns({"kernel": lambda: kernel(*args), "plain": lambda: plain(*args),
+                          "library": _frontend_library(name, args)}, runs=5, calls=5)
+        x = args[0]
+        rows = x.shape[0] if x.dim() == 2 else 1
+        if name == "probe_at":
+            bound_ms, bound_by = _probe_bound(x, args[1], args[2])
+        else:
+            from axctdprocessor_tpu_torch.ops import tonepower
+
+            n_win = tonepower.n_windows(x.shape[-1], args[2], args[3])
+            bound_ms, bound_by = _powers_bound(rows, x.shape[-1], args[2], n_win)
+        rec = dict(shape=shape, path=path, rows=rows, ms=ms["kernel"], plain_ms=ms["plain"],
+                   library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms["kernel"], device_ms=None)
+        out[name].append(rec)
+        log(f"[2d] {name} {shape}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"library product {rec['library_ms']:.4f} ms, bound {1e3 * bound_ms:.2f} us "
+            f"({bound_by}), share of bound {rec['share_of_bound']:.3f}")
+    _frontend_edge_cases(torch.device("cuda"))
+    return dict(shapes=out, max_abs_err=worst)
+
+
+def phase2e_batched_rows(drops: dict) -> None:
+    """The batched front end against its 1-D calls, bit for bit (every
+    output, floats and integers): the 600 s drop's 26 segments in one pass
+    (the prestaged ``fused`` forward's call) and in groups of 4 (the
+    segmented decode's) against each segment alone (the stream decoder's
+    call); the archive's 64 rows through ``FusedDecoder.stage1`` in one pass
+    against each row as a batch of one, and row 0 as a 1-D call.  The rows
+    are conditioned once, as a batch, first: the conditioning's DC mean is a
+    sum over each row, whose order of summation on the card depends on the
+    batch's shape (it was so before this phase, and the batch paths
+    condition a batch as one tensor); what follows is held row by row."""
+    from axctdprocessor_tpu_torch.models import engine, segmented
+    from axctdprocessor_tpu_torch.parallel import batch
+    from axctdprocessor_tpu_torch.utils.wavio import read_wav_raw16
+
+    raw, fs = read_wav_raw16(drops["wav"])
+    st = segmented.prestage_waveform(raw, fs, device="cuda", fused=True)
+    p, model = st.plan, st.plan.model
+    rows = st.ext_all.reshape(-1, st.ext_all.shape[-1])[: p.n_seg]
+    offs = model._offsets(0, p.n_seg, rows.device)
+    with torch.inference_mode():
+        every = model.segment(rows, offs, p.dc, p.peak, p.n_raw)
+        groups = [model.segment(rows[i: i + 4], offs[i: i + 4], p.dc, p.peak, p.n_raw)
+                  for i in range(0, p.n_seg, 4)]
+        for i in range(p.n_seg):
+            alone = model.segment(rows[i], i * model.seg_len, p.dc, p.peak, p.n_raw)
+            group = groups[i // 4]
+            for j, t in enumerate(alone):
+                assert torch.equal(every[j][i], t), ("one pass", i, j)
+                assert torch.equal(group[j][i % 4], t), ("groups of 4", i, j)
+    log(f"[2e] the 600 s drop's {p.n_seg} segments ({p.wire} wire) in one pass and in groups of "
+        f"4: every output of every segment bit-equal to the segment alone")
+    pcms, fs_b = drops["batch"], drops["batch_fs"]
+    n = pcms.shape[1]
+    plan = batch.BatchPlan(pcms.dtype, n, fs_b, None, "int16", "cuda")
+    dev = plan.dev
+    nv = torch.full((pcms.shape[0],), n, dtype=torch.int64, device=dev)
+    x = engine.conditioned(engine.to_device(plan.encode(pcms), dev), nv)
+    with torch.inference_mode():
+        s1 = plan.model.stage1(x, nv)
+        for r in range(x.shape[0]):
+            one = plan.model.stage1(x[r: r + 1], nv[r: r + 1])
+            for key, v in s1.items():
+                assert torch.equal(one[key][0], v[r]), ("archive row", r, key)
+        one_d = plan.model.stage1(x[0], nv[0])
+        for key, v in s1.items():
+            assert torch.equal(one_d[key], v[0]), ("archive row 0, 1-D", key)
+    log(f"[2e] the archive's {x.shape[0]} rows, conditioned on the card, through "
+        f"FusedDecoder.stage1 in one pass: every output of every row ({', '.join(s1)}) bit-equal "
+        f"to the row as a batch of one; row 0 also to the 1-D call")
+
+
+def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict) -> None:
     """``torch.profiler`` runs, after every wall: a process that has run the
     profiler launches kernels more slowly from then on, which would load the
     walls of phases 3-9.  One segmented, one monolithic and one time-sharded
-    decode, one batch of 8 rows and one pipelined run of 2 x 8, then the
-    kernels' device times at each
-    phase-2 and phase-2b shape."""
+    decode, one prestaged ``fused`` decode, one batch of 8 rows and one
+    pipelined run of 2 x 8, then the kernels' device times at each phase-2,
+    phase-2b and phase-2d shape."""
     from axctdprocessor_tpu_torch.models import engine, segmented
-    from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.ops import chain, tonepower
     from axctdprocessor_tpu_torch.parallel import batch, pipeline, timeshard
     from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
 
     raw, fs = seg["raw"], seg["fs"]
     log("[10] 600 s segmented decode: "
         + profile_run(lambda: segmented.decode_waveform_segmented(raw, fs, device="cuda")))
+    staged = segmented.prestage_waveform(raw, fs, device="cuda", fused=True)
+    staged.decode()
+    log("[10] 600 s prestaged decode (fused: every segment in one pass), int8 wire: "
+        + profile_run(staged.decode))
+    del staged
     with _frame_sync_watched() as frame_calls:
         log("[10] 600 s monolithic decode: "
             + profile_run(lambda: engine.decode_waveform(raw, fs, device="cuda",
@@ -905,7 +1353,8 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict) -> None:
     floor = _device_total_ms(_empty_kernel, calls=20)
     log("[10] an empty kernel (torch.cuda._sleep(0)), the launch floor: device "
         + ("not measured" if floor is None else f"{floor:.4f} ms"))
-    for name, shape, meta, fns in _chain_timed(_record_chain_calls(drops)):
+    chain_calls = _record_chain_calls(drops)
+    for name, shape, meta, fns in _chain_timed(chain_calls):
         rec = next(recs[name])
         assert rec["shape"] == shape, (rec["shape"], shape)
         rec["device_ms"] = _device_ms(fns["kernel"], CHAIN_IN_TRACE[name], calls=10)
@@ -922,6 +1371,25 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict) -> None:
                 ("its jump tables alone (jump_levels)", "jump_tables_device_ms"),
                 ("an empty kernel", "launch_floor_device_ms")))
         log(f"[10] {name} {shape}: device {text}")
+    shape, levels, start, k_walk, first = _chain_walk_args(chain_calls)
+    del chain_calls
+    rec = ck["chain_walk"][0]
+    assert rec["shape"] == shape, (rec["shape"], shape)
+    rec["device_ms"] = _device_ms(lambda: chain.chain_walk(levels, start, k_walk, first),
+                                  "chain_walk_kernel", calls=10)
+    log(f"[10] chain_walk alone {shape}: device {_ms_text(rec['device_ms'])}")
+    del levels
+    fcalls = _record_frontend_calls(drops)
+    recs = {name: iter(r) for name, r in fk["shapes"].items()}
+    for name, path, shape, args in _frontend_timed(fcalls):
+        rec = next(recs[name])
+        assert rec["shape"] == shape, (rec["shape"], shape)
+        kernel = _frontend_fns()[name][0]
+        rec["device_ms"] = _device_ms(lambda: kernel(*args), FRONTEND_IN_TRACE[name], calls=10)
+        rec["share_of_bound_device"] = (rec["bound_ms"] / rec["device_ms"]
+                                        if rec["device_ms"] else None)
+        log(f"[10] {name} {shape}: device " + ("not measured" if rec["device_ms"] is None else
+            f"{rec['device_ms']:.4f} ms, share of bound {rec['share_of_bound_device']:.3f}"))
 
 
 def _ms_text(ms) -> str:
@@ -1890,6 +2358,40 @@ def _chain_entry(name: str, recs: list) -> dict:
             "shapes": [{key: r[key] for key in r} for r in recs]}
 
 
+# the path whose run gives a front-end kernel's ``launches``: the monolithic
+# decode for the probe, the segmented one (``"auto"`` at 600 s) for the
+# raw powers, which the monolithic decode does not run
+FRONTEND_MAIN_PATH = {"probe_at": "monolithic 600 s", "tone_powers": "segmented 600 s"}
+
+
+def _frontend_entry(name: str, fk: dict) -> dict:
+    """A front-end kernel's entry of the ``kernels`` line: launches on every
+    path, and the numbers at the first timed shape (the 600 s monolithic
+    decode's probe; the 600 s segmented decode's first group of powers)."""
+    recs = fk["shapes"][name]
+    main_rec = recs[0]
+    return {"name": name, "route": "cuda", "source": FRONTEND_SOURCE[name],
+            "replaces": FRONTEND_REPLACES[name],
+            "launches": PATH_LAUNCHES[FRONTEND_MAIN_PATH[name]][name],
+            "launches_per_path": _per_path(name), "max_abs_err": fk["max_abs_err"][name],
+            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+            "library_ms": main_rec["library_ms"], "device_ms": main_rec["device_ms"],
+            "shape": main_rec["shape"], "shapes": [dict(r) for r in recs]}
+
+
+def _chain_walk_entry(rec: dict) -> dict:
+    """``chain_walk``'s entry (the general map's walk, on no decode path:
+    ``read_counts`` holds its launches to 0 on every path): timed alone on the
+    jump tables of the 600 s decode's largest frame-sync table."""
+    return {"name": "chain_walk", "route": "cuda", "source": CHAIN_SOURCE,
+            "replaces": "axctdprocessor_tpu/ops/chain.py:216-245", "launches": 0,
+            "launches_per_path": {path: 0 for path in PATH_LAUNCHES}, "max_abs_err": 0,
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "device_ms": rec["device_ms"],
+            "shape": rec["shape"]}
+
+
 def main() -> int:
     smi, kind = phase0_device()
     phase1_build()
@@ -1904,10 +2406,22 @@ def main() -> int:
             phase2b_chain(drops)
             mark("2b")
             return 3
+        if sys.argv[1:] == ["--only-frontend"]:  # a development run: no result lines
+            phase2c_fft(drops)
+            mark("2c")
+            phase2d_frontend(drops)
+            mark("2d")
+            phase2e_batched_rows(drops)
+            mark("2e")
+            return 3
         k = phase2_kernel(drops)
         mark("2")
         ck = phase2b_chain(drops)
         mark("2b")
+        phase2c_fft(drops)
+        fk = phase2d_frontend(drops)
+        phase2e_batched_rows(drops)
+        mark("2c-2e")
         mono = phase3_end_to_end(drops)
         phase4_highrate(tmp)
         phase5_cli(tmp, drops["wav"])
@@ -1928,7 +2442,7 @@ def main() -> int:
         wires = phase9e_wires(tmp, drops)
         phase9f_sosfilt(drops)
         mark("9e-9f")
-        phase10_profiles(drops, seg, k, ck)
+        phase10_profiles(drops, seg, k, ck, fk)
         mark("10")
     assert "jax" not in sys.modules, "the port loaded jax"
     loaded = [m for m in sys.modules
@@ -1954,7 +2468,9 @@ def main() -> int:
             "bound_by", "share_of_bound", "share_of_bound_device", "dft_core_matmul_ms",
             "max_abs_err")}
             for s in k["shapes"]]}, launches_per_path=_per_path("tone_ratios"))]
-        + [_chain_entry(name, ck[name]) for name in CHAIN_REPLACES]}))
+        + [_frontend_entry(name, fk) for name in FRONTEND_REPLACES]
+        + [_chain_entry(name, ck[name]) for name in CHAIN_REPLACES]
+        + [_chain_walk_entry(ck["chain_walk"][0])]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -542,3 +542,138 @@ def test_batched_back_half_on_card_rows_equal_rows_alone():
                      for row in full.cpu().numpy()]
     for g, c in zip(outs["cuda"], outs["cpu"]):
         assert g.status == c.status == 2 and g.metadata == c.metadata
+
+
+BIT_FREQS = [400.0, 800.0]  # the default mark and space tones
+
+
+def _probe_case(rows, length, k, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((rows, length)).astype(np.float32)).cuda()
+    starts = torch.from_numpy(np.sort(rng.integers(-50, length + 50, (rows, k)), axis=1)).cuda()
+    trig = torch.from_numpy(goertzel.tone_matrix(39, BIT_FREQS, 44100.0, np.float32)).cuda()
+    return x, starts, trig
+
+
+@pytest.mark.cuda
+def test_probe_at_kernel_vs_plain_and_rows_bitwise():
+    """``probe_at`` over 8 rows: one launch, within 2e-4 of the plain version
+    (``tone_power_at``), every row bit-equal to the 1-D call on that row, and
+    on rows that are a view of a wider tensor."""
+    _need_cuda()
+    x, starts, trig = _probe_case(8, 200_000, 3_000, 11)
+    before = goertzel.probe_at.launches
+    got = goertzel.probe_at(x, starts, 39, trig)
+    assert goertzel.probe_at.launches == before + 1 and got.shape == (8, 3_000, 2)
+    want = goertzel.tone_power_at(x, starts, 39, trig)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-4, atol=2e-4)
+    for r in range(8):
+        assert torch.equal(goertzel.probe_at(x[r], starts[r], 39, trig), got[r]), r
+    view = x[:, 1_000: 150_001]
+    np.testing.assert_allclose(goertzel.probe_at(view, starts, 39, trig).cpu().numpy(),
+                               goertzel.tone_power_at(view, starts, 39, trig).cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    assert torch.equal(goertzel.probe_at(view, starts, 39, trig),
+                       goertzel.probe_at(view.contiguous(), starts, 39, trig))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [5_000, 39])
+def test_probe_at_kernel_edges(length):
+    """Starts of 0 and L - window, and clamped beyond both ends; rows one
+    window long; K = 0 launches nothing."""
+    _need_cuda()
+    x, _, trig = _probe_case(2, length, 1, 12)
+    last = length - 39
+    starts = torch.tensor([[0, last, last + 1, length + 100, -5]] * 2, device="cuda")
+    got = goertzel.probe_at(x, starts, 39, trig)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               goertzel.tone_power_at(x, starts, 39, trig).cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    assert torch.equal(got, goertzel.probe_at(x, starts.clamp(0, last), 39, trig))
+    before = goertzel.probe_at.launches
+    assert goertzel.probe_at(x, starts[:, :0], 39, trig).shape == (2, 0, 2)
+    assert goertzel.probe_at.launches == before
+    with pytest.raises(RuntimeError, match="window"):
+        goertzel.probe_at(x[:, :20].contiguous(), starts, 39, trig)
+
+
+@pytest.mark.cuda
+def test_tone_powers_kernel_vs_plain_and_rows_bitwise():
+    """``tone_powers`` over 8 rows that are a view of a wider tensor (the
+    segmented path's bodies): one launch, within 2e-4 of the plain tiled
+    powers, every row bit-equal to the 1-D call, and equal to the powers of
+    a contiguous copy; no window launches nothing."""
+    _need_cuda()
+    fs, window, stride = 44100.0, 4410, 1764
+    rng = np.random.default_rng(9)
+    wide = torch.from_numpy(np.stack([_signal(fs, 30 * 44100, 0.1 * b, rng)
+                                      for b in range(8)])).cuda()
+    x = wide[:, 4096: 4096 + 20 * 44100 + 5]
+    tm = torch.from_numpy(goertzel.tone_matrix(window, FREQS, fs, np.float32)).cuda()
+    before = tonepower.tone_powers.launches
+    got = tonepower.tone_powers(x, tm, window, stride)
+    assert tonepower.tone_powers.launches == before + 1
+    n_win = tonepower.n_windows(x.shape[-1], window, stride)
+    assert got.shape == (8, n_win, 3)
+    want = tonepower.tone_powers_reference(x, tm, window, stride)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-4, atol=2e-4)
+    assert torch.equal(got, tonepower.tone_powers(x.contiguous(), tm, window, stride))
+    for r in range(8):
+        assert torch.equal(tonepower.tone_powers(x[r], tm, window, stride), got[r]), r
+    before = tonepower.tone_powers.launches
+    assert tonepower.tone_powers(x[:, :100], tm, window, stride).shape == (8, 0, 3)
+    assert tonepower.tone_powers.launches == before
+
+
+@pytest.mark.cuda
+def test_segment_group_on_card_rows_equal_segments_alone():
+    """A group of 4 segments of a 100 s drop in one pass on the card: every
+    output of every segment bit-equal to the segment alone."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+
+    pcm, _ = simulator.synthesize(simulator.SimSpec(duration=100.0, profile_start=33.0, seed=91))
+    raw = np.round(pcm * 28000 / np.max(np.abs(pcm))).astype(np.int16)
+    model = segmented.SegmentedDecoder.from_config(DecoderConfig(), 44100.0, False, "cuda")
+    exts = np.zeros((4, model.in_len), np.int16)
+    for k in range(4):
+        lo = k * model.seg_len - segmented.LEFT_HALO
+        s_lo, s_hi = max(lo, 0), min(lo + model.in_len, len(raw))
+        exts[k, s_lo - lo: s_hi - lo] = raw[s_lo:s_hi]
+    ext = torch.from_numpy(exts).cuda()
+    dc = torch.full((), float(np.mean(raw)), device="cuda")
+    peak = torch.full((), float(np.max(np.abs(raw.astype(np.int32)))), device="cuda")
+    with torch.inference_mode():
+        group = model.segment(ext, torch.arange(4, device="cuda") * model.seg_len, dc, peak,
+                              len(raw))
+        for k in range(4):
+            alone = model.segment(ext[k], k * model.seg_len, dc, peak, len(raw))
+            for g, a in zip(group, alone):
+                assert torch.equal(g[k], a), k
+
+
+@pytest.mark.cuda
+def test_stage1_on_card_rows_equal_rows_alone():
+    """``FusedDecoder.stage1`` over three rows, conditioned on the card as a
+    batch, in one pass: every output of every row bit-equal to the row as a
+    batch of one (the conditioning's row sums are taken once: their order of
+    summation on the card depends on the batch's shape)."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+
+    rows = _three_drops()
+    cfg = DecoderConfig()
+    n = rows.shape[1]
+    dims = engine.EngineDims.for_waveform(n, 44100.0, cfg.bitrate, engine.probe_window(cfg, 44100.0))
+    model = engine.FusedDecoder.from_numpy_tables(
+        engine.engine_tables(cfg, 44100.0, dims), dims, 44100.0, bitrate=float(cfg.bitrate),
+        bit_inset=cfg.bit_inset, device="cuda")
+    nv = torch.full((3,), n, dtype=torch.int64, device="cuda")
+    x = engine.conditioned(torch.from_numpy(rows).cuda(), nv)
+    with torch.inference_mode():
+        s1 = model.stage1(x, nv)
+        for r in range(3):
+            one = model.stage1(x[r: r + 1], nv[r: r + 1])
+            for key, v in s1.items():
+                assert torch.equal(one[key][0], v[r]), (r, key)
