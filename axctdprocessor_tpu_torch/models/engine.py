@@ -139,15 +139,63 @@ def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
     return out.reshape(*packed.shape[:-1], -1)[..., :n]
 
 
+EXACT_CHUNK = 256  # samples of at most 2^15 in magnitude: a chunk's sum stays below 2^23
+SHORT_SAMPLES = (torch.int8, torch.uint8, torch.int16)  # dtypes of at most 16 bits
+
+
+def _exact_chunk(n: int) -> int:
+    """Samples a chunk of :func:`integer_row_sums`: a divisor of `n` from 128
+    to ``EXACT_CHUNK`` where there is one (one reduction, no tail; 250 for
+    the 60 s and 600 s rows at 44.1 kHz), else ``EXACT_CHUNK``."""
+    return next((c for c in range(EXACT_CHUNK, EXACT_CHUNK // 2 - 1, -1) if n % c == 0),
+                EXACT_CHUNK)
+
+
+def integer_row_sums(pcm: torch.Tensor, xf: torch.Tensor) -> torch.Tensor:
+    """The exact sums of integer PCM along its last dimension, as float64
+    (integers below 2^53, so exact), given its float32 copy `xf`.  For
+    samples of at most 16 bits (int8, uint8, int16; :func:`conditioned`
+    hands the int4 wire's levels over as int8) no wider copy of the waveform
+    is made: `xf` is summed in chunks (:func:`_exact_chunk`), whose float32
+    partial sums are integers below 2^24 and so exact in any order, then the
+    chunks' sums in float64.  A wider integer dtype is summed by ``torch.sum``
+    in int64, which widens a copy of it.  An exact sum does not depend on the
+    order of summation: a row's sum is the same in any batch and on any
+    device."""
+    if pcm.dtype not in SHORT_SAMPLES:
+        return pcm.sum(-1, dtype=torch.int64).to(torch.float64)
+    n = xf.shape[-1]
+    c = _exact_chunk(n)
+    m = n // c
+    parts = [xf[..., : m * c].unfold(-1, c, c).sum(-1)] if m else []
+    if m * c < n:
+        parts.append(xf[..., m * c:].sum(-1, keepdim=True))
+    chunks = parts[0] if len(parts) == 1 else torch.cat(parts, -1) if parts else xf
+    return chunks.sum(-1, dtype=torch.float64)
+
+
+def exact_mean(total: torch.Tensor, n_valid) -> torch.Tensor:
+    """The float32 mean of rows from their exact sums (float64): the float64
+    sum divided by the float64 count, rounded once to float32, in one
+    operation (computed in float64, written to a float32 output)."""
+    out = torch.empty(torch.broadcast_shapes(total.shape, n_valid.shape), dtype=torch.float32,
+                      device=total.device)
+    return torch.div(total, n_valid, out=out)
+
+
 def condition_integer(pcm: torch.Tensor, n: int, n_valid) -> torch.Tensor:
     """DC removal + peak normalization of raw integer PCM (reference
     AXCTDprocessor.py:55-57) along the last dimension (a batch conditions
     row by row); ``n_valid`` (the true length of each zero-padded buffer)
-    keeps the mean exact and zeroes the padded tail."""
+    keeps the mean exact and zeroes the padded tail.  The mean is the exact
+    sum over the true length, rounded once to float32 (:func:`exact_mean`),
+    and the peak an exact max: a row conditioned in a batch is the row
+    conditioned alone bit for bit, on the CPU and on the card, and the card
+    equals the CPU."""
     xf = pcm.to(torch.float32)
     nv = n_valid.unsqueeze(-1)
-    mean = xf.sum(-1, keepdim=True) / nv.to(torch.float32)
-    peak = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1.0)
+    mean = exact_mean(integer_row_sums(pcm, xf), n_valid).unsqueeze(-1)
+    peak = torch.linalg.vector_norm(xf, ord=math.inf, dim=-1, keepdim=True).clamp_(min=1.0)
     x = (xf - mean) / peak
     return torch.where(torch.arange(n, device=x.device) < nv, x, 0.0)
 
@@ -572,7 +620,8 @@ def conditioned(pcm: torch.Tensor, n_valid) -> torch.Tensor:
     """Wire-format PCM as the float signal the decode runs on: packed int4
     unpacked, integers conditioned on the device, floats as they are."""
     if pcm.dtype == torch.uint8:  # packed int4 wire
-        pcm = unpack_int4(pcm, 2 * pcm.shape[-1])
+        # levels -8..7: int8 keeps the conditioning's sums exact without a wider copy
+        pcm = unpack_int4(pcm, 2 * pcm.shape[-1]).to(torch.int8)
     if not pcm.is_floating_point():
         pcm = condition_integer(pcm, pcm.shape[-1], n_valid)
     return pcm

@@ -12,11 +12,18 @@
 //
 // tone_powers: the same kernel's raw powers, (n_win, 3) or (rows, n_win, 3),
 // of a (n,) or (rows, n) ``x`` whose last dimension is contiguous (rows may
-// lie further apart: a view of a wider tensor).
+// lie further apart: a view of a wider tensor).  The block shape (``warps``,
+// ``wpw``: warps per block, windows per warp) (0, 0) is the launcher's
+// choice (the standard shape, or a smaller one for a grid under one wave),
+// one of tone_powers_shapes() a shape forced, to compare with it: every
+// shape gives the same bits.  tone_powers_shape(rows, n_win) is the
+// launcher's choice (warps, wpw, blocks) on the current device.
 //
 // probe_at: the (K, 2) or (rows, K, 2) mark and space magnitudes of the
 // frames of a (L,) or (rows, L) ``x`` (last dimension contiguous) at the
-// int64 ``starts`` of shape (K,) or (rows, K), against the (window, 4) table.
+// int64 ``starts`` of shape (K,) or (rows, K), against the (window, 4) table
+// (at most 3072 rows: 48 KB of shared memory beside the staged span).
+// probe_geometry() is (probes a block owns, floats of its staged span).
 //
 // chain_walk_segments: the bit-edge chain of a (rows, m) int64 successor
 // table, returned as the (rows, k) int64 chain; its scratch is one uint8
@@ -37,7 +44,12 @@ extern "C" int axctd_tone_ratios_launch(const float* x, int rows, long long n,
                                         float* r7500, void* stream);
 extern "C" int axctd_tone_powers_launch(const float* x, int rows, long long ld, long long n,
                                         const float* tm, int window, int stride, int n_win,
-                                        float* powers, void* stream);
+                                        int warps, int wpw, float* powers, void* stream);
+extern "C" int axctd_tone_powers_shapes(int* warps, int* wpw, int cap);
+extern "C" int axctd_tone_powers_shape_known(int warps, int wpw);
+extern "C" int axctd_tone_powers_shape(int rows, int n_win, int* warps, int* wpw,
+                                       long long* blocks);
+extern "C" void axctd_probe_geometry(int* run, int* span);
 extern "C" int axctd_probe_launch(const float* x, long long ld, long long len, int rows,
                                   const long long* starts, long long k, const float* tab,
                                   int window, float* out, void* stream);
@@ -59,6 +71,32 @@ extern "C" const char* axctd_cuda_error_string(int code);
 constexpr int64_t kMaxSegments = 3;  // tone_ratios.cu: windows of at most 3 strides
 constexpr int64_t kMaxFirst = 1024;  // chain.cu: chain heads per block
 constexpr int64_t kMaxProbeWindow = 3072;  // probe.cu: the table in 48 KB of shared memory
+
+std::vector<std::tuple<int64_t, int64_t>> tone_powers_shapes() {
+  int warps[16], wpw[16];
+  const int n = axctd_tone_powers_shapes(warps, wpw, 16);
+  TORCH_CHECK(n <= 16, "tone_powers_shapes: more shapes than expected");
+  std::vector<std::tuple<int64_t, int64_t>> shapes;
+  for (int i = 0; i < n; ++i) shapes.emplace_back(warps[i], wpw[i]);
+  return shapes;
+}
+
+std::tuple<int64_t, int64_t, int64_t> tone_powers_shape(int64_t rows, int64_t n_win) {
+  TORCH_CHECK(rows > 0 && rows < (1LL << 31) && n_win > 0 && n_win < (1LL << 31),
+              "tone_powers_shape: rows and n_win must be positive");
+  int warps = 0, wpw = 0;
+  long long blocks = 0;
+  const int err = axctd_tone_powers_shape(static_cast<int>(rows), static_cast<int>(n_win), &warps,
+                                          &wpw, &blocks);
+  TORCH_CHECK(err == 0, "tone_powers_shape failed: ", axctd_cuda_error_string(err));
+  return {warps, wpw, blocks};
+}
+
+std::tuple<int64_t, int64_t> probe_geometry() {
+  int run = 0, span = 0;
+  axctd_probe_geometry(&run, &span);
+  return {run, span};
+}
 
 std::vector<torch::Tensor> tone_ratios(torch::Tensor x, torch::Tensor tm,
                                        int64_t window, int64_t stride,
@@ -109,8 +147,13 @@ static void check_tone_args(const torch::Tensor& x, torch::Tensor& tm, int64_t w
 }
 
 torch::Tensor tone_powers(torch::Tensor x, torch::Tensor tm, int64_t window, int64_t stride,
-                          int64_t n_win) {
+                          int64_t n_win, int64_t warps, int64_t wpw) {
   check_tone_args(x, tm, window, stride, n_win, "tone_powers");
+  TORCH_CHECK((warps == 0 && wpw == 0) ||
+                  (warps > 0 && warps < 64 && wpw > 0 && wpw < 64 &&
+                   axctd_tone_powers_shape_known(static_cast<int>(warps), static_cast<int>(wpw))),
+              "tone_powers: the block shape (warps, wpw) must be (0, 0), the launcher's choice, "
+              "or one of tone_powers_shapes()");
   TORCH_CHECK((x.dim() == 1 || x.dim() == 2) && x.stride(-1) == 1 &&
                   (x.dim() == 1 || x.size(0) <= 1 || x.stride(0) >= x.size(1)),
               "tone_powers: x must be (n,) or (rows, n) with its last dimension contiguous");
@@ -124,7 +167,8 @@ torch::Tensor tone_powers(torch::Tensor x, torch::Tensor tm, int64_t window, int
   const int err = axctd_tone_powers_launch(
       x.data_ptr<float>(), static_cast<int>(rows), ld, x.size(-1), tm.data_ptr<float>(),
       static_cast<int>(window), static_cast<int>(stride), static_cast<int>(n_win),
-      out.data_ptr<float>(), at::cuda::getCurrentCUDAStream().stream());
+      static_cast<int>(warps), static_cast<int>(wpw), out.data_ptr<float>(),
+      at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "tone_powers launch failed: ", axctd_cuda_error_string(err));
   return out;
 }
@@ -250,7 +294,13 @@ torch::Tensor chain_walk(torch::Tensor levels, int64_t start, int64_t k, int64_t
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("tone_ratios", &tone_ratios, "Fused tone powers, box mean and log10 ratios (CUDA)");
   m.def("tone_powers", &tone_powers, "Raw tone powers of every strided window (CUDA)");
+  m.def("tone_powers_shapes", &tone_powers_shapes,
+        "The block shapes (warps, windows per warp) tone_powers may take, the standard first");
+  m.def("tone_powers_shape", &tone_powers_shape,
+        "tone_powers' block shape and blocks for (rows, n_win) on the current device");
   m.def("probe_at", &probe_at, "Mark and space magnitudes of frames at given starts (CUDA)");
+  m.def("probe_geometry", &probe_geometry,
+        "probe_at's run (probes a block owns) and staged span (floats)");
   m.def("chain_walk_segments", &chain_walk_segments,
         "Bit-edge chain of a bounded-stride successor table by a segment-parallel walk (CUDA)");
   m.def("chain_walk_frames", &chain_walk_frames,

@@ -19,65 +19,152 @@
 // sample of a frame (187 MFLOP at 600 s, 2.8 us at 66.9 TFLOP/s).  At
 // 3.35 TB/s the bytes take about 10x as long: the kernel is bound by bytes.
 //
-// Design, simple and right: one warp per probe at a time, warps striding
-// over the rows' probes.  Lane l takes samples l, l + 32, ... of the frame
-// (one coalesced load of 32 neighbouring samples per step, the table's row
-// from shared memory as one float4), four FMA chains; then a fixed butterfly
-// of xor shuffles sums the four values over the warp, and lane 0 writes the
-// two magnitudes.  No (K, window) gather and no int64 index tensor.  The
-// sum of a probe depends only on its frame and the table: every row of a
-// (rows, K) call is bitwise the 1-D call on that row, whatever K, rows or
-// where the row lies in memory.  Samples are assumed finite.
+// Design: a block for each run of kRun consecutive probes of one row, over
+// the run's span staged in shared memory.  The grid is (runs, rows): no
+// division per probe.  The block reads its kRun starts coalesced (one
+// thread a probe), clamps them and reduces their least and greatest value.
+// The starts are bit edges, ascending and about fs / 800 apart; past the
+// row's edges the tail repeats the terminal edge (ops/chain.py), one frame
+// probed again and again.  So a run's span [min, max + window) is about
+// kRun * fs / 800 samples, and when it fits the kSpan-float buffer the
+// block stages it: 16-byte cp.async copies of its aligned interior and
+// plain loads of the at most 3 samples at either end, so nothing outside
+// the span is read and no alignment of the row is assumed.  A run whose
+// span does not fit (unsorted starts, gaps, a terminal entry clamped to
+// L - window after live edges) reads its frames straight from device
+// memory instead, with the same arithmetic.  Then each thread computes its
+// probe: four FMA chains over the frame's samples in order, the table's row
+// from shared memory as one float4 (a broadcast), and writes its two
+// magnitudes as one float2: a warp's stores are 256 contiguous bytes.
+// Several blocks on each SM (the buffer is 36 KB) overlap one block's copy
+// with another's arithmetic.
+//
+// The sum of a probe is a fixed order that depends only on its frame and
+// the table, whichever path read the frame: every row of a (rows, K) call
+// is bitwise the 1-D call on that row, whatever K, rows, the run a probe
+// falls in or where the row lies in memory.  Samples are assumed finite.
+//
+// kRun and kSpan may be set at build time (AXCTD_PROBE_RUN, AXCTD_PROBE_SPAN)
+// to compare variants.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef AXCTD_PROBE_RUN
+#define AXCTD_PROBE_RUN 128
+#endif
+#ifndef AXCTD_PROBE_SPAN
+#define AXCTD_PROBE_SPAN 9216
+#endif
+
 namespace {
 
-constexpr int kWarps = 8;  // warps per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlocksPerSm = 8;  // 2,048 threads: a full SM
+constexpr int kRun = AXCTD_PROBE_RUN;    // probes a block owns, one thread each
+constexpr int kThreads = kRun;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSpan = AXCTD_PROBE_SPAN;  // floats of the staged span
 constexpr int kMaxDevices = 64;
+constexpr long long kMaxGridX = 2147483647LL;
+constexpr long long kMaxGridY = 65535LL;
+
+static_assert(kThreads % 32 == 0 && kThreads >= 32 && kThreads <= 1024,
+              "whole warps, at most 1024 threads");
+static_assert(kSpan % 4 == 0, "the span buffer is whole 16-byte chunks");
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A float's place in its 16-byte chunk.
+__device__ __forceinline__ int word_in_chunk(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
 
 __global__ void __launch_bounds__(kThreads)
-probe_kernel(const float* __restrict__ x, long long ld, long long len,
-             const long long* __restrict__ starts, long long k, long long total,
-             const float* __restrict__ tab, int window, float* __restrict__ out) {
-  extern __shared__ float4 tab_s[];
-  for (int i = threadIdx.x; i < window; i += kThreads)
+probe_run_kernel(const float* __restrict__ x, long long ld, long long len, long long rows,
+                 const long long* __restrict__ starts, long long k, long long runs,
+                 const float* __restrict__ tab, int window, float2* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* span = reinterpret_cast<float*>(smem4);  // kSpan floats, then the table
+  float4* tab_s = smem4 + kSpan / 4;
+  __shared__ long long red_lo[kWarps], red_hi[kWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int i = t; i < window; i += kThreads)
     tab_s[i] = make_float4(tab[4 * i], tab[4 * i + 1], tab[4 * i + 2], tab[4 * i + 3]);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const long long warps = static_cast<long long>(gridDim.x) * kWarps;
+  const uint32_t span_s = static_cast<uint32_t>(__cvta_generic_to_shared(span));
   const long long last = len - window;
-  long long p = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  long long nxt = p < total ? starts[p] : 0;
-  for (; p < total; p += warps) {
-    const long long row = p / k;
-    long long s = nxt;
-    if (p + warps < total) nxt = starts[p + warps];  // the next probe's start, ahead
-    s = s < 0 ? 0 : (s > last ? last : s);
-    const float* f = x + row * ld + s;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    for (int j = lane; j < window; j += 32) {
-      const float v = f[j];
-      const float4 t = tab_s[j];
-      a0 = fmaf(v, t.x, a0);
-      a1 = fmaf(v, t.y, a1);
-      a2 = fmaf(v, t.z, a2);
-      a3 = fmaf(v, t.w, a3);
-    }
+
+  for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
+    const float* xr = x + row * ld;
+    for (long long run = blockIdx.x; run < runs; run += gridDim.x) {
+      const long long p = run * kRun + t;
+      const bool live = p < k;
+      long long s = live ? starts[row * k + p] : 0;
+      s = s < 0 ? 0 : (s > last ? last : s);
+      long long lo = live ? s : len, hi = live ? s : 0;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      a0 += __shfl_xor_sync(0xffffffffu, a0, off);
-      a1 += __shfl_xor_sync(0xffffffffu, a1, off);
-      a2 += __shfl_xor_sync(0xffffffffu, a2, off);
-      a3 += __shfl_xor_sync(0xffffffffu, a3, off);
-    }
-    if (lane == 0) {
-      out[2 * p] = sqrtf(a0 * a0 + a1 * a1);
-      out[2 * p + 1] = sqrtf(a2 * a2 + a3 * a3);
+      for (int off = 16; off > 0; off >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      }
+      if (lane == 0) {
+        red_lo[warp] = lo;
+        red_hi[warp] = hi;
+      }
+      __syncthreads();  // every thread is also done with the last run's span
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        lo = min(lo, red_lo[w]);
+        hi = max(hi, red_hi[w]);
+      }
+      const long long end = hi + window;  // one past the span's last sample
+      const bool staged = end - lo + 3 <= kSpan;  // the same on every thread
+      int pad = 0;  // span[i - lo + pad] holds sample i of the row
+      if (staged) {
+        // head [lo, a), 16-byte chunks [a, b), tail [b, end); a and b aligned
+        long long a = lo + ((4 - word_in_chunk(xr + lo)) & 3);
+        long long b = end - word_in_chunk(xr + end);
+        if (b < a) b = a = end;  // a span within one chunk: all head
+        pad = static_cast<int>((4 - (a - lo)) & 3);
+        const int nch = static_cast<int>((b - a) >> 2);
+        const uint32_t dst = span_s + 4u * static_cast<uint32_t>(a - lo + pad);
+        for (int c = t; c < nch; c += kThreads) cp_async16(dst + 16u * c, xr + a + 4 * c);
+        if (t < 3 && lo + t < a) span[t + pad] = xr[lo + t];
+        if (t >= 3 && t < 6 && b + (t - 3) < end) span[b - lo + pad + (t - 3)] = xr[b + (t - 3)];
+        cp_async_wait_all();
+      }
+      __syncthreads();
+      if (live) {
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        const float* f = staged ? span + (s - lo + pad) : xr + s;
+        if (staged) {
+#pragma unroll 4
+          for (int j = 0; j < window; ++j) {
+            const float v = f[j];
+            const float4 c = tab_s[j];
+            a0 = fmaf(v, c.x, a0);
+            a1 = fmaf(v, c.y, a1);
+            a2 = fmaf(v, c.z, a2);
+            a3 = fmaf(v, c.w, a3);
+          }
+        } else {
+#pragma unroll 4
+          for (int j = 0; j < window; ++j) {
+            const float v = __ldg(f + j);
+            const float4 c = tab_s[j];
+            a0 = fmaf(v, c.x, a0);
+            a1 = fmaf(v, c.y, a1);
+            a2 = fmaf(v, c.z, a2);
+            a3 = fmaf(v, c.w, a3);
+          }
+        }
+        out[row * k + p] = make_float2(sqrtf(fmaf(a0, a0, a1 * a1)),
+                                       sqrtf(fmaf(a2, a2, a3 * a3)));
+      }
     }
   }
 }
@@ -87,24 +174,42 @@ probe_kernel(const float* __restrict__ x, long long ld, long long len,
 extern "C" int axctd_probe_launch(const float* x, long long ld, long long len, int rows,
                                   const long long* starts, long long k, const float* tab,
                                   int window, float* out, void* stream) {
-  const long long total = static_cast<long long>(rows) * k;
-  if (total <= 0) return static_cast<int>(cudaSuccess);
+  if (rows <= 0 || k <= 0) return static_cast<int>(cudaSuccess);
   if (window <= 0 || len < window) return static_cast<int>(cudaErrorInvalidValue);
-  static int sms_of[kMaxDevices];  // read once per device
+  const int smem = static_cast<int>(sizeof(float) * kSpan + sizeof(float4) * window);
+  static int optin[kMaxDevices], granted[kMaxDevices];  // set once per device and size
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (sms_of[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+  if (optin[dev] == 0) {
+    err = cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // all of the SM's L1 as shared memory: the blocks per SM are set by it
+    err = cudaFuncSetAttribute(probe_run_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int sms = sms_of[dev];
-  const long long want = (total + kWarps - 1) / kWarps;
-  const int blocks = static_cast<int>(want < static_cast<long long>(sms) * kBlocksPerSm
-                                          ? want : static_cast<long long>(sms) * kBlocksPerSm);
-  const size_t smem = sizeof(float4) * static_cast<size_t>(window);
-  probe_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, ld, len, starts, k, total, tab, window, out);
+  if (smem > optin[dev]) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > granted[dev]) {
+    err = cudaFuncSetAttribute(probe_run_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted[dev] = smem;
+  }
+  const long long runs = (k + kRun - 1) / kRun;
+  const dim3 grid(static_cast<unsigned>(runs < kMaxGridX ? runs : kMaxGridX),
+                  static_cast<unsigned>(rows < kMaxGridY ? rows : kMaxGridY));
+  probe_run_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, ld, len, rows, starts, k, runs, tab, window, reinterpret_cast<float2*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The geometry of a launch: the probes a block owns (one run) and the floats
+// of its staged span; a run is staged when its clamped starts' span plus its
+// window and 3 floats of alignment fits.  Test code builds its edge cases
+// from these.
+extern "C" void axctd_probe_geometry(int* run, int* span) {
+  *run = kRun;
+  *span = kSpan;
 }

@@ -33,15 +33,18 @@
 //    every copy starts at the 16-byte boundary at or below it and the
 //    reader offsets inside the staged row: one code path.  Samples past n
 //    are zero-filled by the copy (its source size), as are tiles before 0.
-//  * Register blocking.  A warp owns kWpw = 16 consecutive windows.  In a
-//    step of 32 samples, lane l takes sample l of every tile: it reads the
-//    kWpw + n_seg - 1 tiles the warp's windows touch once from shared
+//  * Register blocking.  A block is WARPS warps (8 in the standard shape)
+//    and a warp owns WPW consecutive windows (16 in the standard shape;
+//    template parameters, smaller for small grids below).  In a step of 32
+//    samples, lane l takes sample l of every tile: it reads the
+//    WPW + n_seg - 1 tiles the warp's windows touch once from shared
 //    memory and feeds each to the n_seg windows that use it, with one
 //    8-byte table read per tone and segment (conflict-free at a 24-byte
-//    lane stride): 288 FMAs per 27 shared loads.  The next step's operands
-//    are loaded while this step's FMAs run.  The third segment is skipped
-//    past its last nonzero row.  f32 FMAs on the CUDA cores: no TF32.  The
-//    kWpw x 6 partial sums are then reduced across the warp by halving
+//    lane stride): at WPW 16, 288 FMAs per 27 shared loads.  The next
+//    step's operands are loaded while this step's FMAs run.  The third
+//    segment is skipped past its last nonzero row.  f32 FMAs on the CUDA
+//    cores: no TF32.  The
+//    WPW x 6 partial sums are then reduced across the warp by halving
 //    exchanges (each lane keeps half of what it holds and sends the other
 //    half), a fixed tree.
 //
@@ -59,6 +62,21 @@
 // does; callers mask it.  Samples are assumed finite: a zero table entry
 // times a non-finite sample is skipped here in the third segment's zero
 // half, where the plain version's matmul would propagate it.
+//
+// Small grids (tone_powers only).  The standard block computes 8 x 16 = 128
+// windows and owns 123; one block fits an SM (the table is 107 KB at 44.1
+// kHz), so a grid under one wave of the card's SMs is as slow as one block's
+// walk: a group of 4 segments of 23.56 s is 20 blocks on 132 SMs.  There the
+// launcher takes the fewest windows a warp (8 warps of 2, 3, 4, 5, 6 or 8)
+// whose grid still fits in one wave: more blocks, each a walk shorter by the
+// windows a warp.  The 5 halo windows are then a
+// larger share of a block's arithmetic: kLocal / kRun - 1 = 4% at 128
+// windows a block, 8% at 64, 12% at 48, 14% at 40, 19% at 32, 26% at 24,
+// 45% at 16; under one wave that costs blocks, not time.  The bits cannot move: a window's sum is its
+// lane's FMA chain over steps and segments, the same in any shape, then
+// reduce_lanes' xor butterfly over lane bits 16, 8, 4, 2, 1, the same tree
+// for any count of values (each sum is mine + my partner's, and addition
+// commutes).  tone_ratios keeps the standard shape.
 //
 // Batch: grid (ceil(n_win / kRun), rows), blockIdx.y the row, 64-bit row
 // offsets (64 rows of 60 s at 44.1 kHz are 169M samples).  Rows lie `ld`
@@ -84,26 +102,36 @@
 
 namespace {
 
-constexpr int kWpw = 16;                // windows per warp (register block)
-constexpr int kWarps = 8;               // warps per block
-constexpr int kThreads = kWarps * 32;
+constexpr int kWarpsStd = 8;            // warps per block, the standard shape
+constexpr int kWpwStd = 16;             // windows per warp (register block), the standard shape
+// the ratios' one shape: the standard one, unless a build sets another
+// (AXCTD_TONE_RATIOS_WARPS, AXCTD_TONE_RATIOS_WPW) to compare with it
+#ifndef AXCTD_TONE_RATIOS_WARPS
+#define AXCTD_TONE_RATIOS_WARPS 8
+#endif
+#ifndef AXCTD_TONE_RATIOS_WPW
+#define AXCTD_TONE_RATIOS_WPW 16
+#endif
+constexpr int kWarpsRatios = AXCTD_TONE_RATIOS_WARPS;
+constexpr int kWpwRatios = AXCTD_TONE_RATIOS_WPW;
 constexpr int kSmooth = 5;              // trailing windows in the box mean
 constexpr int kTaps = kSmooth + 1;
 constexpr int kCols = 6;                // cos/sin for 400, 7500, dead
-constexpr int kLocal = kWarps * kWpw;   // windows whose powers a block computes
-constexpr int kRun = kLocal - kSmooth;  // windows a block owns
 constexpr int kKc = 64;                 // samples of every tile per stage
 constexpr int kPitch = kKc + 4;         // staged row: a 16-byte aligned span
 constexpr int kChunks = kPitch / 4;     // 16-byte copies per staged row
 constexpr int kStages = 3;              // stages in the copy ring
-constexpr int kMaxSeg = 3;
 constexpr int kMaxDevices = 64;
 
-static_assert(kLocal > kSmooth, "a block must own at least one window");
 static_assert(kStages >= 2, "a ring of at least two stages");
 static_assert(kKc == 64, "a stage is two steps of one sample per lane");
-static_assert(kLocal * (kCols + 3) <= kStages * kLocal * kPitch,
-              "the epilogue reuses the stage ring");
+
+// Windows whose powers a block of `warps` warps computes at `wpw` windows
+// per warp, and the windows it owns (the others are the box mean's halo).
+__host__ __device__ constexpr int local_windows(int warps, int wpw) { return warps * wpw; }
+__host__ __device__ constexpr int run_windows(int warps, int wpw) {
+  return local_windows(warps, wpw) - kSmooth;
+}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -152,9 +180,9 @@ __device__ __forceinline__ void reduce_lanes(float* v, int lane, int& base, bool
   }
 }
 
-template <int NSEG>
+template <int NSEG, int WARPS, int WPW>
 __host__ __device__ constexpr int tiles_per_block() {
-  return kLocal + NSEG - 1;
+  return local_windows(WARPS, WPW) + NSEG - 1;
 }
 
 // Floats of the shared table: rows up to window + kKc - 1 (a stage reads up
@@ -164,12 +192,19 @@ __host__ __device__ inline int table_floats(int window) {
   return ((window + kKc) * kCols + 3) & ~3;
 }
 
-template <int NSEG, bool POWERS>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int NSEG, bool POWERS, int WARPS, int WPW>
+__global__ void __launch_bounds__(WARPS * 32, 1)
 tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
                    const float* __restrict__ tm, int window, int stride, int n_win,
                    float* __restrict__ r400, float* __restrict__ r7500) {
-  constexpr int kTiles = tiles_per_block<NSEG>();
+  constexpr int kWpw = WPW;
+  constexpr int kThreads = WARPS * 32;
+  constexpr int kLocal = local_windows(WARPS, WPW);
+  constexpr int kRun = run_windows(WARPS, WPW);
+  static_assert(kRun > 0, "a block must own at least one window");
+  static_assert(kLocal * (kCols + 3) <= kStages * kLocal * kPitch,
+                "the epilogue reuses the stage ring");
+  constexpr int kTiles = tiles_per_block<NSEG, WARPS, WPW>();
   constexpr int kXs = kWpw + NSEG - 1;  // tiles one warp reads
   constexpr int kStageFloats = kTiles * kPitch;
   constexpr int kCopies = (kTiles * kChunks + kThreads - 1) / kThreads;
@@ -372,45 +407,127 @@ tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
   }
 }
 
-template <int NSEG, bool POWERS>
+template <int NSEG, bool POWERS, int WARPS, int WPW>
 int launch(const float* x, int rows, long long ld, long long n, const float* tm, int window,
-           int stride, int n_win, float* r400, float* r7500, cudaStream_t stream) {
+           int stride, int n_win, float* r400, float* r7500, cudaStream_t stream, int dev,
+           int optin) {
   const int smem = static_cast<int>(sizeof(float)) *
-                   (table_floats(window) + kStages * tiles_per_block<NSEG>() * kPitch);
+                   (table_floats(window) + kStages * tiles_per_block<NSEG, WARPS, WPW>() * kPitch);
+  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
   // the opt-in above 48 KB, set once per device and size (host calls that
-  // cost more than a small launch)
-  static int optin[kMaxDevices];
-  static int granted[kMaxDevices][kMaxSeg + 1];  // one per instance of the template
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (optin[dev] == 0) {
-    err = cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  // cost more than a small launch); one per instance of the template
+  static int granted[kMaxDevices];
+  if (smem > granted[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(tone_ratios_kernel<NSEG, POWERS, WARPS, WPW>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 smem);
     if (err != cudaSuccess) return static_cast<int>(err);
+    granted[dev] = smem;
   }
-  if (smem > optin[dev]) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > granted[dev][NSEG]) {
-    err = cudaFuncSetAttribute(tone_ratios_kernel<NSEG, POWERS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted[dev][NSEG] = smem;
-  }
+  constexpr int kRun = run_windows(WARPS, WPW);
   const dim3 grid((n_win + kRun - 1) / kRun, rows);
-  tone_ratios_kernel<NSEG, POWERS><<<grid, kThreads, smem, stream>>>(
+  tone_ratios_kernel<NSEG, POWERS, WARPS, WPW><<<grid, WARPS * 32, smem, stream>>>(
       x, ld, n, tm, window, stride, n_win, r400, r7500);
   return static_cast<int>(cudaGetLastError());
 }
 
+// A block shape: warps per block, windows per warp.
+struct Shape {
+  int warps, wpw;
+};
+
+// The shapes a raw-powers launch may take: the standard one, then the small
+// ones in the order the launcher prefers them (the fewest windows per warp,
+// the shortest walk).
+constexpr Shape kPowersShapes[] = {{kWarpsStd, kWpwStd}, {8, 2}, {8, 3}, {8, 4},
+                                   {8, 5},               {8, 6}, {8, 8}};
+constexpr int kNumPowersShapes = sizeof(kPowersShapes) / sizeof(kPowersShapes[0]);
+
+// Blocks of a launch of shape `s`.
+long long grid_blocks(int rows, int n_win, Shape s) {
+  const int run = run_windows(s.warps, s.wpw);
+  return static_cast<long long>(rows) * ((n_win + run - 1) / run);
+}
+
+// The block shape of a raw-powers launch: the standard one, unless its grid
+// is under one wave of the card's SMs (one block fits an SM: the table alone
+// is 107 KB at 44.1 kHz); then the first small shape whose grid still fits
+// in one wave.  A block's walk is set by its windows per warp, so a grid of
+// one wave ends with its slowest block, and fewer windows a warp is a
+// shorter walk.  Every shape gives each window the same sum.
+Shape small_grid_shape(int rows, int n_win, int sms) {
+  if (grid_blocks(rows, n_win, kPowersShapes[0]) >= sms) return kPowersShapes[0];
+  for (int i = 1; i < kNumPowersShapes; ++i)
+    if (grid_blocks(rows, n_win, kPowersShapes[i]) <= sms) return kPowersShapes[i];
+  return kPowersShapes[0];
+}
+
+template <int NSEG>
+int launch_powers(Shape shape, const float* x, int rows, long long ld, long long n,
+                  const float* tm, int window, int stride, int n_win, float* powers,
+                  cudaStream_t s, int dev, int optin) {
+#define AXCTD_TONE_SHAPE(W, P)                                                              \
+  if (shape.warps == W && shape.wpw == P)                                                   \
+    return launch<NSEG, true, W, P>(x, rows, ld, n, tm, window, stride, n_win, powers,     \
+                                    nullptr, s, dev, optin);
+  AXCTD_TONE_SHAPE(kWarpsStd, kWpwStd)
+  AXCTD_TONE_SHAPE(8, 8)
+  AXCTD_TONE_SHAPE(8, 6)
+  AXCTD_TONE_SHAPE(8, 5)
+  AXCTD_TONE_SHAPE(8, 4)
+  AXCTD_TONE_SHAPE(8, 3)
+  AXCTD_TONE_SHAPE(8, 2)
+#undef AXCTD_TONE_SHAPE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The card's SM count and shared-memory opt-in, read once per device.
+int device_limits(int* dev, int* sms, int* optin) {
+  static int optin_of[kMaxDevices], sms_of[kMaxDevices];
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (*dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (optin_of[*dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms_of[*dev], cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&optin_of[*dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  *sms = sms_of[*dev];
+  *optin = optin_of[*dev];
+  return static_cast<int>(cudaSuccess);
+}
+
+// POWERS: `shape` {0, 0} is the launcher's choice (small_grid_shape), another
+// one of kPowersShapes forced.  The ratios launch their one shape.
 template <bool POWERS>
 int dispatch(const float* x, int rows, long long ld, long long n, const float* tm, int window,
-             int stride, int n_win, float* r400, float* r7500, void* stream) {
+             int stride, int n_win, Shape shape, float* r400, float* r7500, void* stream) {
   if (n_win <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
+  int dev = 0, sms = 0, optin = 0;
+  const int err = device_limits(&dev, &sms, &optin);
+  if (err != cudaSuccess) return err;
+  if (POWERS && shape.warps == 0) shape = small_grid_shape(rows, n_win, sms);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((window + stride - 1) / stride) {
-    case 1: return launch<1, POWERS>(x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s);
-    case 2: return launch<2, POWERS>(x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s);
-    case 3: return launch<3, POWERS>(x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s);
+  const int nseg = (window + stride - 1) / stride;
+  if (!POWERS) {
+    switch (nseg) {
+      case 1: return launch<1, false, kWarpsRatios, kWpwRatios>(
+          x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s, dev, optin);
+      case 2: return launch<2, false, kWarpsRatios, kWpwRatios>(
+          x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s, dev, optin);
+      case 3: return launch<3, false, kWarpsRatios, kWpwRatios>(
+          x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s, dev, optin);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (nseg) {
+    case 1: return launch_powers<1>(shape, x, rows, ld, n, tm, window, stride, n_win, r400, s,
+                                    dev, optin);
+    case 2: return launch_powers<2>(shape, x, rows, ld, n, tm, window, stride, n_win, r400, s,
+                                    dev, optin);
+    case 3: return launch_powers<3>(shape, x, rows, ld, n, tm, window, stride, n_win, r400, s,
+                                    dev, optin);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -421,13 +538,50 @@ extern "C" int axctd_tone_ratios_launch(const float* x, int rows, long long n,
                                         const float* tm, int window,
                                         int stride, int n_win, float* r400,
                                         float* r7500, void* stream) {
-  return dispatch<false>(x, rows, n, n, tm, window, stride, n_win, r400, r7500, stream);
+  return dispatch<false>(x, rows, n, n, tm, window, stride, n_win, Shape{0, 0}, r400, r7500,
+                         stream);
 }
 
+// The raw powers; `warps` 0 is the launcher's choice (small_grid_shape),
+// otherwise (warps, wpw), one of the shapes axctd_tone_powers_shapes lists,
+// forced, to compare with the launcher's choice.
 extern "C" int axctd_tone_powers_launch(const float* x, int rows, long long ld, long long n,
                                         const float* tm, int window, int stride, int n_win,
-                                        float* powers, void* stream) {
-  return dispatch<true>(x, rows, ld, n, tm, window, stride, n_win, powers, nullptr, stream);
+                                        int warps, int wpw, float* powers, void* stream) {
+  return dispatch<true>(x, rows, ld, n, tm, window, stride, n_win, Shape{warps, wpw}, powers,
+                        nullptr, stream);
+}
+
+// The shapes a raw-powers launch may take, the standard one first: writes at
+// most `cap` (warps, windows per warp) pairs and returns how many there are.
+extern "C" int axctd_tone_powers_shapes(int* warps, int* wpw, int cap) {
+  for (int i = 0; i < kNumPowersShapes && i < cap; ++i) {
+    warps[i] = kPowersShapes[i].warps;
+    wpw[i] = kPowersShapes[i].wpw;
+  }
+  return kNumPowersShapes;
+}
+
+// 1 if (warps, wpw) is one of the shapes a raw-powers launch may take.
+extern "C" int axctd_tone_powers_shape_known(int warps, int wpw) {
+  for (const Shape& s : kPowersShapes)
+    if (s.warps == warps && s.wpw == wpw) return 1;
+  return 0;
+}
+
+// The block shape and the blocks of the raw-powers launch of `rows` rows of
+// `n_win` windows on the current device, as axctd_tone_powers_launch picks
+// it.  Returns a CUDA error code.
+extern "C" int axctd_tone_powers_shape(int rows, int n_win, int* warps, int* wpw,
+                                       long long* blocks) {
+  int dev = 0, sms = 0, optin = 0;
+  const int err = device_limits(&dev, &sms, &optin);
+  if (err != cudaSuccess) return err;
+  const Shape s = small_grid_shape(rows, n_win, sms);
+  *warps = s.warps;
+  *wpw = s.wpw;
+  *blocks = grid_blocks(rows, n_win, s);
+  return static_cast<int>(cudaSuccess);
 }
 
 extern "C" const char* axctd_cuda_error_string(int code) {

@@ -11,7 +11,8 @@ axctdprocessor_tpu/ops/pallas/tonepower.py (``fused_tone_ratios``).
 * :func:`tone_powers` — the raw (..., n_win, 3) powers of the same windows,
   no box mean and no log: on a CPU tensor the plain tiled version
   (``goertzel.framed_tone_power_tiled``), on a CUDA tensor the same kernel's
-  powers-only variant (``tone_powers.launches``).  The segmented and
+  powers-only variant (``tone_powers.launches``), on grids under one wave of
+  the card's SMs in a smaller block shape (the same bits).  The segmented and
   time-sharded paths take it and smooth the gathered series themselves
   (:func:`ratios_from_powers`).
 
@@ -79,11 +80,16 @@ def tone_powers_reference(x: torch.Tensor, tm: torch.Tensor, window: int, stride
     return goertzel.framed_tone_power_tiled(x, window, stride, tm)
 
 
-def tone_powers(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int):
+def tone_powers(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int,
+                shape: tuple = (0, 0)):
     """Raw powers (n_win, 3) of one signal (n,), or (B, n_win, 3) of rows
     (B, n): the CUDA kernel for a CUDA tensor (float32, last dimension
     contiguous; rows may be a view of a wider tensor), the plain version for
-    a CPU tensor.  Each row's windows are the 1-D call's bit for bit."""
+    a CPU tensor.  Each row's windows are the 1-D call's bit for bit.
+    ``shape`` (0, 0) lets the launcher choose the kernel's block shape (the
+    standard one, or a smaller one for a grid under one wave of the card's
+    SMs); one of the extension's ``tone_powers_shapes()`` forces a shape, to
+    compare with the launcher's choice: every shape gives the same bits."""
     if x.device.type == "cpu":
         return tone_powers_reference(x, tm, window, stride)
     if x.device.type != "cuda":
@@ -91,7 +97,7 @@ def tone_powers(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int):
     from .kernels import extension
 
     n_win = n_windows(x.shape[-1], window, stride)
-    out = extension().tone_powers(x, tm, window, stride, n_win)
+    out = extension().tone_powers(x, tm, window, stride, n_win, *shape)
     if out.numel():  # no window, no launch
         tone_powers.launches += 1
     return out

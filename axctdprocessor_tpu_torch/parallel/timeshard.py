@@ -42,6 +42,8 @@ shared with the batch path.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -88,22 +90,24 @@ def _upload_blocks(run: np.ndarray, devices: list[torch.device], block: int):
 
 def _condition_blocks(blocks: list, n_valid: dict, block: int):
     """Integer blocks of one mesh row conditioned as the whole rows are
-    (``engine.condition_integer``): the DC mean and the peak are statistics
-    of the whole row, so each block's float32 sum and absolute peak go to the
-    row's first device, are reduced there in shard order and come back.  The
-    zero padding past ``n_valid`` adds nothing to the sum or the peak, the
-    mean divides by the true length, and the tail is zeroed again.  Returns
-    (the float32 blocks, the rows' mean, the rows' peak clamped to 1)."""
+    (``engine.condition_integer``), bit for bit: the DC mean and the peak are
+    statistics of the whole row, so each block's exact sum
+    (``engine.integer_row_sums``) and absolute peak go to the row's first
+    device and are reduced there.  Exact sums and maxima do not depend on
+    the order of the reduction, and the mean is the whole row's: the exact
+    sum over the true length rounded once to float32.  The zero padding past
+    ``n_valid`` adds nothing to the sum or the peak, and the tail is zeroed
+    again.  Returns (the float32 blocks, the rows' mean, the rows' peak
+    clamped to 1)."""
     first = blocks[0].device
     xf = [x.to(torch.float32) for x in blocks]
-    sums = [x.sum(dim=1).to(first, non_blocking=True) for x in xf]
-    peaks = [x.abs().amax(dim=1).to(first, non_blocking=True) for x in xf]
-    total, peak = sums[0], peaks[0]
-    for s, p in zip(sums[1:], peaks[1:]):
-        total = total + s
-        peak = torch.maximum(peak, p)
-    mean = total / n_valid[first].to(torch.float32)
-    peak = torch.clamp(peak, min=1.0)
+    sums = [eng.integer_row_sums(raw, x).to(first, non_blocking=True)
+            for raw, x in zip(blocks, xf)]
+    peaks = [torch.linalg.vector_norm(x, ord=math.inf, dim=-1).to(first, non_blocking=True)
+             for x in xf]
+    total = torch.stack(sums).sum(0)
+    mean = eng.exact_mean(total, n_valid[first])
+    peak = torch.stack(peaks).amax(0).clamp_(min=1.0)
     out = []
     for j, x in enumerate(xf):
         dev = x.device

@@ -1,0 +1,113 @@
+"""Warm walls of the port's decode paths, for the port of this checkout or of
+another one, so that two trees can be compared in turns on one card.
+
+The inputs are ``chip_smoke.py``'s, made by the tree under test: the 600 s
+bench drop (``SimSpec(duration=600, profile_start=33, seed=11)`` as int16)
+and the bench's 64 x 60 s archive batch (``chip_smoke.archive_batch()``).
+The paths, as ``chip_smoke.py`` phases 3, 6, 7, 9 and 9b drive them:
+
+* ``monolithic``: ``engine.decode_waveform(mode="monolithic")`` of the drop;
+* ``segmented``: ``segmented.decode_waveform_segmented`` of the drop;
+* ``prestaged``: ``prestage_waveform(wire="int8")`` once, then ``decode()``;
+* ``batch 8 x 8``: the 64 rows through ``decode_batch`` as 8 batches of 8;
+* ``corpus``: the 64 rows as int16 WAVs through ``reprocess_corpus(batch_size=8)``,
+  into a new output directory each time (drops per second is 64 / wall).
+
+``--paths`` picks some of them (comma-separated names; all by default).
+Each path is decoded once to warm up, then ``--repeats`` times; the script
+prints one JSON line with the card, the tree, and per path every wall and
+their median, in seconds.  ``--tree`` names the root of another checkout (for
+example an earlier commit's, unpacked with ``git archive``); run one tree per
+process, as a file (not with ``-m``, which would import this checkout's port
+first), and alternate the trees (earlier, this, this, earlier).  Needs one
+NVIDIA GPU:
+
+    python axctdprocessor_tpu_torch/tools/decode_walls.py [--tree DIR] [--repeats 5]
+        [--paths monolithic,segmented]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)))
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--paths", default="monolithic,segmented,prestaged,batch 8 x 8,corpus")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("decode_walls: no GPU", file=sys.stderr)
+        return 1
+    from scipy.io import wavfile
+
+    import chip_smoke
+    from axctdprocessor_tpu_torch.models import engine, segmented, simulator
+    from axctdprocessor_tpu_torch.parallel import batch
+    from axctdprocessor_tpu_torch.parallel.archive import reprocess_corpus
+
+    pcm, _ = simulator.synthesize(simulator.SimSpec(duration=600.0, profile_start=33.0, seed=11))
+    raw = np.round(pcm * (28000 / np.max(np.abs(pcm)))).astype(np.int16)
+    del pcm
+    drops = chip_smoke.archive_batch()
+    rows, fs_b = drops["batch"], drops["batch_fs"]
+    staged = segmented.prestage_waveform(raw, 44100, device="cuda", wire="int8")
+    with tempfile.TemporaryDirectory(prefix=".decode_walls_", dir=tree) as tmp:
+        paths = []
+        for i, row in enumerate(rows):
+            paths.append(os.path.join(tmp, f"row{i:02d}.wav"))
+            wavfile.write(paths[-1], int(fs_b), row)
+        outs = iter(range(1 << 30))
+
+        def corpus():
+            manifest = reprocess_corpus(paths, os.path.join(tmp, f"out{next(outs)}"),
+                                        batch_size=8, device="cuda")
+            assert all(v["status"] == "done" for v in manifest["files"].values()), manifest
+
+        paths_run = {
+            "monolithic": lambda: engine.decode_waveform(raw, 44100, device="cuda",
+                                                         mode="monolithic"),
+            "segmented": lambda: segmented.decode_waveform_segmented(raw, 44100, device="cuda"),
+            "prestaged": staged.decode,
+            "batch 8 x 8": lambda: [batch.decode_batch(sub, fs_b, device="cuda")
+                                    for sub in np.split(rows, 8)],
+            "corpus": corpus,
+        }
+        walls = {}
+        for name in args.paths.split(","):
+            run = paths_run[name]
+            run()  # warm-up: the kernels' build, the plans
+            torch.cuda.synchronize()
+            walls[name] = []
+            for _ in range(args.repeats):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": card, "tree": os.path.relpath(tree, os.getcwd()),
+                      "median_s": {k: statistics.median(v) for k, v in walls.items()},
+                      "walls_s": walls,
+                      **({"corpus_drops_per_s": 64 / statistics.median(walls["corpus"])}
+                         if "corpus" in walls else {})}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

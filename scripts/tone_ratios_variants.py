@@ -2,8 +2,12 @@
 
 The checkout's ``axctdprocessor_tpu_torch/ops/kernels/tone_ratios.cu`` is built
 as ``current``; each ``--source NAME=PATH`` adds another ``.cu`` with the same
-plain C interface (an earlier version of the kernel, or an edited copy that
-tries another block shape).  All are compiled with nvcc at once (no PyTorch
+plain C interface (an earlier version of the kernel, or an edited copy), and
+each ``--shape WARPS,WPW`` the checkout's source with the ratios launched at
+that block shape (warps per block, windows per warp; ``-DAXCTD_TONE_RATIOS_WARPS``,
+``-DAXCTD_TONE_RATIOS_WPW``) in place of the standard (8, 16), as
+``shape_WxP``; such a build must also give the standard build's outputs bit
+for bit at every shape.  All are compiled with nvcc at once (no PyTorch
 headers, so a build takes seconds) and loaded with ctypes; ptxas's register
 and shared-memory report is printed.  Then, at every shape ``chip_smoke.py``
 phase 2 holds the kernel to, each build is checked and timed with
@@ -15,6 +19,7 @@ after every event time, the kernel's device time from ``torch.profiler``.
 One JSON line per build and shape.  Needs one NVIDIA GPU:
 
     python scripts/tone_ratios_variants.py [--source old=PATH/tone_ratios.cu ...]
+        [--shape 8,3 ...]
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 
 import torch
 
@@ -39,15 +45,16 @@ BUILD = os.path.join(ROOT, "axctdprocessor_tpu_torch", "_build", "variants")
 
 
 def build(sources: dict) -> dict:
+    """{name: (path of a .cu, [-D defines])} compiled at once, loaded."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     os.makedirs(BUILD, exist_ok=True)
     procs = {}
-    for name, src in sources.items():
+    for name, (src, defines) in sources.items():
         out = os.path.join(BUILD, f"libtr_{name}.so")
         cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), "-gencode=arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", out, src]
+               *(f"-D{d}" for d in defines), "-o", out, src]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -90,12 +97,21 @@ def launcher(lib, tm, window: int, stride: int):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
+    ap.add_argument("--shape", action="append", default=[], metavar="WARPS,WPW")
     args = ap.parse_args()
     cs.phase0_device()  # exits without a GPU; TF32 off
-    libs = build({"current": os.path.join(ROOT, cs.KERNEL_SOURCE),
-                  **dict(s.split("=", 1) for s in args.source)})
+    current = os.path.join(ROOT, cs.KERNEL_SOURCE)
+    shapes = {}
+    for text in args.shape:
+        warps, wpw = (int(v) for v in text.split(","))
+        shapes[f"shape_{warps}x{wpw}"] = (current, [f"AXCTD_TONE_RATIOS_WARPS={warps}",
+                                                    f"AXCTD_TONE_RATIOS_WPW={wpw}"])
+    libs = build({"current": (current, []), **shapes,
+                  **{k: (v, []) for k, v in (s.split("=", 1) for s in args.source)}})
     runs = []
-    for shape, xd, fs in cs._kernel_cases(cs.archive_batch()):
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        cases = cs._kernel_cases(cs.phase1_drops(tmp))
+    for shape, xd, fs in cases:
         window, stride, tm = cs._table(fs)
         ref = tonepower.tone_ratios_reference(xd, tm, window, stride)
         rows = xd.shape[0] if xd.dim() == 2 else 1
@@ -103,6 +119,11 @@ def main() -> int:
         for name, lib in libs.items():
             call = launcher(lib, tm, window, stride)
             got = call(xd)
+            if name in shapes:  # the same bits as the standard shape
+                want = launcher(libs["current"], tm, window, stride)(xd)
+                for g, w in zip(got, want):
+                    assert torch.equal(torch.nan_to_num(g, nan=7.0),
+                                       torch.nan_to_num(w, nan=7.0)), (shape, name)
             rec = dict(shape=shape, build=name, max_abs_err=cs._max_err(got, ref, name),
                        bound_us=1e3 * bound_ms)
             if xd.dim() == 2:

@@ -211,7 +211,7 @@ def test_lossy_wire_decode_on_card_equals_cpu_decode(wire, mode):
 @pytest.mark.parametrize("shape", [(1_000_001,), (8, 99_999), (3, 44_100)])
 def test_unpack_int4_and_conditioning_on_card_equal_cpu(shape):
     """``unpack_int4`` bit-equal across devices on random bytes (odd and
-    even widths, rows); ``condition_integer`` within 1e-6."""
+    even widths, rows); ``condition_integer`` too (an exact DC mean)."""
     _need_cuda()
     n = shape[-1]
     packed = torch.from_numpy(np.random.default_rng(n).integers(
@@ -223,7 +223,7 @@ def test_unpack_int4_and_conditioning_on_card_equal_cpu(shape):
     nv = torch.full(shape[:-1], n)
     c_cpu = engine.condition_integer(cpu, n, nv)
     c_gpu = engine.condition_integer(gpu, n, nv.cuda())
-    assert float((c_gpu.cpu() - c_cpu).abs().max()) <= 1e-6
+    assert torch.equal(c_gpu.cpu(), c_cpu)
 
 
 @pytest.mark.cuda
@@ -596,6 +596,99 @@ def test_probe_at_kernel_edges(length):
     assert goertzel.probe_at.launches == before
     with pytest.raises(RuntimeError, match="window"):
         goertzel.probe_at(x[:, :20].contiguous(), starts, 39, trig)
+
+
+def _probe_run_starts(case, k, length, rng):
+    """(3, k) starts of one of the probe kernel's run cases (see
+    ``test_probe_at_kernel_runs``)."""
+    gap = 97 if case == "overflowing" else 55
+    live = {"sorted tail": k - 300, "unsorted": k - 300, "K below the run": k - 10}.get(case, k)
+    e = np.cumsum(rng.integers(gap - 1, gap + 2, (3, k)), axis=1) + rng.integers(0, 50, (3, 1))
+    e[:, live:] = e[:, live - 1: live]
+    if case == "unsorted":
+        e = rng.permuted(e, axis=1)
+    if case == "clamped last":
+        e[:, -1] = length + 100
+    return torch.from_numpy(e.astype(np.int64)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,k", [("sorted tail", 1_000), ("unsorted", 1_000),
+                                    ("overflowing", 1_000), ("clamped last", 300),
+                                    ("K below the run", 50)])
+def test_probe_at_kernel_runs(case, k):
+    """The probe's runs at their edges, on 3 rows at an odd pitch: bit edges
+    with a long tail of the terminal edge (K no multiple of the run), the
+    same unsorted, starts 97 apart (every run's span overflows the staged
+    buffer), one start beyond L after live edges (clamped to L - window; its
+    run overflows), K below the run.  Within 2e-4 of the plain version,
+    every row bit-equal to its 1-D call, every probe bit-equal to its frame
+    probed in a staged run of its own."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    run, span = extension().probe_geometry()
+    assert run * 97 > span > run * 57  # edges 55 apart are staged, 97 apart overflow
+    rng = np.random.default_rng(13)
+    length = 200_000
+    wide = torch.from_numpy(rng.standard_normal((3, length + 11)).astype(np.float32)).cuda()
+    x = wide[:, 3: 3 + length]
+    trig = torch.from_numpy(goertzel.tone_matrix(39, [1200.0, 2400.0], 44100.0,
+                                                 np.float32)).cuda()
+    starts = _probe_run_starts(case, k, length, rng)
+    got = goertzel.probe_at(x, starts, 39, trig)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               goertzel.tone_power_at(x, starts, 39, trig).cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    for r in range(3):
+        assert torch.equal(goertzel.probe_at(x[r], starts[r], 39, trig), got[r]), r
+    alone = goertzel.probe_at(x, starts.repeat_interleave(run, dim=-1), 39, trig)
+    assert torch.equal(alone[:, ::run], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,seconds", [(4, 23.72), (1, 23.72), (1, 150.0), (26, 23.72)])
+def test_tone_powers_small_grid_equals_standard(rows, seconds):
+    """``tone_powers`` at every block shape of the kernel (the extension's
+    ``tone_powers_shapes()``: warps, windows a warp; the standard one first)
+    bit-equal to the standard one and to the launcher's choice, on the
+    segmented path's shapes: a group of 4 segments, one segment, a time
+    block, 26 segments."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    shapes = extension().tone_powers_shapes()
+    fs, window, stride = 44100.0, 4410, 1764
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(np.stack([_signal(fs, int(seconds * fs), 0.0, rng)
+                                   for _ in range(rows)])).cuda()
+    tm = torch.from_numpy(goertzel.tone_matrix(window, FREQS, fs, np.float32)).cuda()
+    want = tonepower.tone_powers(x, tm, window, stride, shapes[0])
+    assert torch.equal(tonepower.tone_powers(x, tm, window, stride), want)
+    for shape in shapes:
+        assert torch.equal(tonepower.tone_powers(x, tm, window, stride, shape), want), shape
+    with pytest.raises(RuntimeError, match="block shape"):
+        tonepower.tone_powers(x, tm, window, stride, (16, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int8, np.int32])
+def test_conditioning_on_card_rows_equal_rows_alone_and_cpu(dtype):
+    """``condition_integer`` of 8 zero-padded integer rows on the card: each
+    row bit-equal to the row conditioned alone, and the whole to the CPU."""
+    _need_cuda()
+    rng = np.random.default_rng(3)
+    hi = {np.int16: 30000, np.int8: 120, np.int32: 7}[dtype]
+    n = 441_001
+    pcm = np.clip(rng.integers(-hi, hi, (8, n)) + hi // 10, -hi, hi).astype(dtype)
+    lengths = n - rng.integers(0, 50_000, 8)
+    for r, m in enumerate(lengths):
+        pcm[r, m:] = 0
+    cpu, nv = torch.from_numpy(pcm), torch.from_numpy(lengths)
+    got = engine.condition_integer(cpu.cuda(), n, nv.cuda())
+    assert torch.equal(got.cpu(), engine.condition_integer(cpu, n, nv))
+    for r in range(8):
+        assert torch.equal(engine.condition_integer(cpu[r].cuda(), n, nv[r].cuda()), got[r]), r
 
 
 @pytest.mark.cuda
