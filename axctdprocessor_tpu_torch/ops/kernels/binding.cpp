@@ -7,8 +7,10 @@
 // its input's device and raises when the launch is refused.
 //
 // tone_ratios: ``x`` is one signal (n,) or a batch (rows, n); the outputs are
-// (n_win,) or (rows, n_win).  A refused launch: the table does not fit in
-// shared memory (rates above ~54 kHz, which the engines decimate first).
+// (n_win,) or (rows, n_win), and whether the launch streamed the table
+// (windows whose table does not fit in shared memory beside the ring; the
+// same bits).  Every window of at most 3 strides launches; a longer one is
+// refused with a RuntimeError before anything is allocated.
 //
 // tone_powers: the same kernel's raw powers, (n_win, 3) or (rows, n_win, 3),
 // of a (n,) or (rows, n) ``x`` whose last dimension is contiguous (rows may
@@ -16,8 +18,11 @@
 // ``wpw``: warps per block, windows per warp) (0, 0) is the launcher's
 // choice (the standard shape, or a smaller one for a grid under one wave),
 // one of tone_powers_shapes() a shape forced, to compare with it: every
-// shape gives the same bits.  tone_powers_shape(rows, n_win) is the
-// launcher's choice (warps, wpw, blocks) on the current device.
+// shape gives the same bits.  Returns the powers and whether the table was
+// streamed.  tone_plan(powers, rows, n_win, window, stride) is the launch
+// either launcher would make on the current device: (variant "resident" or
+// "streamed", warps, windows a warp, blocks, shared-memory bytes, the card's
+// opt-in).
 //
 // probe_at: the (K, 2) or (rows, K, 2) mark and space magnitudes of the
 // frames of a (L,) or (rows, L) ``x`` (last dimension contiguous) at the
@@ -47,8 +52,8 @@ extern "C" int axctd_tone_powers_launch(const float* x, int rows, long long ld, 
                                         int warps, int wpw, float* powers, void* stream);
 extern "C" int axctd_tone_powers_shapes(int* warps, int* wpw, int cap);
 extern "C" int axctd_tone_powers_shape_known(int warps, int wpw);
-extern "C" int axctd_tone_powers_shape(int rows, int n_win, int* warps, int* wpw,
-                                       long long* blocks);
+extern "C" int axctd_tone_plan(int powers, int rows, int n_win, int window, int stride, int warps,
+                               int wpw, int* out, long long* blocks);
 extern "C" void axctd_probe_geometry(int* run, int* span);
 extern "C" int axctd_probe_launch(const float* x, long long ld, long long len, int rows,
                                   const long long* starts, long long k, const float* tab,
@@ -66,11 +71,20 @@ extern "C" int axctd_chain_frames_launch(const long long* succ, int rows, long l
 extern "C" int axctd_chain_walk_launch(const long long* levels, int n_levels, int rows,
                                        long long m, int start, long long k, int first,
                                        long long* out, void* stream);
+extern "C" void axctd_tone_last_launch(int* out);
 extern "C" const char* axctd_cuda_error_string(int code);
 
 constexpr int64_t kMaxSegments = 3;  // tone_ratios.cu: windows of at most 3 strides
 constexpr int64_t kMaxFirst = 1024;  // chain.cu: chain heads per block
 constexpr int64_t kMaxProbeWindow = 3072;  // probe.cu: the table in 48 KB of shared memory
+
+// The instance this thread's last tone call launched: (segments, powers,
+// warps, windows a warp, streamed), all zero if it launched nothing.
+std::tuple<int64_t, bool, int64_t, int64_t, bool> tone_last_launch() {
+  int out[5] = {0, 0, 0, 0, 0};
+  axctd_tone_last_launch(out);
+  return {out[0], out[1] != 0, out[2], out[3], out[4] != 0};
+}
 
 std::vector<std::tuple<int64_t, int64_t>> tone_powers_shapes() {
   int warps[16], wpw[16];
@@ -81,15 +95,20 @@ std::vector<std::tuple<int64_t, int64_t>> tone_powers_shapes() {
   return shapes;
 }
 
-std::tuple<int64_t, int64_t, int64_t> tone_powers_shape(int64_t rows, int64_t n_win) {
-  TORCH_CHECK(rows > 0 && rows < (1LL << 31) && n_win > 0 && n_win < (1LL << 31),
-              "tone_powers_shape: rows and n_win must be positive");
-  int warps = 0, wpw = 0;
+std::tuple<std::string, int64_t, int64_t, int64_t, int64_t, int64_t> tone_plan(
+    bool powers, int64_t rows, int64_t n_win, int64_t window, int64_t stride) {
+  TORCH_CHECK(rows > 0 && rows < 65536 && n_win > 0 && n_win < (1LL << 31),
+              "tone_plan: rows must be in [1, 65535] and n_win positive");
+  TORCH_CHECK(window > 0 && stride > 0 && window < (1LL << 26) &&
+                  (window + stride - 1) / stride <= kMaxSegments,
+              "tone_plan: window must span at most 3 strides");
+  int out[5] = {0, 0, 0, 0, 0};
   long long blocks = 0;
-  const int err = axctd_tone_powers_shape(static_cast<int>(rows), static_cast<int>(n_win), &warps,
-                                          &wpw, &blocks);
-  TORCH_CHECK(err == 0, "tone_powers_shape failed: ", axctd_cuda_error_string(err));
-  return {warps, wpw, blocks};
+  const int err = axctd_tone_plan(powers ? 1 : 0, static_cast<int>(rows), static_cast<int>(n_win),
+                                  static_cast<int>(window), static_cast<int>(stride), 0, 0, out,
+                                  &blocks);
+  TORCH_CHECK(err == 0, "tone_plan failed: ", axctd_cuda_error_string(err));
+  return {out[0] ? "streamed" : "resident", out[1], out[2], blocks, out[3], out[4]};
 }
 
 std::tuple<int64_t, int64_t> probe_geometry() {
@@ -98,9 +117,9 @@ std::tuple<int64_t, int64_t> probe_geometry() {
   return {run, span};
 }
 
-std::vector<torch::Tensor> tone_ratios(torch::Tensor x, torch::Tensor tm,
-                                       int64_t window, int64_t stride,
-                                       int64_t n_win) {
+std::tuple<torch::Tensor, torch::Tensor, bool> tone_ratios(torch::Tensor x, torch::Tensor tm,
+                                                          int64_t window, int64_t stride,
+                                                          int64_t n_win) {
   TORCH_CHECK(x.is_cuda() && tm.is_cuda(), "tone_ratios: x and tm must be CUDA tensors");
   TORCH_CHECK(x.device() == tm.device(), "tone_ratios: x and tm on different devices");
   TORCH_CHECK(x.scalar_type() == torch::kFloat32 && tm.scalar_type() == torch::kFloat32,
@@ -111,7 +130,8 @@ std::vector<torch::Tensor> tone_ratios(torch::Tensor x, torch::Tensor tm,
   TORCH_CHECK(rows < 65536, "tone_ratios: at most 65535 rows");
   TORCH_CHECK(tm.dim() == 2 && tm.size(0) == window && tm.size(1) == 6 && tm.is_contiguous(),
               "tone_ratios: tm must be a contiguous (window, 6) table");
-  TORCH_CHECK(window > 0 && stride > 0 && n_win >= 0 && n_win < (1LL << 31),
+  TORCH_CHECK(window > 0 && stride > 0 && window < (1LL << 26) && n_win >= 0 &&
+                  n_win < (1LL << 31),
               "tone_ratios: bad window/stride/n_win");
   TORCH_CHECK((window + stride - 1) / stride <= kMaxSegments,
               "tone_ratios: window must span at most 3 strides");
@@ -127,7 +147,7 @@ std::vector<torch::Tensor> tone_ratios(torch::Tensor x, torch::Tensor tm,
       out[0].data_ptr<float>(), out[1].data_ptr<float>(),
       at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "tone_ratios launch failed: ", axctd_cuda_error_string(err));
-  return out.unbind(0);
+  return {out[0], out[1], std::get<4>(tone_last_launch())};
 }
 
 static void check_tone_args(const torch::Tensor& x, torch::Tensor& tm, int64_t window,
@@ -138,7 +158,8 @@ static void check_tone_args(const torch::Tensor& x, torch::Tensor& tm, int64_t w
               name, ": x and tm must be float32");
   TORCH_CHECK(tm.dim() == 2 && tm.size(0) == window && tm.size(1) == 6 && tm.is_contiguous(),
               name, ": tm must be a contiguous (window, 6) table");
-  TORCH_CHECK(window > 0 && stride > 0 && n_win >= 0 && n_win < (1LL << 31),
+  TORCH_CHECK(window > 0 && stride > 0 && window < (1LL << 26) && n_win >= 0 &&
+                  n_win < (1LL << 31),
               name, ": bad window/stride/n_win");
   TORCH_CHECK((window + stride - 1) / stride <= kMaxSegments,
               name, ": window must span at most 3 strides");
@@ -146,8 +167,9 @@ static void check_tone_args(const torch::Tensor& x, torch::Tensor& tm, int64_t w
   if (reinterpret_cast<uintptr_t>(tm.data_ptr()) % 16 != 0) tm = tm.clone();
 }
 
-torch::Tensor tone_powers(torch::Tensor x, torch::Tensor tm, int64_t window, int64_t stride,
-                          int64_t n_win, int64_t warps, int64_t wpw) {
+std::tuple<torch::Tensor, bool> tone_powers(torch::Tensor x, torch::Tensor tm, int64_t window,
+                                            int64_t stride, int64_t n_win, int64_t warps,
+                                            int64_t wpw) {
   check_tone_args(x, tm, window, stride, n_win, "tone_powers");
   TORCH_CHECK((warps == 0 && wpw == 0) ||
                   (warps > 0 && warps < 64 && wpw > 0 && wpw < 64 &&
@@ -170,7 +192,7 @@ torch::Tensor tone_powers(torch::Tensor x, torch::Tensor tm, int64_t window, int
       static_cast<int>(warps), static_cast<int>(wpw), out.data_ptr<float>(),
       at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "tone_powers launch failed: ", axctd_cuda_error_string(err));
-  return out;
+  return {out, std::get<4>(tone_last_launch())};
 }
 
 torch::Tensor probe_at(torch::Tensor x, torch::Tensor starts, torch::Tensor tab) {
@@ -292,12 +314,18 @@ torch::Tensor chain_walk(torch::Tensor levels, int64_t start, int64_t k, int64_t
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("tone_ratios", &tone_ratios, "Fused tone powers, box mean and log10 ratios (CUDA)");
-  m.def("tone_powers", &tone_powers, "Raw tone powers of every strided window (CUDA)");
+  m.def("tone_ratios", &tone_ratios,
+        "Fused tone powers, box mean and log10 ratios (CUDA), and whether the table streamed");
+  m.def("tone_powers", &tone_powers,
+        "Raw tone powers of every strided window (CUDA), and whether the table streamed");
   m.def("tone_powers_shapes", &tone_powers_shapes,
         "The block shapes (warps, windows per warp) tone_powers may take, the standard first");
-  m.def("tone_powers_shape", &tone_powers_shape,
-        "tone_powers' block shape and blocks for (rows, n_win) on the current device");
+  m.def("tone_plan", &tone_plan,
+        "The tone launch for (powers, rows, n_win, window, stride) on the current device: "
+        "(variant, warps, windows a warp, blocks, shared-memory bytes, the card's opt-in)");
+  m.def("tone_last_launch", &tone_last_launch,
+        "The instance this thread's last tone_ratios or tone_powers call launched: (segments, "
+        "powers, warps, windows a warp, streamed), all zero if it launched nothing");
   m.def("probe_at", &probe_at, "Mark and space magnitudes of frames at given starts (CUDA)");
   m.def("probe_geometry", &probe_geometry,
         "probe_at's run (probes a block owns) and staged span (floats)");

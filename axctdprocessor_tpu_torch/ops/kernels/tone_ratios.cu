@@ -24,8 +24,11 @@
 //    blocks, which run in no order.
 //  * The table lives in shared memory, copied once per block as it lies in
 //    device memory and zero past `window` (107 KB at 44.1 kHz, 121 KB at
-//    50 kHz, the highest rate the kernel sees: faster input is decimated
-//    first).  With the ring that is one block per SM (213 / 228 KB).
+//    50 kHz).  With the ring that is one block per SM (213 / 228 KB).  A
+//    table that does not fit beside the ring (windows above about 5,200
+//    samples at the standard shape: the batch and archive paths decode
+//    88.2 and 96 kHz rows at their own rate) is streamed instead; see
+//    "Streamed table" below.
 //  * The tiles stream through shared memory in a ring of kStages = 3 stages
 //    of kKc = 64 samples of every tile, with cp.async 16-byte copies that
 //    overlap the arithmetic.  A tile's start is 16-byte aligned only when n
@@ -85,6 +88,22 @@
 // does): a copy may start up to 12 bytes before a row, never before its
 // storage.
 //
+// Streamed table (STREAM = true).  Each stage of the ring holds, beside its
+// kKc samples of every tile, the NSEG x kKc table rows those samples meet
+// (rows j * stride + s * kKc + [0, kKc) of segment j at stage s: 1,152
+// floats at NSEG 3, copied with the tiles by the same cp.async groups from
+// the 16-byte boundary at or below, zero past `window`), so shared memory
+// does not grow with the window: 120 KB at the standard shape for any
+// window of at most 3 strides.  A lane reads the same table values in the
+// same steps as from the resident table (zeros past `window` there too),
+// so its FMA chains, the xor tree and every output are the resident
+// kernel's bit for bit.  The launcher takes the resident table whenever
+// it fits the card's opt-in with the ring of the launch's block shape, the
+// streamed one otherwise: a choice made by size before the launch
+// (make_plan, reported by axctd_tone_plan), never after a failure.  It
+// reads the table once per block and stage from L2 (about 4.6 KB a stage)
+// in place of once per block.
+//
 // tone_powers (POWERS = true) is the same kernel up to the powers of its
 // windows and writes them raw, (rows, n_win, 3) for [400 Hz, 7500 Hz, dead]:
 // no box mean, no log.  It stands for the segmented and time-sharded paths'
@@ -121,6 +140,9 @@ constexpr int kKc = 64;                 // samples of every tile per stage
 constexpr int kPitch = kKc + 4;         // staged row: a 16-byte aligned span
 constexpr int kChunks = kPitch / 4;     // 16-byte copies per staged row
 constexpr int kStages = 3;              // stages in the copy ring
+constexpr int kTabPitch = kKc * kCols + 4;   // a segment's rows of a stage (streamed
+                                             // table), from the 16-byte boundary below
+constexpr int kTabChunks = kTabPitch / 4;    // 16-byte copies of them
 constexpr int kMaxDevices = 64;
 
 static_assert(kStages >= 2, "a ring of at least two stages");
@@ -180,9 +202,14 @@ __device__ __forceinline__ void reduce_lanes(float* v, int lane, int& base, bool
   }
 }
 
-template <int NSEG, int WARPS, int WPW>
-__host__ __device__ constexpr int tiles_per_block() {
-  return local_windows(WARPS, WPW) + NSEG - 1;
+__host__ __device__ constexpr int tiles_per_block(int nseg, int warps, int wpw) {
+  return local_windows(warps, wpw) + nseg - 1;
+}
+
+// Floats of one stage of the ring: kKc samples of every tile, and with a
+// streamed table the stage's rows of every segment.
+__host__ __device__ constexpr int stage_floats(int nseg, int warps, int wpw, bool stream) {
+  return tiles_per_block(nseg, warps, wpw) * kPitch + (stream ? nseg * kTabPitch : 0);
 }
 
 // Floats of the shared table: rows up to window + kKc - 1 (a stage reads up
@@ -192,7 +219,14 @@ __host__ __device__ inline int table_floats(int window) {
   return ((window + kKc) * kCols + 3) & ~3;
 }
 
-template <int NSEG, bool POWERS, int WARPS, int WPW>
+// Dynamic shared memory of a launch: the resident table (none when it is
+// streamed) and the ring.
+inline int smem_bytes(int window, int nseg, int warps, int wpw, bool stream) {
+  return static_cast<int>(sizeof(float)) *
+         ((stream ? 0 : table_floats(window)) + kStages * stage_floats(nseg, warps, wpw, stream));
+}
+
+template <int NSEG, bool POWERS, int WARPS, int WPW, bool STREAM>
 __global__ void __launch_bounds__(WARPS * 32, 1)
 tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
                    const float* __restrict__ tm, int window, int stride, int n_win,
@@ -204,13 +238,15 @@ tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
   static_assert(kRun > 0, "a block must own at least one window");
   static_assert(kLocal * (kCols + 3) <= kStages * kLocal * kPitch,
                 "the epilogue reuses the stage ring");
-  constexpr int kTiles = tiles_per_block<NSEG, WARPS, WPW>();
+  constexpr int kTiles = tiles_per_block(NSEG, WARPS, WPW);
   constexpr int kXs = kWpw + NSEG - 1;  // tiles one warp reads
-  constexpr int kStageFloats = kTiles * kPitch;
+  constexpr int kStageFloats = stage_floats(NSEG, WARPS, WPW, STREAM);
+  constexpr int kTabAt = kTiles * kPitch;  // a stage's table rows (streamed)
   constexpr int kCopies = (kTiles * kChunks + kThreads - 1) / kThreads;
+  constexpr int kTabCopies = STREAM ? (NSEG * kTabChunks + kThreads - 1) / kThreads : 0;
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
-  const int tab_floats = table_floats(window);
+  const int tab_floats = STREAM ? 0 : table_floats(window);
   float* ring = tab + tab_floats;
   const uint32_t tab_s = static_cast<uint32_t>(__cvta_generic_to_shared(tab));
   const uint32_t ring_s = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
@@ -224,13 +260,15 @@ tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
   const long long tile0 = w0 - kSmooth;  // tile of local window 0
   const uintptr_t xr_word = reinterpret_cast<uintptr_t>(xr) >> 2;
 
-  // the table, as it lies in device memory, then zeros
-  const int tab_bytes = window * kCols * 4;
-  const int tab_chunks = (tab_bytes + 15) / 16;
-  for (int c = tid; c < tab_chunks; c += kThreads)
-    cp_async16(tab_s + 16 * c, reinterpret_cast<const char*>(tm) + 16 * c,
-               min(16, tab_bytes - 16 * c));
-  for (int i = 4 * tab_chunks + tid; i < tab_floats; i += kThreads) tab[i] = 0.f;
+  // the resident table, as it lies in device memory, then zeros
+  if constexpr (!STREAM) {
+    const int tab_bytes = window * kCols * 4;
+    const int tab_chunks = (tab_bytes + 15) / 16;
+    for (int c = tid; c < tab_chunks; c += kThreads)
+      cp_async16(tab_s + 16 * c, reinterpret_cast<const char*>(tm) + 16 * c,
+                 min(16, tab_bytes - 16 * c));
+    for (int i = 4 * tab_chunks + tid; i < tab_floats; i += kThreads) tab[i] = 0.f;
+  }
 
   // this thread's copies of every stage: staged row u, 16-byte chunk c, at
   // sample off[i] from the block's first tile at stage 0 (16-byte aligned:
@@ -256,6 +294,23 @@ tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
     }
     dst[i] = q < kTiles * kChunks ? ring_s + 4u * (u * kPitch + 4 * c) : 0xffffffffu;
   }
+  // a streamed table: this thread's copies of every stage's rows, segment
+  // j's 16-byte chunk c at float tq[i] of the table at stage 0 (the rows of
+  // stage s lie s * kKc * kCols floats further); the table's end zero-fills
+  int tq[kTabCopies > 0 ? kTabCopies : 1];
+  uint32_t tdst[kTabCopies > 0 ? kTabCopies : 1];
+  const int tab_total = window * kCols;
+  if constexpr (STREAM) {
+#pragma unroll
+    for (int i = 0; i < kTabCopies; ++i) {
+      const int q = tid + i * kThreads;
+      const int j = q / kTabChunks;
+      const int c = q - j * kTabChunks;
+      tq[i] = ((j * stride * kCols) & ~3) + 4 * c;
+      tdst[i] = q < NSEG * kTabChunks ? ring_s + 4u * (kTabAt + j * kTabPitch + 4 * c)
+                                      : 0xffffffffu;
+    }
+  }
   auto issue = [&](int s, int buf) {
     const int kc = s * kKc;
 #pragma unroll
@@ -264,6 +319,15 @@ tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
       const int bytes = 4 * min(max(avail[i] - kc, 0), 4);
       const float* src = bytes ? xb + (off[i] + kc) : xr;
       cp_async16(dst[i] + 4u * buf * kStageFloats, src, bytes);
+    }
+    if constexpr (STREAM) {
+#pragma unroll
+      for (int i = 0; i < kTabCopies; ++i) {
+        if (tdst[i] == 0xffffffffu) continue;
+        const int t = tq[i] + kc * kCols;
+        const int bytes = 4 * min(max(tab_total - t, 0), 4);
+        cp_async16(tdst[i] + 4u * buf * kStageFloats, bytes ? tm + t : tm, bytes);
+      }
     }
   };
 
@@ -276,8 +340,12 @@ tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
     rd[u] = (i0 + u) * kPitch + static_cast<int>((xr_word + t * stride) & 3) + lane;
   }
   int len[NSEG];  // nonzero table rows of each segment
+  int toff[NSEG];  // where a streamed stage's rows of segment j begin
 #pragma unroll
-  for (int j = 0; j < NSEG; ++j) len[j] = min(stride, window - j * stride);
+  for (int j = 0; j < NSEG; ++j) {
+    len[j] = min(stride, window - j * stride);
+    toff[j] = kTabAt + j * kTabPitch + ((j * stride * kCols) & 3);
+  }
   const int n_kst = (min(stride, window) + kKc - 1) / kKc;
 
   float acc[kWpw * kCols];
@@ -304,7 +372,9 @@ tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
 #pragma unroll
     for (int j = 0; j < NSEG; ++j) {
       if (kc < len[j]) {  // warp-uniform
-        const float2* b = reinterpret_cast<const float2*>(tab + (j * stride + kc + lane) * kCols);
+        const float2* b = reinterpret_cast<const float2*>(
+            STREAM ? buf + toff[j] + (32 * h + lane) * kCols
+                   : tab + (j * stride + kc + lane) * kCols);
         f.b[j][0] = b[0];
         f.b[j][1] = b[1];
         f.b[j][2] = b[2];
@@ -407,30 +477,6 @@ tone_ratios_kernel(const float* __restrict__ x, long long ld, long long n,
   }
 }
 
-template <int NSEG, bool POWERS, int WARPS, int WPW>
-int launch(const float* x, int rows, long long ld, long long n, const float* tm, int window,
-           int stride, int n_win, float* r400, float* r7500, cudaStream_t stream, int dev,
-           int optin) {
-  const int smem = static_cast<int>(sizeof(float)) *
-                   (table_floats(window) + kStages * tiles_per_block<NSEG, WARPS, WPW>() * kPitch);
-  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
-  // the opt-in above 48 KB, set once per device and size (host calls that
-  // cost more than a small launch); one per instance of the template
-  static int granted[kMaxDevices];
-  if (smem > granted[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(tone_ratios_kernel<NSEG, POWERS, WARPS, WPW>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted[dev] = smem;
-  }
-  constexpr int kRun = run_windows(WARPS, WPW);
-  const dim3 grid((n_win + kRun - 1) / kRun, rows);
-  tone_ratios_kernel<NSEG, POWERS, WARPS, WPW><<<grid, WARPS * 32, smem, stream>>>(
-      x, ld, n, tm, window, stride, n_win, r400, r7500);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // A block shape: warps per block, windows per warp.
 struct Shape {
   int warps, wpw;
@@ -462,21 +508,92 @@ Shape small_grid_shape(int rows, int n_win, int sms) {
   return kPowersShapes[0];
 }
 
-template <int NSEG>
-int launch_powers(Shape shape, const float* x, int rows, long long ld, long long n,
-                  const float* tm, int window, int stride, int n_win, float* powers,
-                  cudaStream_t s, int dev, int optin) {
+// What a launch runs: the block shape, whether the table is streamed, the
+// dynamic shared memory, the blocks and the table's segments.
+struct Plan {
+  Shape shape;
+  bool streamed;
+  int smem;
+  long long blocks;
+  int nseg;
+};
+
+// The launch of `rows` rows of `n_win` windows of `window` samples at
+// `stride`, decided by size before it runs: the ratios' one shape, or for
+// the raw powers `shape` ({0, 0}: small_grid_shape); the resident table if
+// it fits `optin` bytes beside that shape's ring, the streamed one if not.
+Plan make_plan(bool powers, int rows, int n_win, int window, int stride, Shape shape, int sms,
+               int optin) {
+  Plan p;
+  p.shape = !powers ? Shape{kWarpsRatios, kWpwRatios}
+                    : (shape.warps == 0 ? small_grid_shape(rows, n_win, sms) : shape);
+  p.nseg = (window + stride - 1) / stride;
+  p.streamed = smem_bytes(window, p.nseg, p.shape.warps, p.shape.wpw, false) > optin;
+  p.smem = smem_bytes(window, p.nseg, p.shape.warps, p.shape.wpw, p.streamed);
+  p.blocks = grid_blocks(rows, n_win, p.shape);
+  return p;
+}
+
+// The template arguments of the instance that this thread's last tone call
+// launched, written once the launch is made; all zero if it launched nothing.
+struct Launched {
+  int nseg, powers, warps, wpw, streamed;
+};
+thread_local Launched last_launched;
+
+template <int NSEG, bool POWERS, int WARPS, int WPW, bool STREAM>
+int launch(const float* x, int rows, long long ld, long long n, const float* tm, int window,
+           int stride, int n_win, float* r400, float* r7500, cudaStream_t stream, int dev,
+           int smem) {
+  // the opt-in above 48 KB, set once per device and size (host calls that
+  // cost more than a small launch); one per instance of the template
+  static int granted[kMaxDevices];
+  if (smem > granted[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tone_ratios_kernel<NSEG, POWERS, WARPS, WPW, STREAM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted[dev] = smem;
+  }
+  constexpr int kRun = run_windows(WARPS, WPW);
+  const dim3 grid((n_win + kRun - 1) / kRun, rows);
+  tone_ratios_kernel<NSEG, POWERS, WARPS, WPW, STREAM><<<grid, WARPS * 32, smem, stream>>>(
+      x, ld, n, tm, window, stride, n_win, r400, r7500);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) last_launched = {NSEG, POWERS ? 1 : 0, WARPS, WPW, STREAM ? 1 : 0};
+  return static_cast<int>(err);
+}
+
+template <int NSEG, bool POWERS, int WARPS, int WPW>
+int launch_planned(const Plan& p, const float* x, int rows, long long ld, long long n,
+                   const float* tm, int window, int stride, int n_win, float* r400,
+                   float* r7500, cudaStream_t s, int dev) {
+  return p.streamed
+      ? launch<NSEG, POWERS, WARPS, WPW, true>(x, rows, ld, n, tm, window, stride, n_win, r400,
+                                               r7500, s, dev, p.smem)
+      : launch<NSEG, POWERS, WARPS, WPW, false>(x, rows, ld, n, tm, window, stride, n_win, r400,
+                                                r7500, s, dev, p.smem);
+}
+
+template <int NSEG, bool POWERS>
+int launch_shape(const Plan& p, const float* x, int rows, long long ld, long long n,
+                 const float* tm, int window, int stride, int n_win, float* r400, float* r7500,
+                 cudaStream_t s, int dev) {
 #define AXCTD_TONE_SHAPE(W, P)                                                              \
-  if (shape.warps == W && shape.wpw == P)                                                   \
-    return launch<NSEG, true, W, P>(x, rows, ld, n, tm, window, stride, n_win, powers,     \
-                                    nullptr, s, dev, optin);
-  AXCTD_TONE_SHAPE(kWarpsStd, kWpwStd)
-  AXCTD_TONE_SHAPE(8, 8)
-  AXCTD_TONE_SHAPE(8, 6)
-  AXCTD_TONE_SHAPE(8, 5)
-  AXCTD_TONE_SHAPE(8, 4)
-  AXCTD_TONE_SHAPE(8, 3)
-  AXCTD_TONE_SHAPE(8, 2)
+  if (p.shape.warps == W && p.shape.wpw == P)                                               \
+    return launch_planned<NSEG, POWERS, W, P>(p, x, rows, ld, n, tm, window, stride, n_win, \
+                                              r400, r7500, s, dev);
+  if constexpr (!POWERS) {
+    AXCTD_TONE_SHAPE(kWarpsRatios, kWpwRatios)
+  } else {
+    AXCTD_TONE_SHAPE(kWarpsStd, kWpwStd)
+    AXCTD_TONE_SHAPE(8, 8)
+    AXCTD_TONE_SHAPE(8, 6)
+    AXCTD_TONE_SHAPE(8, 5)
+    AXCTD_TONE_SHAPE(8, 4)
+    AXCTD_TONE_SHAPE(8, 3)
+    AXCTD_TONE_SHAPE(8, 2)
+  }
 #undef AXCTD_TONE_SHAPE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -498,36 +615,28 @@ int device_limits(int* dev, int* sms, int* optin) {
   return static_cast<int>(cudaSuccess);
 }
 
-// POWERS: `shape` {0, 0} is the launcher's choice (small_grid_shape), another
-// one of kPowersShapes forced.  The ratios launch their one shape.
+// Plans and launches.  POWERS: `shape` {0, 0} is the launcher's choice
+// (small_grid_shape), another one of kPowersShapes forced.  The ratios
+// launch their one shape.  A plan whose shared memory exceeds the opt-in
+// even streamed, or a table of more than 3 segments, is refused.
 template <bool POWERS>
 int dispatch(const float* x, int rows, long long ld, long long n, const float* tm, int window,
              int stride, int n_win, Shape shape, float* r400, float* r7500, void* stream) {
+  last_launched = Launched{};
   if (n_win <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
   int dev = 0, sms = 0, optin = 0;
   const int err = device_limits(&dev, &sms, &optin);
   if (err != cudaSuccess) return err;
-  if (POWERS && shape.warps == 0) shape = small_grid_shape(rows, n_win, sms);
+  const Plan p = make_plan(POWERS, rows, n_win, window, stride, shape, sms, optin);
+  if (p.smem > optin) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nseg = (window + stride - 1) / stride;
-  if (!POWERS) {
-    switch (nseg) {
-      case 1: return launch<1, false, kWarpsRatios, kWpwRatios>(
-          x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s, dev, optin);
-      case 2: return launch<2, false, kWarpsRatios, kWpwRatios>(
-          x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s, dev, optin);
-      case 3: return launch<3, false, kWarpsRatios, kWpwRatios>(
-          x, rows, ld, n, tm, window, stride, n_win, r400, r7500, s, dev, optin);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  switch (nseg) {
-    case 1: return launch_powers<1>(shape, x, rows, ld, n, tm, window, stride, n_win, r400, s,
-                                    dev, optin);
-    case 2: return launch_powers<2>(shape, x, rows, ld, n, tm, window, stride, n_win, r400, s,
-                                    dev, optin);
-    case 3: return launch_powers<3>(shape, x, rows, ld, n, tm, window, stride, n_win, r400, s,
-                                    dev, optin);
+  switch (p.nseg) {
+    case 1: return launch_shape<1, POWERS>(p, x, rows, ld, n, tm, window, stride, n_win, r400,
+                                           r7500, s, dev);
+    case 2: return launch_shape<2, POWERS>(p, x, rows, ld, n, tm, window, stride, n_win, r400,
+                                           r7500, s, dev);
+    case 3: return launch_shape<3, POWERS>(p, x, rows, ld, n, tm, window, stride, n_win, r400,
+                                           r7500, s, dev);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -569,19 +678,36 @@ extern "C" int axctd_tone_powers_shape_known(int warps, int wpw) {
   return 0;
 }
 
-// The block shape and the blocks of the raw-powers launch of `rows` rows of
-// `n_win` windows on the current device, as axctd_tone_powers_launch picks
-// it.  Returns a CUDA error code.
-extern "C" int axctd_tone_powers_shape(int rows, int n_win, int* warps, int* wpw,
-                                       long long* blocks) {
+// The launch that the ratios (`powers` 0) or the raw powers (1; `warps` 0
+// for the launcher's shape) of `rows` rows of `n_win` windows of `window`
+// samples at `stride` makes on the current device, by the launchers' own
+// make_plan: out = {streamed, warps, windows a warp, shared-memory bytes,
+// the card's opt-in}, and the blocks.  Returns a CUDA error code.
+extern "C" int axctd_tone_plan(int powers, int rows, int n_win, int window, int stride, int warps,
+                               int wpw, int* out, long long* blocks) {
   int dev = 0, sms = 0, optin = 0;
   const int err = device_limits(&dev, &sms, &optin);
   if (err != cudaSuccess) return err;
-  const Shape s = small_grid_shape(rows, n_win, sms);
-  *warps = s.warps;
-  *wpw = s.wpw;
-  *blocks = grid_blocks(rows, n_win, s);
+  const Plan p = make_plan(powers != 0, rows, n_win, window, stride, Shape{warps, wpw}, sms, optin);
+  out[0] = p.streamed ? 1 : 0;
+  out[1] = p.shape.warps;
+  out[2] = p.shape.wpw;
+  out[3] = p.smem;
+  out[4] = optin;
+  *blocks = p.blocks;
   return static_cast<int>(cudaSuccess);
+}
+
+// What this thread's last tone_ratios or tone_powers call launched, from the
+// instance itself: out = {segments, powers, warps, windows a warp, streamed},
+// all zero if the call launched nothing.
+extern "C" void axctd_tone_last_launch(int* out) {
+  const Launched& l = last_launched;
+  out[0] = l.nseg;
+  out[1] = l.powers;
+  out[2] = l.warps;
+  out[3] = l.wpw;
+  out[4] = l.streamed;
 }
 
 extern "C" const char* axctd_cuda_error_string(int code) {

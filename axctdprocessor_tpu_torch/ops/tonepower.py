@@ -6,12 +6,19 @@ axctdprocessor_tpu/ops/pallas/tonepower.py (``fused_tone_ratios``).
 * :func:`tone_ratios` — the dispatcher: on a CPU tensor it returns the plain
   version; on a CUDA tensor it launches the hand-written sm_90a kernel
   (``ops/kernels/tone_ratios.cu``) and adds one to ``tone_ratios.launches``
-  (a call with no window launches nothing).  A build or launch failure
-  raises; nothing falls back.
+  (a call with no window launches nothing), and one to
+  ``tone_ratios.streamed_launches`` when the instance it launched streamed
+  the table through the copy ring (a window whose table does not fit in
+  shared memory beside the ring: the batch and archive paths' 88.2 and 96
+  kHz rows; the same bits).  The extension chooses by size before the launch
+  (``extension().tone_plan``) and names the instance it launched
+  (``extension().tone_last_launch``).  A build or launch failure raises;
+  nothing falls back.
 * :func:`tone_powers` — the raw (..., n_win, 3) powers of the same windows,
   no box mean and no log: on a CPU tensor the plain tiled version
   (``goertzel.framed_tone_power_tiled``), on a CUDA tensor the same kernel's
-  powers-only variant (``tone_powers.launches``), on grids under one wave of
+  powers-only variant (``tone_powers.launches``; ``streamed_launches`` as
+  for the ratios), on grids under one wave of
   the card's SMs in a smaller block shape (the same bits).  The segmented and
   time-sharded paths take it and smooth the gathered series themselves
   (:func:`ratios_from_powers`).
@@ -66,13 +73,15 @@ def tone_ratios(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int):
     from .kernels import extension
 
     n_win = n_windows(x.shape[-1], window, stride)
-    r400, r7500 = extension().tone_ratios(x, tm, window, stride, n_win)
+    r400, r7500, streamed = extension().tone_ratios(x, tm, window, stride, n_win)
     if r400.numel():  # no window, no launch
         tone_ratios.launches += 1
+        tone_ratios.streamed_launches += streamed
     return r400, r7500
 
 
 tone_ratios.launches = 0
+tone_ratios.streamed_launches = 0
 
 
 def tone_powers_reference(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int):
@@ -97,10 +106,12 @@ def tone_powers(x: torch.Tensor, tm: torch.Tensor, window: int, stride: int,
     from .kernels import extension
 
     n_win = n_windows(x.shape[-1], window, stride)
-    out = extension().tone_powers(x, tm, window, stride, n_win, *shape)
+    out, streamed = extension().tone_powers(x, tm, window, stride, n_win, *shape)
     if out.numel():  # no window, no launch
         tone_powers.launches += 1
+        tone_powers.streamed_launches += streamed
     return out
 
 
 tone_powers.launches = 0
+tone_powers.streamed_launches = 0

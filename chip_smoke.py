@@ -24,7 +24,12 @@ Phases, one line each or more (any failure raises and exits non-zero):
    the kernel (encoded on the host at int8 and at int4, unpacked and
    conditioned on the card), then the batch path's input (the conditioned
    archive batch) as B = 8 and B = 64 rows of 60 s; each batch row bitwise
-   equal to the 1-D kernel.  Per shape: median CUDA-event times per call over 20
+   equal to the 1-D kernel; the launcher's plan (the extension's
+   ``tone_plan``) holds the table resident at every one of these rates.
+   Then the windows whose table it streams through the copy ring: 88.2 kHz
+   (8,820 / 3,528) and 96 kHz (9,600 / 3,840), 60 s as 1 row and 8 rows,
+   through ``tone_ratios`` and ``tone_powers`` (every block shape bit-equal,
+   the resident (8, 2) at 88.2 kHz among them).  Per shape: median CUDA-event times per call over 20
    runs of 10 back-to-back calls after a warm-up, kernel and plain in
    turns; the bound (the
    bytes at 3.35 TB/s against the flop at 66.9 TFLOP/s) and the share of
@@ -158,6 +163,28 @@ Phases, one line each or more (any failure raises and exits non-zero):
    degenerate); the CLI's ``--wire int4`` against the in-process decode;
 9f. ``iir.sosfilt`` (the parallel scan form, float64) on one second of the
    600 s drop on the card against ``iir.sosfilt_fft`` and its CPU run;
+9g. the archive at the BASELINE's scale: ``tools/corpus_1000.py``'s corpus
+   (1,000 files, 995 drops of 45-120 s at 44.1 kHz and 60 s at 88.2 kHz and
+   5 corrupt files; 200 files where the free disk is under twice its size,
+   with the reason printed) built in the temporary directory and removed
+   after; a fresh ``reprocess_corpus(batch_size=8)`` on the card held to the
+   tool's gates (done + failed == N, exactly the corrupt files failed, every
+   done drop at status 2 with the truth's serial, probe code and max depth
+   and hexframes in the truth > 0.97), with its wall, drops per second,
+   realtime factor, stage times and launches per batch; the peak device
+   memory of a batch of 120 s drops; a second run with every
+   ``tone_ratios``, ``probe_at``, ``chain_walk_segments`` and
+   ``chain_walk_frames`` call checked as it is made against its plain
+   version (floats rtol = atol = 2e-4, integers bit for bit), each row of a
+   batched call against its 1-D call, every report byte-equal to the first
+   run's; a resume from the manifest cut to half its done entries, which
+   must decode exactly the other half.  Then 8 rows of 60 s at 88.2 kHz
+   through ``decode_batch`` at the native rate (the streamed table) against
+   ``decode_batch(device="cpu")`` of the same rows (hexframes, metadata and
+   every integer field of the packed result equal), and that decode's
+   ``probe_at`` call timed (its runs' spans exceed the staged buffer);
+   ``--only-corpus`` runs the build, phase 2's high-rate cases and this phase
+   and exits 3 without result lines (a development run);
 10. ``torch.profiler`` last, after every wall (a process that has run the
    profiler launches more slowly from then on): one segmented, one
    prestaged ``fused``, one monolithic and one time-sharded decode of the
@@ -172,14 +199,18 @@ Phases, one line each or more (any failure raises and exits non-zero):
    counted), and one frame-sync call's launches are counted; ``chain_walk``
    alone, and ``tone_powers`` and ``probe_at`` at each phase-2d shape
    (``tone_powers`` also at every block shape, and the kernel the trace
-   names must be the shape the extension's ``tone_powers_shape`` reports).
+   names must be the shape and table the extension's ``tone_plan`` reports);
+   one 88.2 kHz batch of 8 x 60 s through ``decode_batch``, the streamed
+   kernel's device time at phase 2's high-rate shapes beside its bound and
+   the DFT core's product, and ``probe_at``'s at that batch's call.
 
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after (each chain kernel and ``probe_at`` must have launched on
-every path, exactly one of ``tone_ratios`` and ``tone_powers``, and
-``chain_walk``, the general map's walk, never).  At the end neither jax nor any module of the JAX
+every path, exactly one of ``tone_ratios`` and ``tone_powers``, the streamed
+table on the 88.2 kHz batch and on no other path, and ``chain_walk``, the
+general map's walk, never).  At the end neither jax nor any module of the JAX
 package (``axctdprocessor_tpu``) may be loaded.  Then come the line
-``{"kernels": [...]}`` (``tone_ratios``, ``tone_powers``, ``probe_at``,
+``{"kernels": [...]}`` (``tone_ratios``, ``tone_ratios_streamed``, ``tone_powers``, ``probe_at``,
 ``chain_walk_segments``, ``chain_walk_frames`` and ``chain_walk``: each
 kernel's launches on every path; per shape: times, bound and share of
 bound), the
@@ -193,6 +224,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -229,7 +261,11 @@ FRONTEND_SOURCE = {"tone_powers": KERNEL_SOURCE,
 FRONTEND_REPLACES = {"tone_powers": "axctdprocessor_tpu/ops/goertzel.py:55-88",
                      "probe_at": "axctdprocessor_tpu/ops/goertzel.py:91-110"}
 FRONTEND_IN_TRACE = {"tone_powers": "tone_ratios_kernel", "probe_at": "probe_run_kernel"}
-KERNELS = ("tone_ratios",) + tuple(FRONTEND_REPLACES) + tuple(CHAIN_REPLACES)
+# the tone kernel with its table streamed through the copy ring (windows
+# whose table does not fit beside the ring: 88.2 and 96 kHz rows at their
+# native rate), launched by tone_ratios and tone_powers; counted apart
+STREAMED = "tone_ratios_streamed"
+KERNELS = ("tone_ratios", STREAMED) + tuple(FRONTEND_REPLACES) + tuple(CHAIN_REPLACES)
 PATH_LAUNCHES: dict = {}  # path -> {kernel: launches}, every path this run drives
 
 
@@ -246,24 +282,30 @@ def _kernel_fns() -> dict:
 
 def zero_counts() -> None:
     """Every kernel's launch count to 0, just before a path is driven."""
-    from axctdprocessor_tpu_torch.ops import chain
+    from axctdprocessor_tpu_torch.ops import chain, tonepower
 
     for fn in _kernel_fns().values():
         fn.launches = 0
     chain.chain_walk.launches = 0
+    tonepower.tone_ratios.streamed_launches = tonepower.tone_powers.streamed_launches = 0
 
 
-def read_counts(path: str) -> dict:
+def read_counts(path: str, high_rate: bool = False) -> dict:
     """Every kernel's launch count just after `path` ran; every path walks
     the bit-edge chain, probes its bits and frame-syncs, so each chain kernel
     and ``probe_at`` must have been launched at least once, and the general
     map's walk (jump tables and ``chain_walk``) never; the tone powers come
     from exactly one of the tone kernel's two forms (the ratios on the
     monolithic and batch paths, the raw powers on the segmented, prestaged,
-    stream and time-sharded ones)."""
-    from axctdprocessor_tpu_torch.ops import chain
+    stream and time-sharded ones).  The tone kernel streams its table on a
+    `high_rate` path (rows above 50 kHz at their native rate) and on no
+    other: every other path launches the resident-table instances."""
+    from axctdprocessor_tpu_torch.ops import chain, tonepower
 
     got = {name: fn.launches for name, fn in _kernel_fns().items()}
+    got[STREAMED] = (tonepower.tone_ratios.streamed_launches
+                     + tonepower.tone_powers.streamed_launches)
+    assert (got[STREAMED] > 0) == high_rate, f"{path}: streamed-table launches {got}"
     missing = [k for k in ("probe_at",) + tuple(CHAIN_REPLACES) if got[k] < 1]
     assert not missing, f"{path}: no launch of {missing}: {got}"
     assert (got["tone_ratios"] > 0) != (got["tone_powers"] > 0), f"{path}: tone kernels {got}"
@@ -429,16 +471,39 @@ def _time_pair(kernel, plain, runs: int = 20, calls: int = 10) -> tuple[float, f
     return ms["kernel"], ms["plain"]
 
 
+PROFILE_TRIES = 5
+PROFILES = {"taken": 0, "empty": 0}  # short profiles, and those with no device activity
+
+
+def _profiled(fn, calls: int = 1, cpu: bool = False):
+    """``torch.profiler`` over `calls` calls of `fn`, after a warm-up call:
+    the card's activity, and the host's if `cpu`.  On the card this profiler
+    at times records no device activity at all in a short profile, at any
+    point of a process; such a profile is taken again, up to PROFILE_TRIES
+    times, and counted in PROFILES.  Returns the last profile taken."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=activities) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        PROFILES["taken"] += 1
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            break
+        PROFILES["empty"] += 1
+    return prof
+
+
 def _device_ms(fn, name: str, calls: int = 20):
     """Device time per call of `fn` in the kernels whose name holds `name`,
     over `calls` calls, from ``torch.profiler`` (None if it records no device
     time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    prof = _profiled(fn, calls)
     total = sum(e.device_time_total for e in prof.key_averages() if name in e.key and e.count)
     return total / calls / 1e3 if total else None
 
@@ -495,6 +560,16 @@ def _dft_core_ms(x, tm, window: int, stride: int) -> float:
                              for _ in range(20))
 
 
+def _tone_signal(fs, n, tail, rng):
+    """A 400 + 7500 Hz tone with noise on the card, its last `tail` zeros."""
+    t = np.arange(n) / fs
+    x = (0.4 * np.sin(2 * np.pi * 400.0 * t) + 0.2 * np.sin(2 * np.pi * 7500.0 * t)
+         + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    if tail:
+        x[int(n * (1 - tail)):] = 0.0
+    return torch.from_numpy(x).to("cuda")
+
+
 def _kernel_cases(drops: dict) -> list:
     """(name, input on the card, fs) of every shape the kernel is held to;
     built anew by each phase that needs them (the same data each time), so
@@ -505,12 +580,7 @@ def _kernel_cases(drops: dict) -> list:
     rng = np.random.default_rng(0)
 
     def tone_signal(fs, n, tail):
-        t = np.arange(n) / fs
-        x = (0.4 * np.sin(2 * np.pi * 400.0 * t) + 0.2 * np.sin(2 * np.pi * 7500.0 * t)
-             + 0.05 * rng.standard_normal(n)).astype(np.float32)
-        if tail:
-            x[int(n * (1 - tail)):] = 0.0
-        return torch.from_numpy(x).to(dev)
+        return _tone_signal(fs, n, tail, rng)
 
     # the batch path's input is the archive batch conditioned on the card
     cases = [
@@ -542,6 +612,21 @@ def _kernel_cases(drops: dict) -> list:
                      drops["batch_fs"]) for b in (8, 64)]
 
 
+def _high_rate_cases() -> list:
+    """(name, input on the card, fs) of the windows whose table the tone
+    kernel streams through its ring: 88.2 kHz (window 8,820, stride 3,528)
+    and 96 kHz (9,600 / 3,840), 60 s as one row and as 8 rows, as the batch
+    path hands rows above 50 kHz over at their native rate."""
+    rng = np.random.default_rng(1)
+    cases = []
+    for fs in (88200.0, 96000.0):
+        n = int(60 * fs)
+        cases.append((f"{fs / 1e3:g} kHz 60 s", _tone_signal(fs, n, 0.1, rng), fs))
+        cases.append((f"batch 8 x 60 s at {fs / 1e3:g} kHz",
+                      torch.stack([_tone_signal(fs, n, 0.05 * r, rng) for r in range(8)]), fs))
+    return cases
+
+
 def _table(fs: float):
     from axctdprocessor_tpu_torch.ops import goertzel
 
@@ -553,13 +638,17 @@ def _table(fs: float):
 
 def phase2_kernel(drops: dict) -> dict:
     from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.ops.kernels import extension
 
     worst, shapes = 0.0, []
     for name, xd, fs in _kernel_cases(drops):
         window, stride, tm = _table(fs)
+        n_win = tonepower.n_windows(xd.shape[-1], window, stride)
+        variant, *_ = extension().tone_plan(False, xd.shape[0] if xd.dim() == 2 else 1, n_win,
+                                            window, stride)
+        assert variant == "resident", (name, variant)  # every rate up to 50 kHz
         got = tonepower.tone_ratios(xd, tm, window, stride)
         ref = tonepower.tone_ratios_reference(xd, tm, window, stride)
-        n_win = tonepower.n_windows(xd.shape[-1], window, stride)
         assert got[0].shape == xd.shape[:-1] + (n_win,), name
         err = _max_err(got, ref, name)
         worst = max(worst, err)
@@ -584,13 +673,93 @@ def phase2_kernel(drops: dict) -> dict:
             f"bound {rec['share_of_bound']:.3f}; for reference only, one torch.matmul of the "
             f"tile view by the (stride, 18) segment matrix (the DFT core alone, not the same "
             f"function): {core_ms:.4f} ms")
-    return dict(max_abs_err=worst, shapes=shapes)
+    return dict(max_abs_err=worst, shapes=shapes, streamed=_phase2_streamed())
 
 
-class _Recorder:
-    """Stands in for one chain wrapper of ``ops.chain`` while the main paths
-    run: notes each call's arguments and calls the wrapper.  Its ``launches``
-    is the wrapper's own (the wrapper counts through its module name)."""
+def _phase2_streamed() -> list:
+    """Phase 2's high-rate cases: the launcher's plan streams the table;
+    ``tone_ratios`` and ``tone_powers`` within rtol = atol = 2e-4 of their
+    plain versions, each batch row bitwise its 1-D call, ``tone_powers``
+    bit-equal at every block shape (at 88.2 kHz the (8, 2) shape holds its
+    table resident: the two variants give the same bits); times, the bound
+    and the DFT core's product."""
+    from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    block_shapes = extension().tone_powers_shapes()
+    out = []
+    for name, xd, fs in _high_rate_cases():
+        window, stride, tm = _table(fs)
+        rows_n = xd.shape[0] if xd.dim() == 2 else 1
+        n_win = tonepower.n_windows(xd.shape[-1], window, stride)
+        variant, warps, wpw, blocks, smem, optin = extension().tone_plan(False, rows_n, n_win,
+                                                                         window, stride)
+        assert variant == "streamed" and smem <= optin, (name, variant, smem, optin)
+        before = tonepower.tone_ratios.streamed_launches
+        got = tonepower.tone_ratios(xd, tm, window, stride)
+        assert tonepower.tone_ratios.streamed_launches == before + 1, name
+        err = _max_err(got, tonepower.tone_ratios_reference(xd, tm, window, stride), name)
+        powers = tonepower.tone_powers(xd, tm, window, stride)
+        perr = _max_err([powers], [tonepower.tone_powers_reference(xd, tm, window, stride)],
+                        f"{name}, tone_powers")
+        by_shape = {}
+        for shape in block_shapes:
+            before = tonepower.tone_powers.streamed_launches
+            assert torch.equal(tonepower.tone_powers(xd, tm, window, stride, shape), powers), \
+                (name, shape)
+            by_shape[f"{shape[0]}x{shape[1]}"] = (
+                "streamed" if tonepower.tone_powers.streamed_launches > before else "resident")
+        if xd.dim() == 2:
+            _rows_bitwise(xd, got, lambda row: tonepower.tone_ratios(row, tm, window, stride),
+                          name)
+            for r in range(rows_n):
+                assert torch.equal(tonepower.tone_powers(xd[r], tm, window, stride),
+                                   powers[r]), (name, r)
+        km, pm = _time_pair(lambda: tonepower.tone_ratios(xd, tm, window, stride),
+                            lambda: tonepower.tone_ratios_reference(xd, tm, window, stride))
+        bound_ms, bound_by = _bound(rows_n, xd.shape[-1], window, n_win)
+        core_ms = _dft_core_ms(xd, tm, window, stride)
+        rec = dict(shape=name, fs=fs, rows=rows_n, n=int(xd.shape[-1]), window=window,
+                   stride=stride, n_win=n_win, variant=variant, block_shape=[warps, wpw],
+                   blocks=blocks, smem_bytes=smem, optin_bytes=optin, max_abs_err=err,
+                   powers_max_abs_err=perr, powers_variant_by_shape=by_shape, ms=km,
+                   device_ms=None, plain_ms=pm, bound_us=1e3 * bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / km, dft_core_matmul_ms=core_ms)
+        out.append(rec)
+        log(f"[2] {name}: window {window}, stride {stride}, n_win {n_win}: the {variant} table "
+            f"({smem} B of shared memory of {optin}; {blocks} blocks of ({warps}, {wpw})); "
+            f"tone_ratios max_abs_err={err:.3g}, tone_powers {perr:.3g} (rtol=atol={RTOL})"
+            + (", every row bitwise equal to the 1-D kernel" if xd.dim() == 2 else "")
+            + f"; tone_powers bit-equal at every block shape ({by_shape}); kernel {km:.4f} ms, "
+            f"plain {pm:.4f} ms, bound {rec['bound_us']:.1f} us ({bound_by}), share of bound "
+            f"{rec['share_of_bound']:.3f}; for reference only, the DFT core's torch.matmul "
+            f"{core_ms:.4f} ms")
+    return out
+
+
+class _Standin:
+    """Stands in for a kernel's wrapper (``fn``) under the wrapper's name in
+    its module while a path runs.  Its counts (``launches``,
+    ``streamed_launches``) are the wrapper's own: the wrapper counts through
+    its module name, which then names the stand-in."""
+
+    _COUNTS = ("launches", "streamed_launches")
+
+    def __getattr__(self, attr):
+        if attr in _Standin._COUNTS:
+            return getattr(self.fn, attr)
+        raise AttributeError(attr)
+
+    def __setattr__(self, attr, value):
+        if attr in _Standin._COUNTS:
+            setattr(self.fn, attr, value)
+        else:
+            object.__setattr__(self, attr, value)
+
+
+class _Recorder(_Standin):
+    """Notes each call's arguments (and the path that made it) and calls the
+    wrapper."""
 
     def __init__(self, fn, log: list, path: list):
         self.fn, self.log, self.path = fn, log, path
@@ -598,14 +767,6 @@ class _Recorder:
     def __call__(self, *args, **kwargs):
         self.log.append((self.path[0], args, kwargs))
         return self.fn(*args, **kwargs)
-
-    @property
-    def launches(self):
-        return self.fn.launches
-
-    @launches.setter
-    def launches(self, value):
-        self.fn.launches = value
 
 
 def _record_chain_calls(drops: dict) -> dict:
@@ -788,14 +949,8 @@ def _device_total_ms(fn, calls: int = 10):
     fills, copies), from ``torch.profiler``'s device events (None if it
     records none)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    prof = _profiled(fn, calls)
     total = sum(e.time_range.elapsed_us() for e in prof.events()
                 if e.device_type == DeviceType.CUDA)
     return total / calls / 1e3 if total else None
@@ -1324,7 +1479,8 @@ def phase2d_frontend(drops: dict) -> dict:
         else:
             n_win = tonepower.n_windows(x.shape[-1], args[2], args[3])
             bound_ms, bound_by = _powers_bound(rows, x.shape[-1], args[2], n_win)
-            *shape_run, blocks = extension().tone_powers_shape(rows, n_win)
+            variant, *shape_run, blocks, _, _ = extension().tone_plan(True, rows, n_win,
+                                                                      args[2], args[3])
             turns["standard"] = lambda: kernel(*args, shapes[0])
         ms = _time_turns(turns, runs=5, calls=5)
         rec = dict(shape=shape, path=path, rows=rows, ms=ms["kernel"], plain_ms=ms["plain"],
@@ -1332,8 +1488,8 @@ def phase2d_frontend(drops: dict) -> dict:
                    share_of_bound=bound_ms / ms["kernel"], device_ms=None)
         text = ""
         if name == "tone_powers":
-            rec.update(block_shape=list(shape_run), blocks=blocks, standard_ms=ms["standard"],
-                       standard_device_ms=None)
+            rec.update(block_shape=list(shape_run), blocks=blocks, variant=variant,
+                       standard_ms=ms["standard"], standard_device_ms=None)
             text = (f" (block shape {tuple(shape_run)}: {blocks} blocks on {sms} SMs; the "
                     f"standard shape {shapes[0]} {ms['standard']:.4f} ms)")
         out[name].append(rec)
@@ -1398,7 +1554,8 @@ def phase2e_batched_rows(drops: dict) -> None:
         f"also to the 1-D call")
 
 
-def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict) -> None:
+def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict,
+                     corpus: dict) -> None:
     """``torch.profiler`` runs, after every wall: a process that has run the
     profiler launches kernels more slowly from then on, which would load the
     walls of phases 3-9.  One segmented, one monolithic and one time-sharded
@@ -1410,6 +1567,7 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict) -> Non
     from axctdprocessor_tpu_torch.parallel import batch, pipeline, timeshard
     from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
 
+    _profile_high_rate(k, corpus)
     raw, fs = seg["raw"], seg["fs"]
     log("[10] 600 s segmented decode: "
         + profile_run(lambda: segmented.decode_waveform_segmented(raw, fs, device="cuda")))
@@ -1492,29 +1650,106 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict) -> Non
         if name == "tone_powers":
             from axctdprocessor_tpu_torch.ops.kernels import extension
 
-            ran = _kernels_run(lambda: kernel(*args))
             warps, wpw = rec["block_shape"]
-            assert len(ran) == 1 and f", true, {warps}, {wpw}>" in ran[0], (shape, warps, ran)
+            streamed = rec["variant"] == "streamed"
+            trace = _tone_trace_text(_kernels_run(lambda: kernel(*args)), True, warps, wpw,
+                                     streamed)
+            _tone_launched(shape, args[2], args[3], True, warps, wpw, streamed)
             rec["shape_device_ms"] = {f"{w}x{p}": _device_ms(lambda s=(w, p): kernel(*args, s),
                                                              FRONTEND_IN_TRACE[name], calls=10)
                                       for w, p in extension().tone_powers_shapes()}
             rec["standard_device_ms"] = next(iter(rec["shape_device_ms"].values()))
-            text += (f"; block shape ({warps}, {wpw}), as the trace names it; by block shape: "
+            text += (f"; block shape ({warps}, {wpw}), {rec['variant']} table, as the "
+                     f"launcher recorded it ({trace}); by block shape: "
                      + ", ".join(f"{k} {_ms_text(v)}" for k, v in rec["shape_device_ms"].items()))
         log(f"[10] {name} {shape}: device " + ("not measured" if rec["device_ms"] is None else
             f"{rec['device_ms']:.4f} ms, share of bound {rec['share_of_bound_device']:.3f}")
             + text)
+    log(f"[10] short profiles (device times, kernel names): {PROFILES['taken']} taken, "
+        f"{PROFILES['empty']} of them with no device activity recorded (taken again, up to "
+        f"{PROFILE_TRIES} times a measurement)")
 
 
-def _kernels_run(fn) -> list:
-    """The names of the kernels one call of `fn` launches, from
-    ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+def _profile_high_rate(k: dict, corpus: dict) -> None:
+    """Phase 10's part of the streamed table (its first profiles): one 88.2
+    kHz batch of 8 x 60 s through ``decode_batch``; the streamed kernel's
+    device time at each of phase 2's high-rate shapes (the launcher's record
+    of the instance it launched must be the streamed one, and so must the
+    trace's kernel where the profiler recorded it), with its bound and the
+    DFT core's product; ``probe_at``'s device time at that batch's call (runs
+    read straight from device memory).  Where the profiler records no device
+    activity at all (``_profiled``) the device time is taken with CUDA events
+    instead and says so."""
+    from axctdprocessor_tpu_torch.ops import goertzel, tonepower
+    from axctdprocessor_tpu_torch.parallel import batch
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    rows = corpus["hr"]["rows"]
+    log(f"[10] {HIGH_RATE_PATH}: "
+        + profile_run(lambda: batch.decode_batch(rows, 88200, device="cuda")))
+    for rec, (name, xd, fs) in zip(k["streamed"], _high_rate_cases()):
+        assert rec["shape"] == name, (rec["shape"], name)
+        window, stride, tm = _table(fs)
+        fn = lambda: tonepower.tone_ratios(xd, tm, window, stride)  # noqa: E731
+        rec["device_ms"], rec["device_ms_from"] = _device_ms(fn, "tone_ratios_kernel"), "profiler"
+        trace = _tone_trace_text(_kernels_run(fn), False, *rec["block_shape"], True)
+        _tone_launched(name, window, stride, False, *rec["block_shape"], True)
+        if rec["device_ms"] is None:
+            rec["device_ms"] = statistics.median(_event_ms(fn, 10) for _ in range(5))
+            rec["device_ms_from"] = "CUDA events (the profiler recorded no device activity)"
+        rec["share_of_bound_device"] = (rec["bound_us"] / 1e3 / rec["device_ms"]
+                                        if rec["device_ms"] else None)
+        rec["dft_core_device_ms"] = _device_total_ms(_frontend_library("tone_powers",
+                                                                       (xd, tm, window, stride)))
+        log(f"[10] streamed table, {name} (the launcher recorded the streamed instance; {trace}): "
+            f"device {rec['device_ms']:.4f} ms from "
+            f"{rec['device_ms_from']}, bound {rec['bound_us']:.1f} us, share of bound "
+            f"{rec['share_of_bound_device']:.3f}; the DFT core's torch.matmul "
+            f"{_ms_text(rec['dft_core_device_ms'])}")
+    calls, path = [], ["88.2 kHz"]
+    real_probe = goertzel.probe_at
+    goertzel.probe_at = _Recorder(real_probe, calls, path)
+    try:
+        batch.decode_batch(rows, 88200, device="cuda")
+    finally:
+        goertzel.probe_at = real_probe
+    args = calls[0][1]
+    probe = corpus["hr"]["probe"]
+    probe["device_ms"] = _device_ms(lambda: goertzel.probe_at(*args), FRONTEND_IN_TRACE["probe_at"],
+                                    calls=10)
+    probe["library_device_ms"] = _device_total_ms(_frontend_library("probe_at", args))
+    log(f"[10] probe_at at 88.2 kHz ({probe['shape']}; {probe['unstaged_share']:.3f} of its runs "
+        f"unstaged): device {_ms_text(probe['device_ms'])}, bound {1e3 * probe['bound_ms']:.2f} "
+        f"us ({probe['bound_by']}); frames @ trig {_ms_text(probe['library_device_ms'])}")
+
+
+def _kernels_run(fn, calls: int = 20) -> list:
+    """The names of the kernels that `calls` calls of `fn` launch, from
+    ``torch.profiler`` (empty if it recorded no device activity: a profile of
+    a single launch comes back empty far more often than one of 20)."""
+    prof = _profiled(fn, calls)
     return sorted({e.key for e in prof.key_averages() if e.device_time_total > 0})
+
+
+def _tone_launched(what, window: int, stride: int, powers: bool, warps: int, wpw: int,
+                   streamed: bool) -> None:
+    """The instance that this thread's last tone call launched, as the
+    extension records it from the instance's template arguments, is the
+    expected one."""
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    want = (-(-window // stride), powers, warps, wpw, streamed)
+    got = tuple(extension().tone_last_launch())
+    assert got == want, (what, got, want)
+
+
+def _tone_trace_text(ran: list, powers: bool, warps: int, wpw: int, streamed: bool) -> str:
+    """Where the profiler recorded the call: its one kernel must be the
+    instance the launcher recorded; the text says which."""
+    if not ran:
+        return "the profiler recorded no device activity"
+    want = f", {str(powers).lower()}, {warps}, {wpw}, {str(streamed).lower()}>"
+    assert len(ran) == 1 and want in ran[0], (want, ran)
+    return "the trace names " + ran[0].split("::")[-1].split("(")[0]
 
 
 def _ms_text(ms) -> str:
@@ -1553,30 +1788,27 @@ def _frame_sync_alone(frame_calls: list) -> None:
     the profiler: its launches and its gather kernels (``jump_levels`` made six
     of them a call before its tables were dropped; PyTorch's gather and
     scatter share a kernel, so the frame starts' gather and the compaction's
-    scatter count here too)."""
+    scatter count here too).  Its one ``chain_walk_frames`` launch is held by
+    the wrapper's count, and by the trace where the profiler recorded it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from axctdprocessor_tpu_torch.ops import chain
 
     args, kwargs = max(frame_calls, key=lambda c: c[0][0].shape[-1])
+    before = chain.chain_enumerate_frames.launches
     chain.enumerate_frames(*args, **kwargs)
-    torch.cuda.synchronize()
-    for _ in range(3):  # the profiler has come back with no device activity for a short window
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            chain.enumerate_frames(*args, **kwargs)
-            torch.cuda.synchronize()
-        events = prof.events()
-        kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
-        if kernels:
-            break
+    assert chain.chain_enumerate_frames.launches == before + 1, "chain_walk_frames launches"
+    events = _profiled(lambda: chain.enumerate_frames(*args, **kwargs), cpu=True).events()
+    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
     launches = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for e in events)
     gathers = sum("gather" in name.lower() for name in kernels)
     frames = sum(CHAIN_IN_TRACE["chain_walk_frames"] in name for name in kernels)
     log(f"[10] frame sync of the 600 s profile alone (enumerate_frames, {len(frame_calls)} calls "
-        f"in the decode, none built jump tables): {launches} kernel launches, {len(kernels)} "
-        f"device activities, of them {gathers} gather kernels and {frames} chain_walk_frames")
-    assert frames == 1, kernels
+        f"in the decode, none built jump tables, one chain_walk_frames launch by its wrapper's "
+        f"count): {launches} kernel launches, "
+        + (f"{len(kernels)} device activities, of them {gathers} gather kernels and {frames} "
+           "chain_walk_frames" if kernels else "the profiler recorded no device activity"))
+    assert frames == 1 or not kernels, kernels
 
 
 def _agreement(a, b) -> float:
@@ -2467,6 +2699,325 @@ def phase9e_wires(tmp: str, drops: dict) -> dict:
     return dict(retry_launches=launches, rows_retried=len(retried))
 
 
+CORPUS_FULL = 1000  # BASELINE.md's archive configuration, "1000-drop corpus"
+CORPUS_CUT = 200    # where the disk does not hold it: every spec and corrupt kind still
+HIGH_RATE_PATH = "decode_batch 8 x 60 s at 88.2 kHz"
+
+
+def _corpus_files(where: str) -> tuple[int, str]:
+    """How many files the corpus phase builds in `where`, and why: the full
+    1,000 where the free disk holds twice its expected size, else 200."""
+    from axctdprocessor_tpu_torch.tools import corpus_1000 as tool
+
+    weights = sum(w for _, _, w in tool.SPECS)
+    per_drop = sum(w * 2 * dur * fs for dur, fs, w in tool.SPECS) / weights
+    need = per_drop * (CORPUS_FULL - tool.N_CORRUPT)
+    usage = shutil.disk_usage(where)
+    text = (f"disk at the corpus: {usage} (free {usage.free / 1e9:.1f} GB); the "
+            f"{CORPUS_FULL}-file corpus is about {need / 1e9:.2f} GB of int16")
+    if usage.free >= 2 * need:
+        return CORPUS_FULL, text + ": the full corpus"
+    return CORPUS_CUT, text + f": under twice that free, so {CORPUS_CUT} files"
+
+
+class _Checker(_Standin):
+    """Calls the wrapper, then holds the call against its plain version on
+    the same arguments (floats within rtol = atol = 2e-4 with equal NaN
+    positions, integers bit for bit) and each row of a batched call against
+    the wrapper's 1-D call on that row, bit for bit; keeps nothing of the
+    call."""
+
+    def __init__(self, name: str, fn, plain, stats: dict):
+        self.name, self.fn, self.plain, self.stats = name, fn, plain, stats
+
+    def _row(self, args, kwargs, r):
+        if self.name == "probe_at":
+            return self.fn(args[0][r], args[1][r], *args[2:], **kwargs)
+        return self.fn(args[0][r], *args[1:], **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        got = self.fn(*args, **kwargs)
+        want = self.plain(*args, **kwargs)
+        st = self.stats.setdefault(self.name, dict(calls=0, rows=0, max_abs_err=0.0))
+        outs = list(got) if isinstance(got, tuple) else [got]
+        wants = list(want) if isinstance(want, tuple) else [want]
+        if outs[0].is_floating_point():
+            st["max_abs_err"] = max(st["max_abs_err"], _max_err(outs, wants, self.name))
+        else:
+            assert all(torch.equal(g, w) for g, w in zip(outs, wants)), self.name
+        if args[0].dim() == 2:
+            for r in range(args[0].shape[0]):
+                one = self._row(args, kwargs, r)
+                one = list(one) if isinstance(one, tuple) else [one]
+                for g, o in zip(outs, one):
+                    assert torch.equal(torch.nan_to_num(g[r], nan=7.0),
+                                       torch.nan_to_num(o, nan=7.0)), (self.name, r)
+            st["rows"] += args[0].shape[0]
+        st["calls"] += 1
+        return got
+
+
+@contextlib.contextmanager
+def _checked_kernels(stats: dict):
+    """Every call of ``tone_ratios``, ``probe_at``, ``chain_walk_segments`` and
+    ``chain_walk_frames`` (through their wrappers) checked as it is made."""
+    from axctdprocessor_tpu_torch.ops import chain, goertzel, tonepower
+
+    where = [(tonepower, "tone_ratios", "tone_ratios", tonepower.tone_ratios_reference),
+             (goertzel, "probe_at", "probe_at", goertzel.tone_power_at),
+             (chain, "chain_enumerate_strided", "chain_walk_segments",
+              chain.chain_enumerate_strided_reference),
+             (chain, "chain_enumerate_frames", "chain_walk_frames",
+              chain.chain_enumerate_reference)]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in where]
+    for (mod, attr, name, plain), (_, _, fn) in zip(where, originals):
+        setattr(mod, attr, _Checker(name, fn, plain, stats))
+    try:
+        yield stats
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def _counted_dispatch(rows: list):
+    """``parallel.archive``'s ``dispatch_batch`` wrapped to note in `rows` the
+    rows of each batch it queues; restored on exit."""
+    from axctdprocessor_tpu_torch.parallel import archive
+
+    real = archive.dispatch_batch
+
+    def counted(pcms, *args, **kwargs):
+        rows.append(len(pcms))
+        return real(pcms, *args, **kwargs)
+
+    archive.dispatch_batch = counted
+    try:
+        yield rows
+    finally:
+        archive.dispatch_batch = real
+
+
+def phase9g_corpus(tmp: str) -> dict:
+    """The archive at the BASELINE's scale: ``tools/corpus_1000.py``'s corpus
+    (1,000 files of mixed length and rate, 5 of them corrupt; 200 where the
+    disk is short) built in a temporary directory, then through
+    ``reprocess_corpus(batch_size=8)`` on the card: a fresh timed run held to
+    the tool's gates (done + failed == N, exactly the corrupt files failed,
+    every done drop at status 2 with its truth's serial, probe code and
+    maximum depth and hexframes in the truth > 0.97); the peak device memory
+    of a batch of 120 s drops; a second run with every kernel call checked
+    against its plain version and each batched row against its 1-D call,
+    its reports byte-equal to the first run's; a resume from the manifest
+    cut to half its done entries, which must decode exactly the other half.
+    Then one batch of 8 rows at 88.2 kHz through ``decode_batch`` at the
+    native rate (the streamed table) against the same rows on the CPU, and
+    ``probe_at``'s call of that decode timed (its runs' spans exceed the
+    staged buffer)."""
+    from axctdprocessor_tpu_torch.parallel.archive import reprocess_corpus
+    from axctdprocessor_tpu_torch.tools import corpus_1000 as tool
+    from axctdprocessor_tpu_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    cdir = os.path.join(tmp, "corpus_1000")
+    n, why = _corpus_files(tmp)
+    log(f"[9g] {why}")
+    t0 = time.perf_counter()
+    bases = tool.build_corpus(cdir, n)
+    paths = sorted(os.path.join(cdir, f) for f in os.listdir(cdir))
+    build_s = time.perf_counter() - t0
+    assert len(paths) == n, (len(paths), n)
+    seconds = tool.drop_seconds(paths)
+    truths = tool.truths_of(paths, seconds, bases)
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    kinds = {}
+    for name in seconds:
+        key = f"{round(seconds[name])} s at {truths[name]['spec'].fs / 1e3:g} kHz"
+        kinds[key] = kinds.get(key, 0) + 1
+    log(f"[9g] built {n} files ({nbytes / 1e9:.2f} GB) with tools/corpus_1000.py in "
+        f"{build_s:.1f} s: {dict(sorted(kinds.items()))} + {tool.N_CORRUPT} corrupt")
+
+    out1 = os.path.join(tmp, "corpus_out")
+    timer = StageTimer()
+    batch_rows = []
+    zero_counts()
+    with _counted_dispatch(batch_rows):
+        t0 = time.perf_counter()
+        manifest = reprocess_corpus(paths, out1, batch_size=8, device="cuda", timer=timer)
+        wall = time.perf_counter() - t0
+    counts = read_counts(f"archive corpus of {n}")
+    files = manifest["files"]
+    failed = sorted(k for k, v in files.items() if v["status"] == "failed")
+    done = sorted(k for k, v in files.items() if v["status"] == "done")
+    assert len(done) + len(failed) == n, (len(done), len(failed), n)
+    assert failed == sorted(tool.CORRUPT), failed
+    held = tool.check_against_truth(manifest, truths)
+    assert held["held_to_truth"] == n - tool.N_CORRUPT, held
+    n_88 = sum(truths[k]["spec"].fs == 88200 for k in done)
+    audio = sum(seconds[k] for k in done)
+    n_batches = len(batch_rows)
+    stages = {k: round(v, 4) for k, v in timer.totals.items()}
+    per_batch = {k: round(v / n_batches, 2) for k, v in counts.items()}
+    log(f"[9g] reprocess_corpus(batch_size=8, device=\"cuda\"), fresh: {len(done)} done, "
+        f"{len(failed)} failed (exactly the corrupt files: {failed}); every done drop status 2 "
+        f"with its truth's serial, probe code and max depth, hexframes in the truth >= "
+        f"{held['lowest_in_truth']:.4f} (gate > {tool.IN_TRUTH}); {n_88} of them 88.2 kHz "
+        f"(read through the host's decimation by 2, decoded as float rows at 44.1 kHz)")
+    log(f"[9g] wall {wall:.3f} s, {len(done) / wall:.2f} drops/s, {audio:.0f} s of audio, "
+        f"realtime factor {audio / wall:.1f}x; stage times (s) {stages}; {n_batches} batches "
+        f"of {min(batch_rows)}-{max(batch_rows)} rows; launches {counts_text(counts)}, per "
+        f"batch {per_batch}")
+
+    long = [p for p in paths if os.path.basename(p) in seconds
+            and round(seconds[os.path.basename(p)]) == 120][:8]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reprocess_corpus(long, os.path.join(tmp, "corpus_120"), batch_size=8, device="cuda")
+    peak_120 = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[9g] peak device memory of a batch of {len(long)} drops of 120 s "
+        f"(reprocess_corpus alone): {peak_120:.3f} GiB")
+
+    stats = {}
+    out2 = os.path.join(tmp, "corpus_checked")
+    t0 = time.perf_counter()
+    with _checked_kernels(stats):
+        checked = reprocess_corpus(paths, out2, batch_size=8, device="cuda")
+    checked_s = time.perf_counter() - t0
+    assert {k: v["status"] for k, v in checked["files"].items()} == \
+        {k: v["status"] for k, v in files.items()}
+    for name in done:
+        txt = name[:-4] + ".txt"
+        assert open(os.path.join(out2, txt), "rb").read() == \
+            open(os.path.join(out1, txt), "rb").read(), name
+    for name in ("tone_ratios", "probe_at", "chain_walk_segments", "chain_walk_frames"):
+        assert stats.get(name, {}).get("calls", 0) >= n_batches, (name, stats.get(name))
+    log(f"[9g] a second run with every kernel call checked as it was made ({checked_s:.1f} s): "
+        f"{stats}: each within rtol = atol = {RTOL} of its plain version (integers bit for "
+        f"bit), each row of a batched call bit-equal to its 1-D call; every report byte-equal "
+        f"to the fresh run's")
+
+    out3 = os.path.join(tmp, "corpus_resume")
+    os.makedirs(out3)
+    keep = set(done[::2])
+    with open(os.path.join(out3, "manifest.json"), "w") as f:
+        json.dump({"files": {k: files[k] for k in keep}}, f)
+    resumed_rows = []
+    rtimer = StageTimer()
+    zero_counts()
+    with _counted_dispatch(resumed_rows):
+        t0 = time.perf_counter()
+        m3 = reprocess_corpus(paths, out3, batch_size=8, device="cuda", resume=True,
+                              timer=rtimer)
+        rwall = time.perf_counter() - t0
+    read_counts(f"archive corpus of {n}, resumed")
+    other = set(done) - keep
+    assert sum(resumed_rows) == len(other), (sum(resumed_rows), len(other))
+    assert all(m3["files"][k]["finished_at"] == files[k]["finished_at"] for k in keep)
+    redone = {k for k, v in m3["files"].items() if v["status"] == "done" and k not in keep}
+    assert redone == other, (len(redone), len(other))
+    assert sorted(k for k, v in m3["files"].items() if v["status"] == "failed") == failed
+    for name in other:
+        txt = name[:-4] + ".txt"
+        assert open(os.path.join(out3, txt), "rb").read() == \
+            open(os.path.join(out1, txt), "rb").read(), name
+    log(f"[9g] resume from the manifest cut to {len(keep)} of its {len(done)} done entries: "
+        f"decoded exactly the other {len(other)} ({sum(resumed_rows)} rows in "
+        f"{len(resumed_rows)} batches, the corrupt files failed again) in {rwall:.3f} s, their "
+        f"reports byte-equal to the fresh run's; the kept entries untouched")
+    shutil.rmtree(cdir)
+
+    hr = _high_rate_batch(bases)
+    log(f"[9g] phase time {time.perf_counter() - t_phase:.0f} s (build {build_s:.0f} s)")
+    return dict(n=n, wall=wall, launches=counts, batches=n_batches, hr=hr, peak_120=peak_120)
+
+
+def _high_rate_batch(bases: dict) -> dict:
+    """8 rows of the corpus's 88.2 kHz base with the corpus's kind of noise
+    through ``decode_batch`` on the card at their native rate: the tone
+    kernel streams its table; against the same rows on the CPU (hexframes,
+    metadata and every integer field of the packed result equal); then
+    ``probe_at``'s call of that decode, whose runs' spans exceed the staged
+    buffer, timed against its plain version and ``frames @ trig``."""
+    from axctdprocessor_tpu_torch.models import engine
+    from axctdprocessor_tpu_torch.ops import goertzel
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    base, truth = bases[(60.0, 88200)]
+    rng = np.random.default_rng(88200)
+    rows = np.stack([np.clip(base + rng.integers(-300, 300, len(base)), -32768, 32767)
+                     .astype(np.int16) for _ in range(8)])
+    calls, path = [], ["88.2 kHz"]
+    zero_counts()
+    real_probe = goertzel.probe_at
+    goertzel.probe_at = _Recorder(real_probe, calls, path)
+    try:
+        out, ctx = batch.dispatch_batch(rows, 88200, device="cuda")
+        card = out.cpu().numpy()
+        got = batch.finish_dispatched(out, ctx)
+    finally:
+        goertzel.probe_at = real_probe
+    counts = read_counts(HIGH_RATE_PATH, high_rate=True)
+    assert counts["tone_ratios"] == 1 and counts[STREAMED] == 1, counts
+    t0 = time.perf_counter()
+    out_c, ctx_c = batch.dispatch_batch(rows, 88200, device="cpu")
+    want = batch.finish_dispatched(out_c, ctx_c)
+    cpu_s = time.perf_counter() - t0
+    moved, in_truth = 0, 1.0
+    for r, (g, w) in enumerate(zip(got, want)):
+        in_truth = min(in_truth, _gates_60s(g, truth))
+        assert g.hexframes == w.hexframes and g.metadata == w.metadata, r
+        gu, wu = engine.unpack_result(card[r]), engine.unpack_result(out_c.numpy()[r])
+        for key in ("scal_i", "hdr", "hexpack", "edges"):
+            assert np.array_equal(gu[key], wu[key]), (r, key)
+        moved += int(np.count_nonzero(gu["ratios"] != wu["ratios"]))
+    log(f"[9g] {HIGH_RATE_PATH} (int16 rows at the native rate): every row status 2 with the "
+        f"truth's serial, probe code and max depth, hexframes in the truth >= {in_truth:.4f}; "
+        f"hexframes, metadata and every integer field of the packed result (scal_i, hdr, "
+        f"hexpack, edges) equal to decode_batch(device=\"cpu\") of the same rows ({cpu_s:.1f} "
+        f"s on the host); ratios (centi-units) that differ: {moved}; launches "
+        f"{counts_text(counts)}")
+    assert len(calls) == 1, len(calls)
+    _, args, _ = calls[0]
+    x, starts, window, _ = args
+    run, span = extension().probe_geometry()
+    st = starts.clamp(0, x.shape[-1] - window)
+    k = st.shape[-1] // run * run
+    spans = (st[:, :k].reshape(st.shape[0], -1, run).amax(-1)
+             - st[:, :k].reshape(st.shape[0], -1, run).amin(-1) + window)
+    unstaged = float((spans > span).float().mean())
+    ms = _time_turns({"kernel": lambda: goertzel.probe_at(*args),
+                      "plain": lambda: goertzel.tone_power_at(*args),
+                      "library": _frontend_library("probe_at", args)}, runs=5, calls=5)
+    bound_ms, bound_by = _probe_bound(x, starts, window)
+    probe = dict(shape=f"x {tuple(x.shape)}, K = {starts.shape[-1]}, window {window}",
+                 unstaged_share=unstaged, median_span=float(spans.float().median()),
+                 span_floats=span, ms=ms["kernel"], plain_ms=ms["plain"],
+                 library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
+                 share_of_bound=bound_ms / ms["kernel"], device_ms=None)
+    log(f"[9g] probe_at of that decode ({probe['shape']}): {unstaged:.3f} of its runs of "
+        f"{run} probes span more than the {span}-float buffer (median span "
+        f"{probe['median_span']:.0f}), so they read straight from device memory; kernel "
+        f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, frames @ trig {ms['library']:.4f} "
+        f"ms, bound {1e3 * bound_ms:.2f} us ({bound_by}), share of bound "
+        f"{probe['share_of_bound']:.3f}")
+    return dict(rows=rows, probe=probe, cpu_s=cpu_s)
+
+
+def _gates_60s(res, truth) -> float:
+    """A 60 s drop's gates (``_gates`` less the 1,000 rows of the 600 s
+    drop): status 2, the truth's metadata, no overflow, hexframes in the
+    truth > 0.97; returns that share."""
+    assert res.status == 2, res.status
+    for key in ("serial_no", "probe_code", "max_depth"):
+        assert res.metadata[key] == truth[key], (key, res.metadata[key])
+    assert res.overflow == 0, res.overflow
+    truth_set = set(truth["frame_hex"])
+    in_truth = sum(h in truth_set for h in res.hexframes) / len(res.hexframes)
+    assert in_truth > 0.97, in_truth
+    return in_truth
+
+
 def _per_path(name: str) -> dict:
     return {path: counts[name] for path, counts in PATH_LAUNCHES.items()}
 
@@ -2484,6 +3035,23 @@ def _chain_entry(name: str, recs: list) -> dict:
             "bound_ms": main_rec["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "device_ms": main_rec["device_ms"], "shape": main_rec["shape"],
             "shapes": [{key: r[key] for key in r} for r in recs]}
+
+
+def _streamed_entry(k: dict) -> dict:
+    """The streamed-table tone kernel's entry of the ``kernels`` line: its
+    launches on the 88.2 kHz batch of 8 rows (phase 9g) and every path, and
+    its numbers at phase 2's 8 x 60 s case at 88.2 kHz."""
+    recs = k["streamed"]
+    main_rec = next(r for r in recs if r["rows"] == 8 and r["fs"] == 88200.0)
+    return {"name": STREAMED, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "launches": PATH_LAUNCHES[HIGH_RATE_PATH][STREAMED],
+            "launches_per_path": _per_path(STREAMED),
+            "max_abs_err": max(max(r["max_abs_err"], r["powers_max_abs_err"]) for r in recs),
+            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_us"] / 1e3, "bound_by": main_rec["bound_by"],
+            "library_ms": None, "dft_core_matmul_ms": main_rec["dft_core_matmul_ms"],
+            "device_ms": main_rec["device_ms"], "shape": main_rec["shape"],
+            "shapes": [dict(r) for r in recs]}
 
 
 # the path whose run gives a front-end kernel's ``launches``: the monolithic
@@ -2534,6 +3102,12 @@ def main() -> int:
             phase2b_chain(drops)
             mark("2b")
             return 3
+        if sys.argv[1:] == ["--only-corpus"]:  # a development run: no result lines
+            _phase2_streamed()
+            mark("2 (streamed table)")
+            phase9g_corpus(tmp)
+            mark("9g")
+            return 3
         if sys.argv[1:] == ["--only-frontend"]:  # a development run: no result lines
             phase2c_fft(drops)
             mark("2c")
@@ -2570,7 +3144,9 @@ def main() -> int:
         wires = phase9e_wires(tmp, drops)
         phase9f_sosfilt(drops)
         mark("9e-9f")
-        phase10_profiles(drops, seg, k, ck, fk)
+        corpus = phase9g_corpus(tmp)
+        mark("9g")
+        phase10_profiles(drops, seg, k, ck, fk, corpus)
         mark("10")
     assert "jax" not in sys.modules, "the port loaded jax"
     loaded = [m for m in sys.modules
@@ -2596,6 +3172,7 @@ def main() -> int:
             "bound_by", "share_of_bound", "share_of_bound_device", "dft_core_matmul_ms",
             "max_abs_err")}
             for s in k["shapes"]]}, launches_per_path=_per_path("tone_ratios"))]
+        + [_streamed_entry(k)]
         + [_frontend_entry(name, fk) for name in FRONTEND_REPLACES]
         + [_chain_entry(name, ck[name]) for name in CHAIN_REPLACES]
         + [_chain_walk_entry(ck["chain_walk"][0])]}))

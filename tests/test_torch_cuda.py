@@ -770,3 +770,177 @@ def test_stage1_on_card_rows_equal_rows_alone():
             one = model.stage1(x[r: r + 1], nv[r: r + 1])
             for key, v in s1.items():
                 assert torch.equal(one[key][0], v[r]), (r, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs", [88200.0, 96000.0])
+@pytest.mark.parametrize("rows", [0, 8])
+def test_streamed_table_kernel_vs_plain(fs, rows):
+    """Windows whose table does not fit beside the ring (88.2 kHz: 8,820 /
+    3,528; 96 kHz: 9,600 / 3,840), as the batch and archive paths hand them
+    over at the native rate: ``tone_ratios`` and ``tone_powers`` launch the
+    streamed table (the extension's plan says so, ``streamed_launches``
+    counts it), within 2e-4 of the plain version with equal NaN positions,
+    every row bit-equal to its 1-D call; ``tone_powers`` bit-equal at every
+    block shape, the resident table among them where it fits (88.2 kHz at
+    (8, 2))."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    window, stride = int(fs / 10), int(round(fs / 25))
+    rng = np.random.default_rng(int(fs) + rows)
+    n = int(20 * fs) + 3
+    x = np.stack([_signal(fs, n, 0.1 * (r % 3), rng) for r in range(max(rows, 1))])
+    xd = torch.from_numpy(x if rows else x[0]).cuda()
+    tm = torch.from_numpy(goertzel.tone_matrix(window, FREQS, fs, np.float32)).cuda()
+    n_win = tonepower.n_windows(n, window, stride)
+    plan = extension().tone_plan(False, max(rows, 1), n_win, window, stride)
+    assert plan[0] == "streamed" and plan[1:3] == (8, 16), plan
+    assert plan[4] <= plan[5], plan
+    before, streamed = tonepower.tone_ratios.launches, tonepower.tone_ratios.streamed_launches
+    got = tonepower.tone_ratios(xd, tm, window, stride)
+    assert tonepower.tone_ratios.launches == before + 1
+    assert tonepower.tone_ratios.streamed_launches == streamed + 1
+    _assert_close(got, tonepower.tone_ratios_reference(xd, tm, window, stride),
+                  xd.shape[:-1] + (n_win,))
+    powers = tonepower.tone_powers(xd, tm, window, stride)
+    np.testing.assert_allclose(powers.cpu().numpy(),
+                               tonepower.tone_powers_reference(xd, tm, window, stride)
+                               .cpu().numpy(), rtol=2e-4, atol=2e-4)
+    variants = set()
+    for shape in extension().tone_powers_shapes():
+        before = tonepower.tone_powers.streamed_launches
+        assert torch.equal(tonepower.tone_powers(xd, tm, window, stride, shape), powers), shape
+        variants.add(tonepower.tone_powers.streamed_launches - before)
+    assert variants == ({0, 1} if fs == 88200.0 else {1}), variants
+    for r in range(rows):
+        one = tonepower.tone_ratios(xd[r], tm, window, stride)
+        for g, o in zip(got, one):
+            assert torch.equal(torch.nan_to_num(g[r], nan=7.0), torch.nan_to_num(o, nan=7.0)), r
+        assert torch.equal(tonepower.tone_powers(xd[r], tm, window, stride), powers[r]), r
+
+
+@pytest.mark.cuda
+def test_tone_plan_reports_the_launch():
+    """The extension's plan: the resident table at 44.1 and 48 kHz in the
+    standard shape, the streamed one above; the raw powers' small shapes on
+    a grid under one wave; a window over 3 strides refused."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    ext = extension()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for fs, want in ((44100.0, "resident"), (48000.0, "resident"), (88200.0, "streamed"),
+                     (96000.0, "streamed"), (192000.0, "streamed")):
+        window, stride = int(fs / 10), int(round(fs / 25))
+        for powers in (False, True):
+            variant, warps, wpw, blocks, smem, optin = ext.tone_plan(powers, 64, 1500, window,
+                                                                     stride)
+            assert (variant, warps, wpw) == (want, 8, 16), (fs, powers, variant, warps, wpw)
+            assert blocks == 64 * 13 and smem <= optin, (blocks, smem, optin)
+    variant, warps, wpw, blocks, _, _ = ext.tone_plan(True, 1, 589, 4410, 1764)
+    assert (variant, warps, wpw) == ("resident", 8, 2) and blocks <= sms
+    with pytest.raises(RuntimeError, match="at most 3 strides"):
+        ext.tone_plan(False, 1, 100, 4410, 1000)
+
+
+@pytest.mark.cuda
+def test_tone_last_launch_names_the_instance():
+    """The extension's record of the instance a tone call launched (its
+    template arguments) is the plan's: the resident standard shape at 44.1
+    kHz, the streamed one at 88.2 kHz, every forced raw-powers shape (at
+    88.2 kHz all streamed but (8, 2)); all zero after a call with no
+    window."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    ext = extension()
+    for fs in (44100.0, 88200.0):
+        window, stride = int(fs / 10), int(round(fs / 25))
+        nseg = -(-window // stride)
+        x = torch.zeros(int(20 * fs), device="cuda")
+        tm = torch.from_numpy(goertzel.tone_matrix(window, FREQS, fs, np.float32)).cuda()
+        n_win = tonepower.n_windows(x.shape[-1], window, stride)
+        variant, warps, wpw, _, _, _ = ext.tone_plan(False, 1, n_win, window, stride)
+        tonepower.tone_ratios(x, tm, window, stride)
+        assert ext.tone_last_launch() == (nseg, False, warps, wpw, variant == "streamed"), fs
+        for shape in ext.tone_powers_shapes():
+            tonepower.tone_powers(x, tm, window, stride, shape)
+            streamed = fs == 88200.0 and shape != (8, 2)  # (8, 2) holds 88.2 kHz resident
+            assert ext.tone_last_launch() == (nseg, True, *shape, streamed), (fs, shape)
+        tonepower.tone_powers(x[:window - 1], tm, window, stride)
+        assert ext.tone_last_launch() == (0, False, 0, 0, False), fs
+
+
+_REFUSAL_CHILD = r"""
+import numpy as np, torch
+from axctdprocessor_tpu_torch.ops import goertzel, tonepower
+x = torch.zeros(200000, device="cuda")
+tm = torch.zeros((4410, 6), device="cuda")
+for call in (lambda: tonepower.tone_ratios(x, tm, 4410, 1000),
+             lambda: tonepower.tone_powers(x, tm, 4410, 1000),
+             lambda: tonepower.tone_powers(x, tm, 4410, 1764, (16, 8)),
+             lambda: tonepower.tone_powers(x, tm, 4410, 1764, (8, 7))):
+    try:
+        call()
+    except RuntimeError as e:
+        print("REFUSED", str(e).splitlines()[0])
+    else:
+        raise SystemExit("not refused")
+torch.cuda.synchronize()
+tm = torch.from_numpy(goertzel.tone_matrix(4410, [400.0, 7500.0, 3000.0], 44100.0,
+                                           np.float32)).cuda()
+r400, _ = tonepower.tone_ratios(x, tm, 4410, 1764)
+torch.cuda.synchronize()
+print("ALIVE", r400.shape[0])
+"""
+
+
+@pytest.mark.cuda
+def test_refused_launch_raises_and_the_process_lives():
+    """A window over 3 strides and a block shape the kernel does not have are
+    refused with a RuntimeError, in a child process that then launches the
+    kernel and exits 0 (a refusal once took the process down)."""
+    _need_cuda()
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    done = subprocess.run([sys.executable, "-c", _REFUSAL_CHILD], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, (done.returncode, done.stdout, done.stderr[-3000:])
+    lines = done.stdout.splitlines()
+    assert sum(ln.startswith("REFUSED") for ln in lines) == 4, lines
+    assert lines[-1] == f"ALIVE {tonepower.n_windows(200000, 4410, 1764)}", lines
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs", [88200, 96000])
+def test_high_rate_batch_on_card_equals_cpu(fs):
+    """Rows above 50 kHz decode at their native rate through ``decode_batch``
+    (the streamed table): on the card status 2 with the truth's serial, and
+    the CPU's hexframes and integer fields of the packed result."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    spec = simulator.SimSpec(fs=fs, duration=42.0, profile_start=33.0, seed=31)
+    pcm, truth = simulator.synthesize(spec)
+    base = np.round(pcm * 28000 / np.max(np.abs(pcm))).astype(np.int16)
+    rng = np.random.default_rng(fs)
+    rows = np.stack([np.clip(base + rng.integers(-300, 300, len(base)), -32768, 32767)
+                     .astype(np.int16) for _ in range(2)])
+    before = tonepower.tone_ratios.streamed_launches
+    out, ctx = batch.dispatch_batch(rows, fs, device="cuda")
+    card = out.cpu().numpy()
+    got = batch.finish_dispatched(out, ctx)
+    assert tonepower.tone_ratios.streamed_launches == before + 1
+    out_cpu, ctx_cpu = batch.dispatch_batch(rows, fs, device="cpu")
+    want = batch.finish_dispatched(out_cpu, ctx_cpu)
+    for r, (g, w) in enumerate(zip(got, want)):
+        assert g.status == 2 and g.metadata["serial_no"] == truth["serial_no"], r
+        assert g.hexframes == w.hexframes and g.metadata == w.metadata, r
+        gu, wu = engine.unpack_result(card[r]), engine.unpack_result(out_cpu.numpy()[r])
+        for name in ("scal_i", "hdr", "hexpack", "edges"):
+            np.testing.assert_array_equal(gu[name], wu[name], err_msg=f"{name} row {r}")

@@ -117,3 +117,27 @@ def test_batched_reference_rows_equal_one_dimensional_calls():
         want = tonepower.tone_ratios_reference(torch.from_numpy(x[b]), tm, 4410, 1764)
         for g, w in zip(got, want):
             torch.testing.assert_close(g[b], w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("fs", [88200.0, 96000.0])
+@pytest.mark.parametrize("rows", [0, 3])
+def test_high_rate_windows_vs_pallas_interpret(fs, rows):
+    """Windows above 50 kHz at the native rate (88.2 kHz: 8,820 / 3,528; 96
+    kHz: 9,600 / 3,840), as the batch and archive paths hand them to the
+    card's streamed-table kernel: the port's plain ``tone_ratios`` and the
+    ratios of its plain ``tone_powers``, 1-D and B = 3, against JAX's
+    ``fused_tone_ratios(interpret=True)`` (under ``jax.vmap`` for B = 3)."""
+    x = _batch(fs, 1.5) if rows else _signal(fs, 1.5, 0.4, 11)
+    window, stride = int(fs / 10), int(round(fs / 25))
+    segs = jnp.asarray(jtonepower.trig_segments(window, stride, FREQS, fs))
+    one = lambda row: jtonepower.fused_tone_ratios(  # noqa: E731
+        row, segs, window, stride, block=16, interpret=True)
+    want = (jax.vmap(one) if rows else one)(jnp.asarray(x))
+    tm = torch.from_numpy(goertzel.tone_matrix(window, FREQS, fs, np.float32))
+    xt = torch.from_numpy(x)
+    got = tonepower.tone_ratios(xt, tm, window, stride)
+    assert got[0].shape == x.shape[:-1] + (tonepower.n_windows(x.shape[-1], window, stride),)
+    _assert_ratios(got, want)
+    _assert_ratios(tonepower.ratios_from_powers(tonepower.tone_powers(xt, tm, window, stride)),
+                   want)
+    assert np.isnan(got[0].numpy()).sum() > 0
