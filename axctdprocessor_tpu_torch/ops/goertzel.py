@@ -16,9 +16,11 @@
 * :func:`probe_at` — the dispatcher of the per-bit probe: on a CPU tensor
   :func:`tone_power_at`; on a CUDA tensor the hand-written sm_90a kernel
   (``ops/kernels/probe.cu``: a block for each run of consecutive probes of
-  a row, over the run's span staged in shared memory; no (n_starts, window)
-  gather, no index tensor), adding one to ``probe_at.launches`` per launch.
-  A build or launch failure raises; nothing falls back.
+  a row, over the run's span staged in shared memory, the run and the span
+  chosen from the window: ``extension().probe_geometry(window)``; no
+  (n_starts, window) gather, no index tensor), adding one to
+  ``probe_at.launches`` per launch.  A build or launch failure raises;
+  nothing falls back.
 
 Power is ``sqrt(re^2 + im^2)`` per tone.
 """

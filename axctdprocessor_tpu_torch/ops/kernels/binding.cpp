@@ -10,15 +10,16 @@
 // (n_win,) or (rows, n_win), and whether the launch streamed the table
 // (windows whose table does not fit in shared memory beside the ring; the
 // same bits).  Every window of at most 3 strides launches; a longer one is
-// refused with a RuntimeError before anything is allocated.
+// refused with a RuntimeError before anything is allocated.  The block
+// shape (``warps``, ``wpw``: warps per block, windows per warp) (0, 0) is
+// the launcher's choice (the standard shape, or a smaller one for a grid
+// under one wave), one of tone_powers_shapes() a shape forced, to compare
+// with it: every shape gives the same bits.
 //
 // tone_powers: the same kernel's raw powers, (n_win, 3) or (rows, n_win, 3),
 // of a (n,) or (rows, n) ``x`` whose last dimension is contiguous (rows may
-// lie further apart: a view of a wider tensor).  The block shape (``warps``,
-// ``wpw``: warps per block, windows per warp) (0, 0) is the launcher's
-// choice (the standard shape, or a smaller one for a grid under one wave),
-// one of tone_powers_shapes() a shape forced, to compare with it: every
-// shape gives the same bits.  Returns the powers and whether the table was
+// lie further apart: a view of a wider tensor), at the launcher's shape or
+// one forced, as tone_ratios.  Returns the powers and whether the table was
 // streamed.  tone_plan(powers, rows, n_win, window, stride) is the launch
 // either launcher would make on the current device: (variant "resident" or
 // "streamed", warps, windows a warp, blocks, shared-memory bytes, the card's
@@ -27,8 +28,12 @@
 // probe_at: the (K, 2) or (rows, K, 2) mark and space magnitudes of the
 // frames of a (L,) or (rows, L) ``x`` (last dimension contiguous) at the
 // int64 ``starts`` of shape (K,) or (rows, K), against the (window, 4) table
-// (at most 3072 rows: 48 KB of shared memory beside the staged span).
-// probe_geometry() is (probes a block owns, floats of its staged span).
+// (at most 3072 rows: 48 KB of shared memory beside the staged span), at
+// the launcher's geometry for the window (``run`` 0) or one of
+// probe_geometries() forced, to compare with it (the same bits).
+// probe_geometry(window) is the launcher's (probes a block owns, floats of
+// its staged span) for that window, probe_last_launch() the geometry this
+// thread's last probe call launched ((0, 0): none).
 //
 // chain_walk_segments: the bit-edge chain of a (rows, m) int64 successor
 // table, returned as the (rows, k) int64 chain; its scratch is one uint8
@@ -43,10 +48,10 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
-extern "C" int axctd_tone_ratios_launch(const float* x, int rows, long long n,
-                                        const float* tm, int window,
-                                        int stride, int n_win, float* r400,
-                                        float* r7500, void* stream);
+extern "C" int axctd_tone_ratios_shape_launch(const float* x, int rows, long long n,
+                                              const float* tm, int window, int stride, int n_win,
+                                              int warps, int wpw, float* r400, float* r7500,
+                                              void* stream);
 extern "C" int axctd_tone_powers_launch(const float* x, int rows, long long ld, long long n,
                                         const float* tm, int window, int stride, int n_win,
                                         int warps, int wpw, float* powers, void* stream);
@@ -54,10 +59,13 @@ extern "C" int axctd_tone_powers_shapes(int* warps, int* wpw, int cap);
 extern "C" int axctd_tone_powers_shape_known(int warps, int wpw);
 extern "C" int axctd_tone_plan(int powers, int rows, int n_win, int window, int stride, int warps,
                                int wpw, int* out, long long* blocks);
-extern "C" void axctd_probe_geometry(int* run, int* span);
-extern "C" int axctd_probe_launch(const float* x, long long ld, long long len, int rows,
-                                  const long long* starts, long long k, const float* tab,
-                                  int window, float* out, void* stream);
+extern "C" void axctd_probe_plan(int window, int* run, int* span);
+extern "C" int axctd_probe_geometries(int* run, int* span, int cap);
+extern "C" void axctd_probe_last_launch(int* run, int* span);
+extern "C" int axctd_probe_geometry_launch(const float* x, long long ld, long long len, int rows,
+                                           const long long* starts, long long k,
+                                           const float* tab, int window, int run, int span,
+                                           float* out, void* stream);
 extern "C" long long axctd_chain_segments_scratch(int rows, long long m, long long start,
                                                   long long k, int sb, int seg, int tpb);
 extern "C" int axctd_chain_segments_launch(const long long* nxt, int rows, long long m,
@@ -111,15 +119,38 @@ std::tuple<std::string, int64_t, int64_t, int64_t, int64_t, int64_t> tone_plan(
   return {out[0] ? "streamed" : "resident", out[1], out[2], blocks, out[3], out[4]};
 }
 
-std::tuple<int64_t, int64_t> probe_geometry() {
+std::tuple<int64_t, int64_t> probe_geometry(int64_t window) {
+  TORCH_CHECK(window > 0 && window <= kMaxProbeWindow, "probe_geometry: window in [1, 3072]");
   int run = 0, span = 0;
-  axctd_probe_geometry(&run, &span);
+  axctd_probe_plan(static_cast<int>(window), &run, &span);
   return {run, span};
+}
+
+std::vector<std::tuple<int64_t, int64_t>> probe_geometries() {
+  int run[16], span[16];
+  const int n = axctd_probe_geometries(run, span, 16);
+  TORCH_CHECK(n <= 16, "probe_geometries: more geometries than expected");
+  std::vector<std::tuple<int64_t, int64_t>> out;
+  for (int i = 0; i < n; ++i) out.emplace_back(run[i], span[i]);
+  return out;
+}
+
+std::tuple<int64_t, int64_t> probe_last_launch() {
+  int run = 0, span = 0;
+  axctd_probe_last_launch(&run, &span);
+  return {run, span};
+}
+
+static bool tone_shape_ok(int64_t warps, int64_t wpw) {
+  return (warps == 0 && wpw == 0) ||
+         (warps > 0 && warps < 64 && wpw > 0 && wpw < 64 &&
+          axctd_tone_powers_shape_known(static_cast<int>(warps), static_cast<int>(wpw)));
 }
 
 std::tuple<torch::Tensor, torch::Tensor, bool> tone_ratios(torch::Tensor x, torch::Tensor tm,
                                                           int64_t window, int64_t stride,
-                                                          int64_t n_win) {
+                                                          int64_t n_win, int64_t warps,
+                                                          int64_t wpw) {
   TORCH_CHECK(x.is_cuda() && tm.is_cuda(), "tone_ratios: x and tm must be CUDA tensors");
   TORCH_CHECK(x.device() == tm.device(), "tone_ratios: x and tm on different devices");
   TORCH_CHECK(x.scalar_type() == torch::kFloat32 && tm.scalar_type() == torch::kFloat32,
@@ -135,17 +166,20 @@ std::tuple<torch::Tensor, torch::Tensor, bool> tone_ratios(torch::Tensor x, torc
               "tone_ratios: bad window/stride/n_win");
   TORCH_CHECK((window + stride - 1) / stride <= kMaxSegments,
               "tone_ratios: window must span at most 3 strides");
+  TORCH_CHECK(tone_shape_ok(warps, wpw),
+              "tone_ratios: the block shape (warps, wpw) must be (0, 0), the launcher's choice, "
+              "or one of tone_powers_shapes()");
   // the kernel copies the table in 16-byte pieces
   if (reinterpret_cast<uintptr_t>(tm.data_ptr()) % 16 != 0) tm = tm.clone();
   const c10::cuda::CUDAGuard guard(x.device());
   std::vector<int64_t> shape = {2, n_win};  // (r400, r7500) in one allocation
   if (x.dim() == 2) shape.insert(shape.begin() + 1, rows);
   auto out = torch::empty(shape, x.options());
-  const int err = axctd_tone_ratios_launch(
+  const int err = axctd_tone_ratios_shape_launch(
       x.data_ptr<float>(), static_cast<int>(rows), x.size(-1), tm.data_ptr<float>(),
       static_cast<int>(window), static_cast<int>(stride), static_cast<int>(n_win),
-      out[0].data_ptr<float>(), out[1].data_ptr<float>(),
-      at::cuda::getCurrentCUDAStream().stream());
+      static_cast<int>(warps), static_cast<int>(wpw), out[0].data_ptr<float>(),
+      out[1].data_ptr<float>(), at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "tone_ratios launch failed: ", axctd_cuda_error_string(err));
   return {out[0], out[1], std::get<4>(tone_last_launch())};
 }
@@ -171,9 +205,7 @@ std::tuple<torch::Tensor, bool> tone_powers(torch::Tensor x, torch::Tensor tm, i
                                             int64_t stride, int64_t n_win, int64_t warps,
                                             int64_t wpw) {
   check_tone_args(x, tm, window, stride, n_win, "tone_powers");
-  TORCH_CHECK((warps == 0 && wpw == 0) ||
-                  (warps > 0 && warps < 64 && wpw > 0 && wpw < 64 &&
-                   axctd_tone_powers_shape_known(static_cast<int>(warps), static_cast<int>(wpw))),
+  TORCH_CHECK(tone_shape_ok(warps, wpw),
               "tone_powers: the block shape (warps, wpw) must be (0, 0), the launcher's choice, "
               "or one of tone_powers_shapes()");
   TORCH_CHECK((x.dim() == 1 || x.dim() == 2) && x.stride(-1) == 1 &&
@@ -195,7 +227,8 @@ std::tuple<torch::Tensor, bool> tone_powers(torch::Tensor x, torch::Tensor tm, i
   return {out, std::get<4>(tone_last_launch())};
 }
 
-torch::Tensor probe_at(torch::Tensor x, torch::Tensor starts, torch::Tensor tab) {
+torch::Tensor probe_at(torch::Tensor x, torch::Tensor starts, torch::Tensor tab, int64_t run,
+                       int64_t span) {
   TORCH_CHECK(x.is_cuda() && starts.is_cuda() && tab.is_cuda(),
               "probe_at: x, starts and tab must be CUDA tensors");
   TORCH_CHECK(x.device() == starts.device() && x.device() == tab.device(),
@@ -216,16 +249,22 @@ torch::Tensor probe_at(torch::Tensor x, torch::Tensor starts, torch::Tensor tab)
   TORCH_CHECK(x.size(-1) >= window, "probe_at: rows shorter than the window");
   const int64_t rows = x.dim() == 2 ? x.size(0) : 1;
   TORCH_CHECK(rows < (1LL << 31), "probe_at: too many rows");
+  bool known = run == 0 && span == 0;  // the launcher's choice, or one it has
+  if (!known)
+    for (const auto& g : probe_geometries())
+      known = known || (std::get<0>(g) == run && std::get<1>(g) == span);
+  TORCH_CHECK(known, "probe_at: the geometry (run, span) must be (0, 0), the launcher's choice, "
+              "or one of probe_geometries()");
   const int64_t ld = x.dim() == 2 && rows > 1 ? x.stride(0) : x.size(-1);
   const c10::cuda::CUDAGuard guard(x.device());
   std::vector<int64_t> shape = starts.sizes().vec();
   shape.push_back(2);
   auto out = torch::empty(shape, x.options());
-  const int err = axctd_probe_launch(
+  const int err = axctd_probe_geometry_launch(
       x.data_ptr<float>(), ld, x.size(-1), static_cast<int>(rows),
       reinterpret_cast<const long long*>(starts.data_ptr<int64_t>()), starts.size(-1),
-      tab.data_ptr<float>(), static_cast<int>(window), out.data_ptr<float>(),
-      at::cuda::getCurrentCUDAStream().stream());
+      tab.data_ptr<float>(), static_cast<int>(window), static_cast<int>(run),
+      static_cast<int>(span), out.data_ptr<float>(), at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "probe_at launch failed: ", axctd_cuda_error_string(err));
   return out;
 }
@@ -314,21 +353,30 @@ torch::Tensor chain_walk(torch::Tensor levels, int64_t start, int64_t k, int64_t
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  using pybind11::arg;
   m.def("tone_ratios", &tone_ratios,
-        "Fused tone powers, box mean and log10 ratios (CUDA), and whether the table streamed");
+        "Fused tone powers, box mean and log10 ratios (CUDA), and whether the table streamed",
+        arg("x"), arg("tm"), arg("window"), arg("stride"), arg("n_win"), arg("warps") = 0,
+        arg("wpw") = 0);
   m.def("tone_powers", &tone_powers,
         "Raw tone powers of every strided window (CUDA), and whether the table streamed");
   m.def("tone_powers_shapes", &tone_powers_shapes,
-        "The block shapes (warps, windows per warp) tone_powers may take, the standard first");
+        "The block shapes (warps, windows per warp) either tone launch may take, the standard "
+        "first");
   m.def("tone_plan", &tone_plan,
         "The tone launch for (powers, rows, n_win, window, stride) on the current device: "
         "(variant, warps, windows a warp, blocks, shared-memory bytes, the card's opt-in)");
   m.def("tone_last_launch", &tone_last_launch,
         "The instance this thread's last tone_ratios or tone_powers call launched: (segments, "
         "powers, warps, windows a warp, streamed), all zero if it launched nothing");
-  m.def("probe_at", &probe_at, "Mark and space magnitudes of frames at given starts (CUDA)");
+  m.def("probe_at", &probe_at, "Mark and space magnitudes of frames at given starts (CUDA)",
+        arg("x"), arg("starts"), arg("tab"), arg("run") = 0, arg("span") = 0);
   m.def("probe_geometry", &probe_geometry,
-        "probe_at's run (probes a block owns) and staged span (floats)");
+        "probe_at's run (probes a block owns) and staged span (floats) for a window");
+  m.def("probe_geometries", &probe_geometries,
+        "The geometries (run, span) probe_at may take, the standard first");
+  m.def("probe_last_launch", &probe_last_launch,
+        "The geometry (run, span) this thread's last probe_at call launched, (0, 0) if none");
   m.def("chain_walk_segments", &chain_walk_segments,
         "Bit-edge chain of a bounded-stride successor table by a segment-parallel walk (CUDA)");
   m.def("chain_walk_frames", &chain_walk_frames,

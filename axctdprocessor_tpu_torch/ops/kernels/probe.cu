@@ -19,14 +19,14 @@
 // sample of a frame (187 MFLOP at 600 s, 2.8 us at 66.9 TFLOP/s).  At
 // 3.35 TB/s the bytes take about 10x as long: the kernel is bound by bytes.
 //
-// Design: a block for each run of kRun consecutive probes of one row, over
+// Design: a block for each run of RUN consecutive probes of one row, over
 // the run's span staged in shared memory.  The grid is (runs, rows): no
-// division per probe.  The block reads its kRun starts coalesced (one
+// division per probe.  The block reads its RUN starts coalesced (one
 // thread a probe), clamps them and reduces their least and greatest value.
 // The starts are bit edges, ascending and about fs / 800 apart; past the
 // row's edges the tail repeats the terminal edge (ops/chain.py), one frame
 // probed again and again.  So a run's span [min, max + window) is about
-// kRun * fs / 800 samples, and when it fits the kSpan-float buffer the
+// RUN * fs / 800 samples, and when it fits the SPAN-float buffer the
 // block stages it: 16-byte cp.async copies of its aligned interior and
 // plain loads of the at most 3 samples at either end, so nothing outside
 // the span is read and no alignment of the row is assumed.  A run whose
@@ -36,40 +36,58 @@
 // probe: four FMA chains over the frame's samples in order, the table's row
 // from shared memory as one float4 (a broadcast), and writes its two
 // magnitudes as one float2: a warp's stores are 256 contiguous bytes.
-// Several blocks on each SM (the buffer is 36 KB) overlap one block's copy
-// with another's arithmetic.
+// Several blocks on each SM overlap one block's copy with another's
+// arithmetic.
 //
 // The sum of a probe is a fixed order that depends only on its frame and
 // the table, whichever path read the frame: every row of a (rows, K) call
 // is bitwise the 1-D call on that row, whatever K, rows, the run a probe
 // falls in or where the row lies in memory.  Samples are assumed finite.
 //
-// kRun and kSpan may be set at build time (AXCTD_PROBE_RUN, AXCTD_PROBE_SPAN)
-// to compare variants.
+// Geometry (RUN, SPAN), chosen from the window by size before the launch
+// (plan), never after a failure.  The window is the engine's probe
+// window, about 0.73 of a bit (engine.probe_window: 39 samples of 55.1 at
+// 44.1 kHz, 81 of 110.25 at 88.2 kHz, 88 of 120 at 96 kHz), so the window
+// sets the span a run of bit edges covers:
+//  * the standard geometry, runs of 128 probes over a 9,216-float buffer
+//    (36 KB: five blocks an SM), stages every run of bit edges up to 50 kHz
+//    (a window of 50, bits of 62.5 samples: 127 * 62.5 + 53 = 7,991
+//    floats);
+//  * windows above 50 (the batch paths' 88.2 and 96 kHz rows at their
+//    native rate, where a run of 128 spans about 14,100 and 15,330 floats)
+//    take runs of 64 probes over the same buffer: a run of 64 bit edges
+//    spans 63 * 120 + 91 = 7,651 floats at 96 kHz (windows up to about 106,
+//    113 kHz, fit), five blocks of two warps an SM.  Timed in turns against
+//    runs of 128 over an 18,432-float buffer and runs of 64 over 8,192
+//    floats on an H100 SXM (PERF.md; tools/probe_variants.py --high-rate):
+//    the three tied within one call's noise.  This one was taken because
+//    8,192 floats left 2.6% of the 96 kHz runs unstaged and an 18,432-float
+//    buffer holds fewer blocks an SM (three).
+// Both are instances of one template, so a probe's arithmetic, and so its
+// bits, are the same in either (the sum's order above); a geometry may be
+// forced to compare them.  A build may set one geometry alone
+// (AXCTD_PROBE_RUN, AXCTD_PROBE_SPAN) to compare variants.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef AXCTD_PROBE_RUN
-#define AXCTD_PROBE_RUN 128
-#endif
-#ifndef AXCTD_PROBE_SPAN
-#define AXCTD_PROBE_SPAN 9216
-#endif
-
 namespace {
 
-constexpr int kRun = AXCTD_PROBE_RUN;    // probes a block owns, one thread each
-constexpr int kThreads = kRun;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSpan = AXCTD_PROBE_SPAN;  // floats of the staged span
+struct Geometry {
+  int run, span;  // probes a block owns (one thread each), floats of the staged span
+};
+
+#if defined(AXCTD_PROBE_RUN) && defined(AXCTD_PROBE_SPAN)
+constexpr Geometry kGeometries[] = {{AXCTD_PROBE_RUN, AXCTD_PROBE_SPAN}};
+#else
+// The standard geometry first, then the high-rate one.
+constexpr Geometry kGeometries[] = {{128, 9216}, {64, 9216}};
+#endif
+constexpr int kNumGeometries = sizeof(kGeometries) / sizeof(kGeometries[0]);
+constexpr int kStdMaxWindow = 50;  // the standard geometry's windows: rates up to 50 kHz
 constexpr int kMaxDevices = 64;
 constexpr long long kMaxGridX = 2147483647LL;
 constexpr long long kMaxGridY = 65535LL;
-
-static_assert(kThreads % 32 == 0 && kThreads >= 32 && kThreads <= 1024,
-              "whole warps, at most 1024 threads");
-static_assert(kSpan % 4 == 0, "the span buffer is whole 16-byte chunks");
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
@@ -84,13 +102,19 @@ __device__ __forceinline__ int word_in_chunk(const float* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int RUN, int SPAN>
+__global__ void __launch_bounds__(RUN)
 probe_run_kernel(const float* __restrict__ x, long long ld, long long len, long long rows,
                  const long long* __restrict__ starts, long long k, long long runs,
                  const float* __restrict__ tab, int window, float2* __restrict__ out) {
+  constexpr int kThreads = RUN;
+  constexpr int kWarps = kThreads / 32;
+  static_assert(kThreads % 32 == 0 && kThreads >= 32 && kThreads <= 1024,
+                "whole warps, at most 1024 threads");
+  static_assert(SPAN % 4 == 0, "the span buffer is whole 16-byte chunks");
   extern __shared__ float4 smem4[];
-  float* span = reinterpret_cast<float*>(smem4);  // kSpan floats, then the table
-  float4* tab_s = smem4 + kSpan / 4;
+  float* span = reinterpret_cast<float*>(smem4);  // SPAN floats, then the table
+  float4* tab_s = smem4 + SPAN / 4;
   __shared__ long long red_lo[kWarps], red_hi[kWarps];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   for (int i = t; i < window; i += kThreads)
@@ -101,7 +125,7 @@ probe_run_kernel(const float* __restrict__ x, long long ld, long long len, long 
   for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
     const float* xr = x + row * ld;
     for (long long run = blockIdx.x; run < runs; run += gridDim.x) {
-      const long long p = run * kRun + t;
+      const long long p = run * RUN + t;
       const bool live = p < k;
       long long s = live ? starts[row * k + p] : 0;
       s = s < 0 ? 0 : (s > last ? last : s);
@@ -122,7 +146,7 @@ probe_run_kernel(const float* __restrict__ x, long long ld, long long len, long 
         hi = max(hi, red_hi[w]);
       }
       const long long end = hi + window;  // one past the span's last sample
-      const bool staged = end - lo + 3 <= kSpan;  // the same on every thread
+      const bool staged = end - lo + 3 <= SPAN;  // the same on every thread
       int pad = 0;  // span[i - lo + pad] holds sample i of the row
       if (staged) {
         // head [lo, a), 16-byte chunks [a, b), tail [b, end); a and b aligned
@@ -169,15 +193,22 @@ probe_run_kernel(const float* __restrict__ x, long long ld, long long len, long 
   }
 }
 
-}  // namespace
+// The geometry the launcher takes for `window`: the standard one up to
+// kStdMaxWindow, the high-rate one above (a build of one geometry: that one).
+Geometry plan(int window) {
+  return kGeometries[window <= kStdMaxWindow || kNumGeometries == 1 ? 0 : 1];
+}
 
-extern "C" int axctd_probe_launch(const float* x, long long ld, long long len, int rows,
-                                  const long long* starts, long long k, const float* tab,
-                                  int window, float* out, void* stream) {
-  if (rows <= 0 || k <= 0) return static_cast<int>(cudaSuccess);
-  if (window <= 0 || len < window) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(float) * kSpan + sizeof(float4) * window);
-  static int optin[kMaxDevices], granted[kMaxDevices];  // set once per device and size
+// The geometry of this thread's last probe launch; zero if it launched nothing.
+thread_local Geometry last_launched;
+
+template <int RUN, int SPAN>
+int launch(const float* x, long long ld, long long len, int rows, const long long* starts,
+           long long k, const float* tab, int window, float* out, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(float) * SPAN + sizeof(float4) * window);
+  // per device, once: the opt-in, all of the SM's L1 as shared memory (the
+  // blocks per SM are set by it), and the dynamic size granted so far
+  static int optin[kMaxDevices], granted[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -185,31 +216,88 @@ extern "C" int axctd_probe_launch(const float* x, long long ld, long long len, i
   if (optin[dev] == 0) {
     err = cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    // all of the SM's L1 as shared memory: the blocks per SM are set by it
-    err = cudaFuncSetAttribute(probe_run_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+    err = cudaFuncSetAttribute(probe_run_kernel<RUN, SPAN>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (smem > optin[dev]) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > granted[dev]) {
-    err = cudaFuncSetAttribute(probe_run_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(probe_run_kernel<RUN, SPAN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     granted[dev] = smem;
   }
-  const long long runs = (k + kRun - 1) / kRun;
+  const long long runs = (k + RUN - 1) / RUN;
   const dim3 grid(static_cast<unsigned>(runs < kMaxGridX ? runs : kMaxGridX),
                   static_cast<unsigned>(rows < kMaxGridY ? rows : kMaxGridY));
-  probe_run_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  probe_run_kernel<RUN, SPAN><<<grid, RUN, smem, stream>>>(
       x, ld, len, rows, starts, k, runs, tab, window, reinterpret_cast<float2*>(out));
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err == cudaSuccess) last_launched = Geometry{RUN, SPAN};
+  return static_cast<int>(err);
 }
 
-// The geometry of a launch: the probes a block owns (one run) and the floats
-// of its staged span; a run is staged when its clamped starts' span plus its
-// window and 3 floats of alignment fits.  Test code builds its edge cases
-// from these.
-extern "C" void axctd_probe_geometry(int* run, int* span) {
-  *run = kRun;
-  *span = kSpan;
+template <int I>
+int launch_geometry(Geometry g, const float* x, long long ld, long long len, int rows,
+                    const long long* starts, long long k, const float* tab, int window,
+                    float* out, cudaStream_t stream) {
+  if constexpr (I < kNumGeometries) {
+    constexpr Geometry kG = kGeometries[I];
+    if (g.run == kG.run && g.span == kG.span)
+      return launch<kG.run, kG.span>(x, ld, len, rows, starts, k, tab, window, out, stream);
+    return launch_geometry<I + 1>(g, x, ld, len, rows, starts, k, tab, window, out, stream);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Probes at the launcher's geometry for the window (`run` 0), or at (run,
+// span), one of the geometries axctd_probe_geometries lists, forced.
+extern "C" int axctd_probe_geometry_launch(const float* x, long long ld, long long len, int rows,
+                                           const long long* starts, long long k,
+                                           const float* tab, int window, int run, int span,
+                                           float* out, void* stream) {
+  last_launched = Geometry{};
+  if (rows <= 0 || k <= 0) return static_cast<int>(cudaSuccess);
+  if (window <= 0 || len < window) return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry g = run == 0 ? plan(window) : Geometry{run, span};
+  return launch_geometry<0>(g, x, ld, len, rows, starts, k, tab, window, out,
+                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int axctd_probe_launch(const float* x, long long ld, long long len, int rows,
+                                  const long long* starts, long long k, const float* tab,
+                                  int window, float* out, void* stream) {
+  return axctd_probe_geometry_launch(x, ld, len, rows, starts, k, tab, window, 0, 0, out,
+                                     stream);
+}
+
+// The geometry the launcher takes for `window`: the probes a block owns (one
+// run) and the floats of its staged span; a run is staged when its clamped
+// starts' span plus its window and 3 floats of alignment fits.  Test code
+// builds its edge cases from these.
+extern "C" void axctd_probe_plan(int window, int* run, int* span) {
+  const Geometry g = plan(window);
+  *run = g.run;
+  *span = g.span;
+}
+
+// The geometries a launch may take, the standard one first: writes at most
+// `cap` (run, span) pairs and returns how many there are.
+extern "C" int axctd_probe_geometries(int* run, int* span, int cap) {
+  for (int i = 0; i < kNumGeometries && i < cap; ++i) {
+    run[i] = kGeometries[i].run;
+    span[i] = kGeometries[i].span;
+  }
+  return kNumGeometries;
+}
+
+// The geometry this thread's last probe call launched, (0, 0) if it
+// launched nothing.
+extern "C" void axctd_probe_last_launch(int* run, int* span) {
+  *run = last_launched.run;
+  *span = last_launched.span;
 }

@@ -66,10 +66,11 @@
 // times a non-finite sample is skipped here in the third segment's zero
 // half, where the plain version's matmul would propagate it.
 //
-// Small grids (tone_powers only).  The standard block computes 8 x 16 = 128
+// Small grids.  The standard block computes 8 x 16 = 128
 // windows and owns 123; one block fits an SM (the table is 107 KB at 44.1
 // kHz), so a grid under one wave of the card's SMs is as slow as one block's
-// walk: a group of 4 segments of 23.56 s is 20 blocks on 132 SMs.  There the
+// walk: a group of 4 segments of 23.56 s is 20 blocks on 132 SMs, one 60 s
+// drop 13 (the monolithic decode of every drop up to 300 s: 61 blocks).  There the
 // launcher takes the fewest windows a warp (8 warps of 2, 3, 4, 5, 6 or 8)
 // whose grid still fits in one wave: more blocks, each a walk shorter by the
 // windows a warp.  The 5 halo windows are then a
@@ -79,7 +80,10 @@
 // lane's FMA chain over steps and segments, the same in any shape, then
 // reduce_lanes' xor butterfly over lane bits 16, 8, 4, 2, 1, the same tree
 // for any count of values (each sum is mine + my partner's, and addition
-// commutes).  tone_ratios keeps the standard shape.
+// commutes).  The box mean of a window reads the powers of it and the 5
+// before it, all computed in its block, oldest first, so the ratios too are
+// the standard shape's bit for bit.  Both launchers take the rule, each with
+// its resident or streamed table as the shape's ring leaves room for.
 //
 // Batch: grid (ceil(n_win / kRun), rows), blockIdx.y the row, 64-bit row
 // offsets (64 rows of 60 s at 44.1 kHz are 169M samples).  Rows lie `ld`
@@ -123,16 +127,16 @@ namespace {
 
 constexpr int kWarpsStd = 8;            // warps per block, the standard shape
 constexpr int kWpwStd = 16;             // windows per warp (register block), the standard shape
-// the ratios' one shape: the standard one, unless a build sets another
-// (AXCTD_TONE_RATIOS_WARPS, AXCTD_TONE_RATIOS_WPW) to compare with it
-#ifndef AXCTD_TONE_RATIOS_WARPS
-#define AXCTD_TONE_RATIOS_WARPS 8
-#endif
-#ifndef AXCTD_TONE_RATIOS_WPW
-#define AXCTD_TONE_RATIOS_WPW 16
-#endif
+// A build may force the ratios' one shape (AXCTD_TONE_RATIOS_WARPS,
+// AXCTD_TONE_RATIOS_WPW) to compare it with another build; otherwise
+// (kWarpsRatios 0) the ratios take the launcher's shape, as the raw powers do.
+#if defined(AXCTD_TONE_RATIOS_WARPS) && defined(AXCTD_TONE_RATIOS_WPW)
 constexpr int kWarpsRatios = AXCTD_TONE_RATIOS_WARPS;
 constexpr int kWpwRatios = AXCTD_TONE_RATIOS_WPW;
+#else
+constexpr int kWarpsRatios = 0;
+constexpr int kWpwRatios = 0;
+#endif
 constexpr int kSmooth = 5;              // trailing windows in the box mean
 constexpr int kTaps = kSmooth + 1;
 constexpr int kCols = 6;                // cos/sin for 400, 7500, dead
@@ -482,12 +486,12 @@ struct Shape {
   int warps, wpw;
 };
 
-// The shapes a raw-powers launch may take: the standard one, then the small
+// The shapes a launch may take: the standard one, then the small
 // ones in the order the launcher prefers them (the fewest windows per warp,
 // the shortest walk).
-constexpr Shape kPowersShapes[] = {{kWarpsStd, kWpwStd}, {8, 2}, {8, 3}, {8, 4},
-                                   {8, 5},               {8, 6}, {8, 8}};
-constexpr int kNumPowersShapes = sizeof(kPowersShapes) / sizeof(kPowersShapes[0]);
+constexpr Shape kShapes[] = {{kWarpsStd, kWpwStd}, {8, 2}, {8, 3}, {8, 4},
+                             {8, 5},               {8, 6}, {8, 8}};
+constexpr int kNumShapes = sizeof(kShapes) / sizeof(kShapes[0]);
 
 // Blocks of a launch of shape `s`.
 long long grid_blocks(int rows, int n_win, Shape s) {
@@ -495,17 +499,17 @@ long long grid_blocks(int rows, int n_win, Shape s) {
   return static_cast<long long>(rows) * ((n_win + run - 1) / run);
 }
 
-// The block shape of a raw-powers launch: the standard one, unless its grid
+// The block shape of a launch: the standard one, unless its grid
 // is under one wave of the card's SMs (one block fits an SM: the table alone
 // is 107 KB at 44.1 kHz); then the first small shape whose grid still fits
 // in one wave.  A block's walk is set by its windows per warp, so a grid of
 // one wave ends with its slowest block, and fewer windows a warp is a
 // shorter walk.  Every shape gives each window the same sum.
 Shape small_grid_shape(int rows, int n_win, int sms) {
-  if (grid_blocks(rows, n_win, kPowersShapes[0]) >= sms) return kPowersShapes[0];
-  for (int i = 1; i < kNumPowersShapes; ++i)
-    if (grid_blocks(rows, n_win, kPowersShapes[i]) <= sms) return kPowersShapes[i];
-  return kPowersShapes[0];
+  if (grid_blocks(rows, n_win, kShapes[0]) >= sms) return kShapes[0];
+  for (int i = 1; i < kNumShapes; ++i)
+    if (grid_blocks(rows, n_win, kShapes[i]) <= sms) return kShapes[i];
+  return kShapes[0];
 }
 
 // What a launch runs: the block shape, whether the table is streamed, the
@@ -519,14 +523,16 @@ struct Plan {
 };
 
 // The launch of `rows` rows of `n_win` windows of `window` samples at
-// `stride`, decided by size before it runs: the ratios' one shape, or for
-// the raw powers `shape` ({0, 0}: small_grid_shape); the resident table if
-// it fits `optin` bytes beside that shape's ring, the streamed one if not.
+// `stride`, decided by size before it runs: `shape` ({0, 0}:
+// small_grid_shape; the ratios' one shape in a build that forces it); the
+// resident table if it fits `optin` bytes beside that shape's ring, the
+// streamed one if not.
 Plan make_plan(bool powers, int rows, int n_win, int window, int stride, Shape shape, int sms,
                int optin) {
   Plan p;
-  p.shape = !powers ? Shape{kWarpsRatios, kWpwRatios}
-                    : (shape.warps == 0 ? small_grid_shape(rows, n_win, sms) : shape);
+  p.shape = !powers && kWarpsRatios != 0 ? Shape{kWarpsRatios, kWpwRatios}
+            : shape.warps == 0           ? small_grid_shape(rows, n_win, sms)
+                                         : shape;
   p.nseg = (window + stride - 1) / stride;
   p.streamed = smem_bytes(window, p.nseg, p.shape.warps, p.shape.wpw, false) > optin;
   p.smem = smem_bytes(window, p.nseg, p.shape.warps, p.shape.wpw, p.streamed);
@@ -583,7 +589,7 @@ int launch_shape(const Plan& p, const float* x, int rows, long long ld, long lon
   if (p.shape.warps == W && p.shape.wpw == P)                                               \
     return launch_planned<NSEG, POWERS, W, P>(p, x, rows, ld, n, tm, window, stride, n_win, \
                                               r400, r7500, s, dev);
-  if constexpr (!POWERS) {
+  if constexpr (!POWERS && kWarpsRatios != 0) {
     AXCTD_TONE_SHAPE(kWarpsRatios, kWpwRatios)
   } else {
     AXCTD_TONE_SHAPE(kWarpsStd, kWpwStd)
@@ -615,10 +621,10 @@ int device_limits(int* dev, int* sms, int* optin) {
   return static_cast<int>(cudaSuccess);
 }
 
-// Plans and launches.  POWERS: `shape` {0, 0} is the launcher's choice
-// (small_grid_shape), another one of kPowersShapes forced.  The ratios
-// launch their one shape.  A plan whose shared memory exceeds the opt-in
-// even streamed, or a table of more than 3 segments, is refused.
+// Plans and launches: `shape` {0, 0} is the launcher's choice
+// (small_grid_shape), another one of kShapes forced.  A plan whose
+// shared memory exceeds the opt-in even streamed, or a table of more than 3
+// segments, is refused.
 template <bool POWERS>
 int dispatch(const float* x, int rows, long long ld, long long n, const float* tm, int window,
              int stride, int n_win, Shape shape, float* r400, float* r7500, void* stream) {
@@ -643,17 +649,26 @@ int dispatch(const float* x, int rows, long long ld, long long n, const float* t
 
 }  // namespace
 
+// The ratios; `warps` 0 is the launcher's choice (small_grid_shape),
+// otherwise (warps, wpw), one of the shapes axctd_tone_powers_shapes lists,
+// forced, to compare with the launcher's choice.
+extern "C" int axctd_tone_ratios_shape_launch(const float* x, int rows, long long n,
+                                              const float* tm, int window, int stride, int n_win,
+                                              int warps, int wpw, float* r400, float* r7500,
+                                              void* stream) {
+  return dispatch<false>(x, rows, n, n, tm, window, stride, n_win, Shape{warps, wpw}, r400,
+                         r7500, stream);
+}
+
 extern "C" int axctd_tone_ratios_launch(const float* x, int rows, long long n,
                                         const float* tm, int window,
                                         int stride, int n_win, float* r400,
                                         float* r7500, void* stream) {
-  return dispatch<false>(x, rows, n, n, tm, window, stride, n_win, Shape{0, 0}, r400, r7500,
-                         stream);
+  return axctd_tone_ratios_shape_launch(x, rows, n, tm, window, stride, n_win, 0, 0, r400, r7500,
+                                        stream);
 }
 
-// The raw powers; `warps` 0 is the launcher's choice (small_grid_shape),
-// otherwise (warps, wpw), one of the shapes axctd_tone_powers_shapes lists,
-// forced, to compare with the launcher's choice.
+// The raw powers, at the launcher's shape or one forced, as the ratios.
 extern "C" int axctd_tone_powers_launch(const float* x, int rows, long long ld, long long n,
                                         const float* tm, int window, int stride, int n_win,
                                         int warps, int wpw, float* powers, void* stream) {
@@ -661,25 +676,25 @@ extern "C" int axctd_tone_powers_launch(const float* x, int rows, long long ld, 
                         nullptr, stream);
 }
 
-// The shapes a raw-powers launch may take, the standard one first: writes at
-// most `cap` (warps, windows per warp) pairs and returns how many there are.
+// The shapes a launch may take, the standard one first: writes at most
+// `cap` (warps, windows per warp) pairs and returns how many there are.
 extern "C" int axctd_tone_powers_shapes(int* warps, int* wpw, int cap) {
-  for (int i = 0; i < kNumPowersShapes && i < cap; ++i) {
-    warps[i] = kPowersShapes[i].warps;
-    wpw[i] = kPowersShapes[i].wpw;
+  for (int i = 0; i < kNumShapes && i < cap; ++i) {
+    warps[i] = kShapes[i].warps;
+    wpw[i] = kShapes[i].wpw;
   }
-  return kNumPowersShapes;
+  return kNumShapes;
 }
 
-// 1 if (warps, wpw) is one of the shapes a raw-powers launch may take.
+// 1 if (warps, wpw) is one of the shapes a launch may take.
 extern "C" int axctd_tone_powers_shape_known(int warps, int wpw) {
-  for (const Shape& s : kPowersShapes)
+  for (const Shape& s : kShapes)
     if (s.warps == warps && s.wpw == wpw) return 1;
   return 0;
 }
 
-// The launch that the ratios (`powers` 0) or the raw powers (1; `warps` 0
-// for the launcher's shape) of `rows` rows of `n_win` windows of `window`
+// The launch that the ratios (`powers` 0) or the raw powers (1), at the
+// launcher's shape (`warps` 0) or (warps, wpw), of `rows` rows of `n_win` windows of `window`
 // samples at `stride` makes on the current device, by the launchers' own
 // make_plan: out = {streamed, warps, windows a warp, shared-memory bytes,
 // the card's opt-in}, and the blocks.  Returns a CUDA error code.

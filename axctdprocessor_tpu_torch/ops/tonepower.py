@@ -10,16 +10,17 @@ axctdprocessor_tpu/ops/pallas/tonepower.py (``fused_tone_ratios``).
   ``tone_ratios.streamed_launches`` when the instance it launched streamed
   the table through the copy ring (a window whose table does not fit in
   shared memory beside the ring: the batch and archive paths' 88.2 and 96
-  kHz rows; the same bits).  The extension chooses by size before the launch
+  kHz rows; the same bits).  On a grid under one wave of the card's SMs
+  (one drop up to about 300 s, a few rows) it takes a smaller block shape
+  (the same bits).  The extension chooses by size before the launch
   (``extension().tone_plan``) and names the instance it launched
   (``extension().tone_last_launch``).  A build or launch failure raises;
   nothing falls back.
 * :func:`tone_powers` — the raw (..., n_win, 3) powers of the same windows,
   no box mean and no log: on a CPU tensor the plain tiled version
   (``goertzel.framed_tone_power_tiled``), on a CUDA tensor the same kernel's
-  powers-only variant (``tone_powers.launches``; ``streamed_launches`` as
-  for the ratios), on grids under one wave of
-  the card's SMs in a smaller block shape (the same bits).  The segmented and
+  powers-only variant (``tone_powers.launches``; ``streamed_launches`` and
+  the block shape as for the ratios).  The segmented and
   time-sharded paths take it and smooth the gathered series themselves
   (:func:`ratios_from_powers`).
 

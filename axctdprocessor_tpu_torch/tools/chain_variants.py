@@ -238,15 +238,10 @@ def _peak_mb(fn) -> float:
 
 
 def _kernel_split(fn, calls: int = 10) -> dict:
-    """Device ms per call of each of the segment walk's three kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {part: sum(e.device_time_total for e in prof.key_averages()
-                      if f"chain_segments_{part}" in e.key) / calls / 1e3
+    """Device ms per call of each of the segment walk's three kernels
+    (``chip_smoke._device_ms``: from a profile that recorded every device
+    event; None where none did)."""
+    return {part: cs._device_ms(fn, f"chain_segments_{part}", calls)
             for part in ("records", "scan", "write")}
 
 

@@ -1,14 +1,16 @@
 """Count what one monolithic decode dispatches: PyTorch operations, and on a
 GPU the kernel launches.
 
-The operations are counted with ``TorchDispatchMode`` on a synthetic drop
-made by the simulator of the tree under test (``SimSpec(duration=SECONDS,
-profile_start=33, seed=11)``, int16), after one warm-up decode.  Besides the
-total it counts the operations inside the bit-edge chain
-(``ops.chain.enumerate_bit_edges``) and inside frame sync
+The decode runs on the card (``--device cuda``, the default, as every entry
+point of the port; it raises without a GPU) or, with ``--device cpu``, on
+the host.  The operations are counted with ``TorchDispatchMode`` on a
+synthetic drop made by the simulator of the tree under test
+(``SimSpec(duration=SECONDS, profile_start=33, seed=11)``, int16), after one
+warm-up decode.  Besides the total it counts the operations inside the
+bit-edge chain (``ops.chain.enumerate_bit_edges``) and inside frame sync
 (``ops.chain.enumerate_frames``), and lists the most frequent operations.
-With ``--device cuda`` the same decode runs on the card and, in a second
-run, under ``torch.profiler``, whose launch events (``cudaLaunchKernel``,
+On the card the same decode then runs, in a second run, under
+``torch.profiler``, whose launch events (``cudaLaunchKernel``,
 ``cuLaunchKernel``) are counted as ``chip_smoke.py`` phase 10 counts them;
 ``--plain-tone-ratios`` decodes with the plain tone-ratio version
 (``use_kernel=False``), so that a tree's own kernel need not be built.
@@ -18,7 +20,7 @@ of this one's; run one tree per process, as a file (not with ``-m``, which
 would import this checkout's port first).  One JSON line:
 
     python axctdprocessor_tpu_torch/tools/count_decode_ops.py [--tree DIR] [--seconds 60]
-        [--device cuda]
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--seconds", type=float, default=60.0)
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--plain-tone-ratios", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))

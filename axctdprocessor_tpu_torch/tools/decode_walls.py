@@ -3,13 +3,21 @@ another one, so that two trees can be compared in turns on one card.
 
 The inputs are ``chip_smoke.py``'s, made by the tree under test: the 600 s
 bench drop (``SimSpec(duration=600, profile_start=33, seed=11)`` as int16)
-and the bench's 64 x 60 s archive batch (``chip_smoke.archive_batch()``).
-The paths, as ``chip_smoke.py`` phases 3, 6, 7, 9 and 9b drive them:
+and the bench's 64 x 60 s archive batch (``chip_smoke.archive_batch()``);
+besides, drops of 60 and 300 s (``SimSpec(duration=60, profile_start=40,
+seed=21)``, the archive batch's drop, and ``SimSpec(duration=300,
+profile_start=33, seed=11)``) and 8 rows of 60 s at 88.2 kHz (as
+``chip_smoke._high_rate_probe_calls`` makes them).  The paths, as
+``chip_smoke.py`` phases 3, 6, 7, 9 and 9b drive them:
 
 * ``monolithic``: ``engine.decode_waveform(mode="monolithic")`` of the drop;
+* ``monolithic 60 s``, ``monolithic 300 s``: the same of the shorter drops
+  (the decode of every drop up to 300 s: one small-grid tone launch);
 * ``segmented``: ``segmented.decode_waveform_segmented`` of the drop;
 * ``prestaged``: ``prestage_waveform(wire="int8")`` once, then ``decode()``;
 * ``batch 8 x 8``: the 64 rows through ``decode_batch`` as 8 batches of 8;
+* ``batch 8 x 60 s at 88.2 kHz``: the 8 rows through ``decode_batch`` at
+  their native rate (the streamed tone table, the probe's high-rate geometry);
 * ``corpus``: the 64 rows as int16 WAVs through ``reprocess_corpus(batch_size=8)``,
   into a new output directory each time (drops per second is 64 / wall).
 
@@ -38,12 +46,17 @@ import tempfile
 import time
 
 
+HIGH = "batch 8 x 60 s at 88.2 kHz"
+PATHS = ("monolithic", "monolithic 60 s", "monolithic 300 s", "segmented", "prestaged",
+         "batch 8 x 8", "corpus", HIGH)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     here = os.path.dirname(os.path.abspath(__file__))
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--paths", default="monolithic,segmented,prestaged,batch 8 x 8,corpus")
+    ap.add_argument("--paths", default=",".join(PATHS))
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -61,9 +74,21 @@ def main() -> int:
     from axctdprocessor_tpu_torch.parallel import batch
     from axctdprocessor_tpu_torch.parallel.archive import reprocess_corpus
 
-    pcm, _ = simulator.synthesize(simulator.SimSpec(duration=600.0, profile_start=33.0, seed=11))
-    raw = np.round(pcm * (28000 / np.max(np.abs(pcm)))).astype(np.int16)
-    del pcm
+    def drop(duration: float, profile_start: float, seed: int, fs: float = 44100.0):
+        pcm, _ = simulator.synthesize(simulator.SimSpec(duration=duration, fs=fs,
+                                                        profile_start=profile_start, seed=seed))
+        return np.round(pcm * (28000 / np.max(np.abs(pcm)))).astype(np.int16)
+
+    names = args.paths.split(",")
+    raw = drop(600.0, 33.0, 11)
+    short = {s: drop(s, *spec) for s, spec in ((60.0, (40.0, 21)), (300.0, (33.0, 11)))
+             if f"monolithic {s:g} s" in names}
+    high = None
+    if HIGH in names:  # as chip_smoke._high_rate_probe_calls makes them
+        base = drop(60.0, 24.0, 5, 88200.0)
+        rng = np.random.default_rng(88200)
+        high = np.stack([np.clip(base + rng.integers(-300, 300, len(base)), -32768, 32767)
+                         .astype(np.int16) for _ in range(8)])
     drops = chip_smoke.archive_batch()
     rows, fs_b = drops["batch"], drops["batch_fs"]
     staged = segmented.prestage_waveform(raw, 44100, device="cuda", wire="int8")
@@ -83,13 +108,16 @@ def main() -> int:
             "monolithic": lambda: engine.decode_waveform(raw, 44100, device="cuda",
                                                          mode="monolithic"),
             "segmented": lambda: segmented.decode_waveform_segmented(raw, 44100, device="cuda"),
+            **{f"monolithic {s:g} s": (lambda x=x: engine.decode_waveform(
+                x, 44100, device="cuda", mode="monolithic")) for s, x in short.items()},
             "prestaged": staged.decode,
             "batch 8 x 8": lambda: [batch.decode_batch(sub, fs_b, device="cuda")
                                     for sub in np.split(rows, 8)],
             "corpus": corpus,
+            HIGH: lambda: batch.decode_batch(high, 88200, device="cuda"),
         }
         walls = {}
-        for name in args.paths.split(","):
+        for name in names:
             run = paths_run[name]
             run()  # warm-up: the kernels' build, the plans
             torch.cuda.synchronize()

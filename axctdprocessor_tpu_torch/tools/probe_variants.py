@@ -25,10 +25,18 @@ records them: the 600 s drop monolithic, segmented (groups of 4), prestaged
 * then each one's device time from ``torch.profiler`` (mean of 10 calls),
   the bound (``chip_smoke._probe_bound``) and the share of it.
 
+``--high-rate`` times, in place of the above, the extension's own geometries
+(``probe_geometries()``, each forced) on the calls that ``decode_batch`` of 8
+rows of 60 s at 88.2 and at 96 kHz makes at the native rate
+(``chip_smoke._high_rate_probe_calls``): each bit-equal to the launcher's
+geometry for the window, its share of staged runs, its times in turns with
+``frames @ trig`` and its device time.
+
 One JSON line per shape.  Needs one NVIDIA GPU; run as a file, from the
 repository root:
 
     python axctdprocessor_tpu_torch/tools/probe_variants.py [--old PATH/probe.cu] [--sweep]
+    python axctdprocessor_tpu_torch/tools/probe_variants.py --high-rate
 """
 
 from __future__ import annotations
@@ -52,7 +60,8 @@ from axctdprocessor_tpu_torch.tools.chain_variants import _in_turns  # noqa: E40
 
 BUILD = os.path.join(ROOT, "axctdprocessor_tpu_torch", "_build", "variants")
 SOURCE = os.path.join(ROOT, cs.FRONTEND_SOURCE["probe_at"])
-SWEEP = [(64, 5120), (256, 16384), (128, 16384), (512, 32768)]  # (run, span floats)
+# (run, span floats); (64, 9216) is the launcher's geometry above a window of 50
+SWEEP = [(64, 9216), (64, 5120), (256, 16384), (128, 16384), (512, 32768)]
 P = ctypes.c_void_p
 LL = ctypes.c_longlong
 I = ctypes.c_int
@@ -110,12 +119,49 @@ def probe_call(lib, x, starts, trig):
     return call
 
 
+def high_rate(smi: str) -> None:
+    """The extension's geometries, each forced, at the 88.2 and 96 kHz batch
+    calls: bits, staged share, times in turns, device times."""
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    ext = extension()
+    geometries = [tuple(g) for g in ext.probe_geometries()]
+    profiled = []
+    for name, args in cs._high_rate_probe_calls():
+        x, starts, window, trig = args
+        want = goertzel.probe_at(*args)
+        fns = {}
+        for g in geometries:
+            fns[f"{g[0]}x{g[1]}"] = (lambda g=g: ext.probe_at(x, starts, trig, *g))
+            assert torch.equal(fns[f"{g[0]}x{g[1]}"](), want), (name, g)
+        fns["library"] = cs._frontend_library("probe_at", args)
+        bound_ms, bound_by = cs._probe_bound(x, starts, window)
+        rec = dict(card=smi, shape=name, window=window, geometry=ext.probe_geometry(window),
+                   staged_share={f"{g[0]}x{g[1]}": cs._probe_staged_share(x, starts, window, *g)[0]
+                                 for g in geometries},
+                   max_abs_err=cs._max_err([want], [goertzel.tone_power_at(*args)], name),
+                   bound_ms=bound_ms, bound_by=bound_by, **_in_turns(fns))
+        profiled.append((rec, fns))
+    for rec, fns in profiled:  # the profiler last: it slows later launches
+        rec["device_ms"] = {name: (cs._device_ms(fn, "probe_", calls=10) if name != "library"
+                                   else cs._device_total_ms(fn))
+                            for name, fn in fns.items()}
+        rec["share_of_bound_device"] = {name: rec["bound_ms"] / ms
+                                        for name, ms in rec["device_ms"].items() if ms}
+        print(json.dumps(rec), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", help="an earlier probe.cu with the same C interface")
     ap.add_argument("--sweep", action="store_true", help="other run lengths and span buffers")
+    ap.add_argument("--high-rate", action="store_true",
+                    help="the extension's geometries at the 88.2 and 96 kHz batch calls")
     args = ap.parse_args()
     smi, _ = cs.phase0_device()
+    if args.high_rate:
+        high_rate(smi)
+        return 0
     sources = {"current": (SOURCE, ())}
     if args.old:
         sources["old"] = (args.old, ())

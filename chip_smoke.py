@@ -18,20 +18,26 @@ Phases, one line each or more (any failure raises and exits non-zero):
 2. the kernel against its plain PyTorch version on the card, rtol = atol =
    2e-4 with equal NaN positions (the Pallas kernel's own test tolerance):
    a 600 s 44.1 kHz tone-plus-noise signal, a length that is no multiple of
-   the stride, a zero-padded tail, a 16 kHz case, a 22.05 kHz case (stride
-   882: tiles not 16-byte aligned), a batch of 3 rows whose n is no
+   the stride, a zero-padded tail, one drop of 120 s and of 300 s as the
+   monolithic decode pads it (15 s buckets), a 16 kHz case, a 22.05 kHz case
+   (stride 882: tiles not 16-byte aligned), a batch of 3 rows whose n is no
    multiple of 4, the 600 s bench drop as the lossy-wire paths hand it to
    the kernel (encoded on the host at int8 and at int4, unpacked and
    conditioned on the card), then the batch path's input (the conditioned
    archive batch) as B = 8 and B = 64 rows of 60 s; each batch row bitwise
    equal to the 1-D kernel; the launcher's plan (the extension's
-   ``tone_plan``) holds the table resident at every one of these rates.
-   Then the windows whose table it streams through the copy ring: 88.2 kHz
-   (8,820 / 3,528) and 96 kHz (9,600 / 3,840), 60 s as 1 row and 8 rows,
-   through ``tone_ratios`` and ``tone_powers`` (every block shape bit-equal,
-   the resident (8, 2) at 88.2 kHz among them).  Per shape: median CUDA-event times per call over 20
-   runs of 10 back-to-back calls after a warm-up, kernel and plain in
-   turns; the bound (the
+   ``tone_plan``) holds the table resident at every one of these rates,
+   and takes a smaller block shape on a grid under one wave of the SMs
+   (one drop of 60, 120 or 300 s: a small shape; 600 s, 8 and 64 rows: the
+   standard one); the launcher's record (``tone_last_launch``) names the
+   plan's instance, and ``tone_ratios`` forced to every block shape gives
+   the same bits.  Then the windows whose table it streams through the
+   copy ring: 88.2 kHz (8,820 / 3,528) and 96 kHz (9,600 / 3,840), 60 s as
+   1 row (a small shape) and 8 rows, through ``tone_ratios`` and
+   ``tone_powers`` (every block shape bit-equal, the resident (8, 2) at
+   88.2 kHz among them).  Per shape: median CUDA-event times per call over
+   20 runs of 10 back-to-back calls after a warm-up, kernel, plain and (at
+   a small shape) the standard shape in turns; the bound (the
    bytes at 3.35 TB/s against the flop at 66.9 TFLOP/s) and the share of
    it the kernel reaches; and, for reference only, one ``torch.matmul`` of
    the tile view by the segment matrix (the DFT core alone);
@@ -87,7 +93,15 @@ Phases, one line each or more (any failure raises and exits non-zero):
    runs: unsorted starts, runs whose span overflows the staged buffer, a
    long tail of one repeated start, one start clamped to L - window after
    live edges, K no multiple of the run, K below it, each probe also
-   bit-equal to its frame in a staged run of its own); at the first call of
+   bit-equal to its frame in a staged run of its own; the geometry for the
+   engine's windows: the standard one at 39 and 50 samples, another above
+   that stages a run of bit edges at 88.2 and 96 kHz); ``probe_at`` at 88.2
+   and 96 kHz on the calls of ``decode_batch`` of 8 rows of 60 s at the
+   native rate: the launcher's geometry for the window (its record,
+   ``probe_last_launch``, names it) stages at least 0.95 of the runs
+   (computed from the starts), every row bit-equal to its 1-D call, every
+   geometry forced (the standard one among them) bit-equal, timed in turns
+   with the standard geometry, the plain version and ``frames @ trig``; at the first call of
    each path the times of kernel, plain version and the library product
    (``frames @ trig`` of the gathered frames; the tile view times the
    segment matrix) in turns, for ``tone_powers`` also the standard block
@@ -181,8 +195,8 @@ Phases, one line each or more (any failure raises and exits non-zero):
    must decode exactly the other half.  Then 8 rows of 60 s at 88.2 kHz
    through ``decode_batch`` at the native rate (the streamed table) against
    ``decode_batch(device="cpu")`` of the same rows (hexframes, metadata and
-   every integer field of the packed result equal), and that decode's
-   ``probe_at`` call timed (its runs' spans exceed the staged buffer);
+   every integer field of the packed result equal), and the share of that
+   decode's ``probe_at`` runs its geometry stages;
    ``--only-corpus`` runs the build, phase 2's high-rate cases and this phase
    and exits 3 without result lines (a development run);
 10. ``torch.profiler`` last, after every wall (a process that has run the
@@ -190,7 +204,8 @@ Phases, one line each or more (any failure raises and exits non-zero):
    prestaged ``fused``, one monolithic and one time-sharded decode of the
    600 s drop and one batch of 8 of the archive rows (launches, device idle
    share, the upload), one pipelined run of 2 x 8,
-   then the tone-ratio kernel's device time at each phase-2 shape and the
+   then the tone-ratio kernel's device time at each phase-2 shape (at a
+   small block shape also the standard one's; the DFT core's product) and the
    chain kernels' at each phase-2b shape (``chain_walk_segments``: the sum of
    its three kernels per call; ``chain_walk_frames``: its kernel, and its whole
    call with the flags' fill, beside the device time of the jump tables'
@@ -202,7 +217,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
    names must be the shape and table the extension's ``tone_plan`` reports);
    one 88.2 kHz batch of 8 x 60 s through ``decode_batch``, the streamed
    kernel's device time at phase 2's high-rate shapes beside its bound and
-   the DFT core's product, and ``probe_at``'s at that batch's call.
+   the DFT core's product, and ``probe_at``'s at phase 2d's 88.2 and 96 kHz
+   calls, at the launcher's geometry and the standard one, beside
+   ``frames @ trig``.
 
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after (each chain kernel and ``probe_at`` must have launched on
@@ -472,13 +489,20 @@ def _time_pair(kernel, plain, runs: int = 20, calls: int = 10) -> tuple[float, f
 
 
 PROFILE_TRIES = 5
-PROFILES = {"taken": 0, "empty": 0}  # short profiles, and those with no device activity
+LEAD_CYCLES = 100_000  # the lead kernel of a device-time profile: about 50 us of spin
+# short profiles, those with no device activity, the profiles of device times
+# that missed some device events, the launches, copies and fills the host
+# queued in those profiles, and the device events not recorded of them
+PROFILES = {"taken": 0, "empty": 0, "incomplete": 0, "queued": 0, "unrecorded": 0}
 
 
-def _profiled(fn, calls: int = 1, cpu: bool = False):
+def _profiled(fn, calls: int = 1, cpu: bool = False, lead: bool = False):
     """``torch.profiler`` over `calls` calls of `fn`, after a warm-up call:
-    the card's activity, and the host's if `cpu`.  On the card this profiler
-    at times records no device activity at all in a short profile, at any
+    the card's activity, and the host's if `cpu`; with `lead`, a kernel that
+    spins for LEAD_CYCLES is launched first in the profile (the profiler at
+    times misses the first device event of a profile: a launch of the
+    measured calls then falls behind it).  On the card this profiler at
+    times records no device activity at all in a short profile, at any
     point of a process; such a profile is taken again, up to PROFILE_TRIES
     times, and counted in PROFILES.  Returns the last profile taken."""
     from torch.autograd import DeviceType
@@ -489,6 +513,8 @@ def _profiled(fn, calls: int = 1, cpu: bool = False):
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     for _ in range(PROFILE_TRIES):
         with profile(activities=activities) as prof:
+            if lead:
+                torch.cuda._sleep(LEAD_CYCLES)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -499,12 +525,46 @@ def _profiled(fn, calls: int = 1, cpu: bool = False):
     return prof
 
 
+def _queues_device_work(name: str) -> bool:
+    """Whether a host-side CUDA runtime or driver call of this name puts one
+    piece of work on the card's queue: a kernel launch, a copy or a fill."""
+    return ("Launch" in name and "Kernel" in name) or "Memcpy" in name or "Memset" in name
+
+
+def _complete_device_events(fn, calls: int):
+    """The device events of `calls` calls of `fn`, from a profile in which
+    every launch, copy and fill the host queued for them (its runtime calls,
+    ``_queues_device_work``, after the lead's launch) has its device event,
+    matched by correlation id, and no other device event ran but the lead's.
+    The profiler at times misses the first device event of a profile (the
+    lead's, ``_profiled``) and at times others; a profile that missed one of
+    the calls' is taken again, up to PROFILE_TRIES times, and counted in
+    PROFILES.  None if no profile was complete."""
+    from torch.autograd import DeviceType
+
+    for _ in range(PROFILE_TRIES):
+        events = _profiled(fn, calls, cpu=True, lead=True).events()
+        queued = sorted((e for e in events
+                         if e.device_type == DeviceType.CPU and _queues_device_work(e.name)),
+                        key=lambda e: e.time_range.start)
+        lead = queued[0].id if queued else None
+        wanted = {e.id for e in queued[1:]}
+        device = [e for e in events if e.device_type == DeviceType.CUDA and e.id != lead]
+        recorded = {e.id for e in device}
+        PROFILES["queued"] += len(wanted)
+        PROFILES["unrecorded"] += len(wanted - recorded)
+        if wanted and recorded == wanted:
+            return device
+        PROFILES["incomplete"] += 1
+    return None
+
+
 def _device_ms(fn, name: str, calls: int = 20):
     """Device time per call of `fn` in the kernels whose name holds `name`,
-    over `calls` calls, from ``torch.profiler`` (None if it records no device
-    time)."""
-    prof = _profiled(fn, calls)
-    total = sum(e.device_time_total for e in prof.key_averages() if name in e.key and e.count)
+    over `calls` calls, from a profile that recorded every device event
+    (``_complete_device_events``; None if none did, or no such kernel ran)."""
+    events = _complete_device_events(fn, calls)
+    total = sum(e.time_range.elapsed_us() for e in events or () if name in e.name)
     return total / calls / 1e3 if total else None
 
 
@@ -587,6 +647,10 @@ def _kernel_cases(drops: dict) -> list:
         ("600 s 44.1 kHz", tone_signal(44100.0, int(600 * 44100), 0.0), 44100.0),
         ("ragged 50 s", tone_signal(44100.0, int(50 * 44100) + 777, 0.0), 44100.0),
         ("zero tail 60 s", tone_signal(44100.0, int(60 * 44100), 0.25), 44100.0),
+        # one drop of 120 s and of 300 s as the monolithic decode hands it over
+        # (a 15 s bucket, zero-padded): the longest drops "auto" keeps there
+        ("120 s drop", tone_signal(44100.0, int(120 * 44100), 0.1), 44100.0),
+        ("300 s drop", tone_signal(44100.0, int(300 * 44100), 0.05), 44100.0),
         ("16 kHz 45 s", tone_signal(16000.0, int(45 * 16000), 0.1), 16000.0),
         ("22.05 kHz 120 s (stride 882)", tone_signal(22050.0, int(120 * 22050), 0.1), 22050.0),
         ("batch 3 x (50 s + 777), n % 4 = 1",
@@ -636,40 +700,94 @@ def _table(fs: float):
     return window, stride, tm
 
 
+def _nan7(t):
+    return torch.nan_to_num(t, nan=7.0)
+
+
+def _ratios_at_every_shape(name, xd, tm, window: int, stride: int, got) -> dict:
+    """Called right after ``got = tonepower.tone_ratios(xd, ...)``, with no
+    tone launch between: the instance the launcher recorded for that call
+    must be the plan's, and ``tone_ratios`` forced through the extension to
+    every block shape of the kernel must give ``got`` bit for bit (NaN where
+    it has NaN).  Returns the plan as a record: variant, block shape, blocks,
+    and the table each forced shape took."""
+    from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    ext = extension()
+    rows_n = xd.shape[0] if xd.dim() == 2 else 1
+    n_win = tonepower.n_windows(xd.shape[-1], window, stride)
+    variant, warps, wpw, blocks, smem, optin = ext.tone_plan(False, rows_n, n_win, window,
+                                                             stride)
+    _tone_launched(name, window, stride, False, warps, wpw, variant == "streamed")
+    by_shape = {}
+    for shape in ext.tone_powers_shapes():
+        r400, r7500, streamed = ext.tone_ratios(xd, tm, window, stride, n_win, *shape)
+        assert (torch.equal(_nan7(r400), _nan7(got[0]))
+                and torch.equal(_nan7(r7500), _nan7(got[1]))), (name, shape)
+        by_shape[f"{shape[0]}x{shape[1]}"] = "streamed" if streamed else "resident"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    standard = tuple(ext.tone_powers_shapes()[0])
+    assert (warps, wpw) == standard or blocks <= sms, (name, warps, wpw, blocks, sms)
+    return dict(variant=variant, block_shape=[warps, wpw], blocks=blocks, smem_bytes=smem,
+                optin_bytes=optin, variant_by_shape=by_shape, standard_shape=list(standard))
+
+
+# phase 2's cases whose block shape is asserted: a grid under one wave on
+# one drop of 60 s (13 blocks of the standard shape), and the standard shape
+# where it fills the card (600 s: 122 blocks and no small shape that fits
+# one wave; 8 and 64 rows of 60 s)
+SMALL_GRID_CASES = ("zero tail 60 s", "120 s drop", "300 s drop")
+STANDARD_GRID_CASES = ("600 s 44.1 kHz", "batch 8 x 60 s (conditioned archive rows)",
+                       "batch 64 x 60 s (conditioned archive rows)")
+
+
 def phase2_kernel(drops: dict) -> dict:
     from axctdprocessor_tpu_torch.ops import tonepower
     from axctdprocessor_tpu_torch.ops.kernels import extension
 
+    ext = extension()
     worst, shapes = 0.0, []
     for name, xd, fs in _kernel_cases(drops):
         window, stride, tm = _table(fs)
         n_win = tonepower.n_windows(xd.shape[-1], window, stride)
-        variant, *_ = extension().tone_plan(False, xd.shape[0] if xd.dim() == 2 else 1, n_win,
-                                            window, stride)
-        assert variant == "resident", (name, variant)  # every rate up to 50 kHz
         got = tonepower.tone_ratios(xd, tm, window, stride)
+        plan = _ratios_at_every_shape(name, xd, tm, window, stride, got)
         ref = tonepower.tone_ratios_reference(xd, tm, window, stride)
         assert got[0].shape == xd.shape[:-1] + (n_win,), name
         err = _max_err(got, ref, name)
         worst = max(worst, err)
+        assert plan["variant"] == "resident", (name, plan)  # every rate up to 50 kHz
+        small = plan["block_shape"] != plan["standard_shape"]
+        assert small or name not in SMALL_GRID_CASES, (name, plan)
+        assert not small or name not in STANDARD_GRID_CASES, (name, plan)
         if xd.dim() == 2:
             _rows_bitwise(xd, got, lambda row: tonepower.tone_ratios(row, tm, window, stride),
                           name)
-        km, pm = _time_pair(lambda: tonepower.tone_ratios(xd, tm, window, stride),
-                            lambda: tonepower.tone_ratios_reference(xd, tm, window, stride))
+        turns = {"kernel": lambda: tonepower.tone_ratios(xd, tm, window, stride),
+                 "plain": lambda: tonepower.tone_ratios_reference(xd, tm, window, stride)}
+        if small:  # the standard shape in the same turns
+            turns["standard"] = lambda: ext.tone_ratios(xd, tm, window, stride, n_win,
+                                                        *plan["standard_shape"])
+        ms = _time_turns(turns, runs=20, calls=10)
+        km, pm = ms["kernel"], ms["plain"]
         rows_n = xd.shape[0] if xd.dim() == 2 else 1
         bound_ms, bound_by = _bound(rows_n, xd.shape[-1], window, n_win)
         core_ms = _dft_core_ms(xd, tm, window, stride)
         rec = dict(shape=name, rows=rows_n, n=int(xd.shape[-1]), stride=stride, n_win=n_win,
                    max_abs_err=err, ms=km, device_ms=None, plain_ms=pm,
                    bound_us=1e3 * bound_ms, bound_by=bound_by, share_of_bound=bound_ms / km,
-                   dft_core_matmul_ms=core_ms)
+                   dft_core_matmul_ms=core_ms, standard_ms=ms.get("standard"),
+                   standard_device_ms=None, **plan)
         shapes.append(rec)
         log(f"[2] {name}: rows {rows_n} n={rec['n']} stride {stride} n_win={n_win} NaN windows="
             f"{int(torch.isnan(got[0]).sum())} max_abs_err={err:.3g} (rtol=atol={RTOL})"
             + (", every row bitwise equal to the 1-D kernel" if xd.dim() == 2 else "")
+            + f"; block shape {tuple(plan['block_shape'])} ({plan['blocks']} blocks, the "
+            f"launcher's record names it), bit-equal at every shape {plan['variant_by_shape']}"
             + f"; kernel {km:.4f} ms"
-            f", plain {pm:.4f} ms, bound {rec['bound_us']:.1f} us ({bound_by}), share of "
+            + (f" (the standard shape {ms['standard']:.4f} ms)" if small else "")
+            + f", plain {pm:.4f} ms, bound {rec['bound_us']:.1f} us ({bound_by}), share of "
             f"bound {rec['share_of_bound']:.3f}; for reference only, one torch.matmul of the "
             f"tile view by the (stride, 18) segment matrix (the DFT core alone, not the same "
             f"function): {core_ms:.4f} ms")
@@ -686,18 +804,21 @@ def _phase2_streamed() -> list:
     from axctdprocessor_tpu_torch.ops import tonepower
     from axctdprocessor_tpu_torch.ops.kernels import extension
 
-    block_shapes = extension().tone_powers_shapes()
+    ext = extension()
+    block_shapes = ext.tone_powers_shapes()
     out = []
     for name, xd, fs in _high_rate_cases():
         window, stride, tm = _table(fs)
         rows_n = xd.shape[0] if xd.dim() == 2 else 1
         n_win = tonepower.n_windows(xd.shape[-1], window, stride)
-        variant, warps, wpw, blocks, smem, optin = extension().tone_plan(False, rows_n, n_win,
-                                                                         window, stride)
-        assert variant == "streamed" and smem <= optin, (name, variant, smem, optin)
         before = tonepower.tone_ratios.streamed_launches
         got = tonepower.tone_ratios(xd, tm, window, stride)
         assert tonepower.tone_ratios.streamed_launches == before + 1, name
+        plan = _ratios_at_every_shape(name, xd, tm, window, stride, got)
+        assert plan["variant"] == "streamed" and plan["smem_bytes"] <= plan["optin_bytes"], \
+            (name, plan)
+        small = plan["block_shape"] != plan["standard_shape"]
+        assert small == (rows_n == 1), (name, plan)  # one row: 13 blocks of the standard shape
         err = _max_err(got, tonepower.tone_ratios_reference(xd, tm, window, stride), name)
         powers = tonepower.tone_powers(xd, tm, window, stride)
         perr = _max_err([powers], [tonepower.tone_powers_reference(xd, tm, window, stride)],
@@ -715,25 +836,34 @@ def _phase2_streamed() -> list:
             for r in range(rows_n):
                 assert torch.equal(tonepower.tone_powers(xd[r], tm, window, stride),
                                    powers[r]), (name, r)
-        km, pm = _time_pair(lambda: tonepower.tone_ratios(xd, tm, window, stride),
-                            lambda: tonepower.tone_ratios_reference(xd, tm, window, stride))
+        turns = {"kernel": lambda: tonepower.tone_ratios(xd, tm, window, stride),
+                 "plain": lambda: tonepower.tone_ratios_reference(xd, tm, window, stride)}
+        if small:  # the standard shape in the same turns
+            turns["standard"] = lambda: ext.tone_ratios(xd, tm, window, stride, n_win,
+                                                        *plan["standard_shape"])
+        ms = _time_turns(turns, runs=20, calls=10)
+        km, pm = ms["kernel"], ms["plain"]
         bound_ms, bound_by = _bound(rows_n, xd.shape[-1], window, n_win)
         core_ms = _dft_core_ms(xd, tm, window, stride)
         rec = dict(shape=name, fs=fs, rows=rows_n, n=int(xd.shape[-1]), window=window,
-                   stride=stride, n_win=n_win, variant=variant, block_shape=[warps, wpw],
-                   blocks=blocks, smem_bytes=smem, optin_bytes=optin, max_abs_err=err,
+                   stride=stride, n_win=n_win, max_abs_err=err,
                    powers_max_abs_err=perr, powers_variant_by_shape=by_shape, ms=km,
                    device_ms=None, plain_ms=pm, bound_us=1e3 * bound_ms, bound_by=bound_by,
-                   share_of_bound=bound_ms / km, dft_core_matmul_ms=core_ms)
+                   share_of_bound=bound_ms / km, dft_core_matmul_ms=core_ms,
+                   standard_ms=ms.get("standard"), standard_device_ms=None, **plan)
         out.append(rec)
-        log(f"[2] {name}: window {window}, stride {stride}, n_win {n_win}: the {variant} table "
-            f"({smem} B of shared memory of {optin}; {blocks} blocks of ({warps}, {wpw})); "
+        log(f"[2] {name}: window {window}, stride {stride}, n_win {n_win}: the "
+            f"{plan['variant']} table ({plan['smem_bytes']} B of shared memory of "
+            f"{plan['optin_bytes']}; {plan['blocks']} blocks of {tuple(plan['block_shape'])}, "
+            f"the launcher's record names it; tone_ratios bit-equal at every block shape "
+            f"{plan['variant_by_shape']}); "
             f"tone_ratios max_abs_err={err:.3g}, tone_powers {perr:.3g} (rtol=atol={RTOL})"
             + (", every row bitwise equal to the 1-D kernel" if xd.dim() == 2 else "")
-            + f"; tone_powers bit-equal at every block shape ({by_shape}); kernel {km:.4f} ms, "
-            f"plain {pm:.4f} ms, bound {rec['bound_us']:.1f} us ({bound_by}), share of bound "
-            f"{rec['share_of_bound']:.3f}; for reference only, the DFT core's torch.matmul "
-            f"{core_ms:.4f} ms")
+            + f"; tone_powers bit-equal at every block shape ({by_shape}); kernel {km:.4f} ms"
+            + (f" (the standard shape {ms['standard']:.4f} ms)" if small else "")
+            + f", plain {pm:.4f} ms, bound {rec['bound_us']:.1f} us ({bound_by}), share of "
+            f"bound {rec['share_of_bound']:.3f}; for reference only, the DFT core's "
+            f"torch.matmul {core_ms:.4f} ms")
     return out
 
 
@@ -946,14 +1076,10 @@ def _time_turns(fns: dict, runs: int = 5, calls: int = 2) -> dict:
 
 def _device_total_ms(fn, calls: int = 10):
     """Device time per call of everything `fn` runs on the card (kernels,
-    fills, copies), from ``torch.profiler``'s device events (None if it
-    records none)."""
-    from torch.autograd import DeviceType
-
-    prof = _profiled(fn, calls)
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
-    return total / calls / 1e3 if total else None
+    fills, copies), from a profile that recorded every device event
+    (``_complete_device_events``; None if none did)."""
+    events = _complete_device_events(fn, calls)
+    return sum(e.time_range.elapsed_us() for e in events) / calls / 1e3 if events else None
 
 
 def _empty_kernel() -> None:
@@ -1341,10 +1467,20 @@ def _probe_edge_cases(dev) -> list:
     from axctdprocessor_tpu_torch.ops import goertzel
     from axctdprocessor_tpu_torch.ops.kernels import extension
 
-    run, span = extension().probe_geometry()
-    # a run of bit edges is staged at the highest decode rate (50 kHz: 62.5
-    # samples a bit, a window of 50); edges 55 apart are staged, 97 apart not
+    ext = extension()
+    run, span = ext.probe_geometry(39)
+    # the standard geometry up to 50 kHz: a run of bit edges is staged at the
+    # highest rate the single-drop paths decode at (62.5 samples a bit, a
+    # window of 50), and edges 55 apart are staged, 97 apart not
+    assert ext.probe_geometry(50) == (run, span) == tuple(ext.probe_geometries()[0])
     assert (run - 1) * 62.5 + 50 + 3 <= span and run * 97 > span > run * 57, (run, span)
+    # above 50 kHz (the batch paths' rows at the native rate) another geometry
+    # stages a run of bit edges: 110.25 samples a bit and a window of 81 at
+    # 88.2 kHz, 120 and 88 at 96 kHz
+    for window, bit in ((81, 110.25), (88, 120.0)):
+        hr_run, hr_span = ext.probe_geometry(window)
+        assert (hr_run, hr_span) != (run, span), window
+        assert (hr_run - 1) * bit + window + 3 <= hr_span, (window, hr_run, hr_span)
     rng = np.random.default_rng(5)
     fs, window, length = 44100.0, 39, 200_000
     trig = torch.from_numpy(goertzel.tone_matrix(window, [1200.0, 2400.0], fs,
@@ -1433,6 +1569,102 @@ def _frontend_edge_cases(dev) -> None:
         "launching nothing; each against its plain version, every row equal to its 1-D call")
 
 
+HIGH_RATES = (88200, 96000)
+
+
+def _high_rate_probe_calls() -> list:
+    """(name, args) of ``probe_at``'s call in ``decode_batch`` of 8 rows of
+    60 s at 88.2 and at 96 kHz at the native rate: one simulated drop at
+    each rate (as ``tools/corpus_1000.py`` makes its bases: seed 5, the
+    profile at 24 s, scaled to a peak of 28,000) plus uniform noise of +-300
+    per row (rng seeded with the rate), int16."""
+    from axctdprocessor_tpu_torch.models import simulator
+    from axctdprocessor_tpu_torch.ops import goertzel
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    out = []
+    for fs in HIGH_RATES:
+        pcm, _ = simulator.synthesize(simulator.SimSpec(duration=60.0, fs=fs, profile_start=24.0,
+                                                        seed=5))
+        base = np.round(pcm * (28000 / np.max(np.abs(pcm)))).astype(np.int16)
+        rng = np.random.default_rng(fs)
+        rows = np.stack([np.clip(base + rng.integers(-300, 300, len(base)), -32768, 32767)
+                         .astype(np.int16) for _ in range(8)])
+        calls, path = [], [""]
+        real_probe = goertzel.probe_at
+        goertzel.probe_at = _Recorder(real_probe, calls, path)
+        try:
+            batch.decode_batch(rows, fs, device="cuda")
+        finally:
+            goertzel.probe_at = real_probe
+        assert len(calls) == 1, len(calls)
+        out.append((f"decode_batch 8 x 60 s at {fs / 1e3:g} kHz", calls[0][1]))
+    return out
+
+
+def _probe_staged_share(x, starts, window: int, run: int, span: int) -> tuple[float, float]:
+    """The share of ``probe_at``'s runs of `run` probes whose span plus 3
+    floats of alignment fits `span` floats (the kernel's own test, computed
+    from this call's starts), and the median span."""
+    st = starts.reshape(-1, starts.shape[-1]).clamp(0, x.shape[-1] - window)
+    pad = -st.shape[-1] % run
+    lo = torch.nn.functional.pad(st, (0, pad), value=x.shape[-1]).reshape(st.shape[0], -1, run)
+    hi = torch.nn.functional.pad(st, (0, pad), value=-1).reshape(st.shape[0], -1, run)
+    spans = hi.amax(-1) - lo.amin(-1) + window
+    return float((spans + 3 <= span).float().mean()), float(spans.float().median())
+
+
+def _probe_high_rate() -> list:
+    """``probe_at`` at 88.2 and 96 kHz, 8 rows of 60 s as ``decode_batch``
+    hands them over: the launcher's geometry for the window (its record must
+    name it, and it must stage at least 0.95 of the runs), within rtol = atol
+    = 2e-4 of the plain version, every row bit-equal to its 1-D call, and
+    every geometry forced (the standard one, the only one up to 50 kHz, among them)
+    bit-equal to it; times in turns with the standard geometry forced, the
+    plain version and ``frames @ trig``, and the bound."""
+    from axctdprocessor_tpu_torch.ops import goertzel
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    ext = extension()
+    geometries = [tuple(g) for g in ext.probe_geometries()]
+    out = []
+    for name, args in _high_rate_probe_calls():
+        x, starts, window, trig = args
+        run, span = ext.probe_geometry(window)
+        got = goertzel.probe_at(*args)
+        assert ext.probe_last_launch() == (run, span), (name, ext.probe_last_launch())
+        err = _max_err([got], [goertzel.tone_power_at(*args)], f"probe_at {name}")
+        for r in range(x.shape[0]):
+            assert torch.equal(goertzel.probe_at(x[r], starts[r], window, trig), got[r]), (name, r)
+        for g in geometries:
+            assert torch.equal(ext.probe_at(x, starts, trig, *g), got), (name, g)
+        staged, median_span = _probe_staged_share(x, starts, window, run, span)
+        staged_std, _ = _probe_staged_share(x, starts, window, *geometries[0])
+        assert staged >= 0.95, (name, staged)
+        ms = _time_turns({"kernel": lambda: goertzel.probe_at(*args),
+                          "standard": lambda: ext.probe_at(x, starts, trig, *geometries[0]),
+                          "plain": lambda: goertzel.tone_power_at(*args),
+                          "library": _frontend_library("probe_at", args)}, runs=5, calls=5)
+        bound_ms, bound_by = _probe_bound(x, starts, window)
+        rec = dict(shape=f"{name}: x {tuple(x.shape)}, K = {starts.shape[-1]}, window {window}",
+                   geometry=[run, span], staged_share=staged, median_span=median_span,
+                   standard_geometry=list(geometries[0]), standard_staged_share=staged_std,
+                   max_abs_err=err, ms=ms["kernel"], standard_ms=ms["standard"],
+                   plain_ms=ms["plain"], library_ms=ms["library"], bound_ms=bound_ms,
+                   bound_by=bound_by, share_of_bound=bound_ms / ms["kernel"], device_ms=None,
+                   standard_device_ms=None, library_device_ms=None)
+        out.append(rec)
+        log(f"[2d] probe_at {rec['shape']}: geometry (run {run}, span {span}), the launcher's "
+            f"record names it; {staged:.3f} of the runs staged (median span {median_span:.0f}; "
+            f"{staged_std:.3f} at the standard geometry {geometries[0]}); max_abs_err={err:.3g} "
+            f"(rtol=atol={RTOL}); every row bit-equal to its 1-D call, every geometry "
+            f"{geometries} bit-equal; kernel {ms['kernel']:.4f} ms, the standard geometry "
+            f"{ms['standard']:.4f} ms, plain {ms['plain']:.4f} ms, frames @ trig "
+            f"{ms['library']:.4f} ms, bound {1e3 * bound_ms:.2f} us ({bound_by}), share of "
+            f"bound {rec['share_of_bound']:.3f}")
+    return out
+
+
 def phase2d_frontend(drops: dict) -> dict:
     """``probe_at`` and ``tone_powers`` against their plain versions on the
     card (rtol = atol = 2e-4) at every call the main paths hand them
@@ -1497,7 +1729,9 @@ def phase2d_frontend(drops: dict) -> dict:
             f"ms, library product {rec['library_ms']:.4f} ms, bound {1e3 * bound_ms:.2f} us "
             f"({bound_by}), share of bound {rec['share_of_bound']:.3f}")
     _frontend_edge_cases(torch.device("cuda"))
-    return dict(shapes=out, max_abs_err=worst)
+    high_rate = _probe_high_rate()
+    worst["probe_at"] = max([worst["probe_at"]] + [r["max_abs_err"] for r in high_rate])
+    return dict(shapes=out, max_abs_err=worst, high_rate=high_rate)
 
 
 def phase2e_batched_rows(drops: dict) -> None:
@@ -1567,7 +1801,7 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict,
     from axctdprocessor_tpu_torch.parallel import batch, pipeline, timeshard
     from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
 
-    _profile_high_rate(k, corpus)
+    _profile_high_rate(k, fk, corpus)
     raw, fs = seg["raw"], seg["fs"]
     log("[10] 600 s segmented decode: "
         + profile_run(lambda: segmented.decode_waveform_segmented(raw, fs, device="cuda")))
@@ -1594,16 +1828,22 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict,
     log("[10] pipeline 2 x 8 x 60 s: "
         + profile_run(lambda: pipeline.decode_batches_pipelined(batches, drops["batch_fs"],
                                                                 device="cuda")))
+    texts = []
     for rec, (_, xd, fs) in zip(k["shapes"], _kernel_cases(drops)):
         window, stride, tm = _table(fs)
         rec["device_ms"] = _device_ms(lambda: tonepower.tone_ratios(xd, tm, window, stride),
                                       "tone_ratios_kernel")
         rec["share_of_bound_device"] = (rec["bound_us"] / 1e3 / rec["device_ms"]
                                         if rec["device_ms"] else None)
-    log("[10] kernel device time (torch.profiler, mean of 20 calls): " + "; ".join(
-        f"{r['shape']}: " + ("not measured" if r["device_ms"] is None else
-                             f"{r['device_ms']:.4f} ms, share of bound "
-                             f"{r['share_of_bound_device']:.3f}") for r in k["shapes"]))
+        rec["dft_core_device_ms"] = _device_total_ms(_frontend_library("tone_powers",
+                                                                       (xd, tm, window, stride)))
+        texts.append(f"{rec['shape']} at {tuple(rec['block_shape'])}: "
+                     + ("not measured" if rec["device_ms"] is None else
+                        f"{rec['device_ms']:.4f} ms, share of bound "
+                        f"{rec['share_of_bound_device']:.3f}")
+                     + _standard_device_text(rec, xd, tm, window, stride)
+                     + f", the DFT core's torch.matmul {_ms_text(rec['dft_core_device_ms'])}")
+    log("[10] tone_ratios device time (torch.profiler, mean of 20 calls): " + "; ".join(texts))
     # the chain kernels: the main paths' arguments recorded anew (phase 2b
     # kept none, so that no phase between held them on the card)
     recs = {name: iter(r) for name, r in ck.items()}
@@ -1666,21 +1906,27 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict,
             f"{rec['device_ms']:.4f} ms, share of bound {rec['share_of_bound_device']:.3f}")
             + text)
     log(f"[10] short profiles (device times, kernel names): {PROFILES['taken']} taken, "
-        f"{PROFILES['empty']} of them with no device activity recorded (taken again, up to "
-        f"{PROFILE_TRIES} times a measurement)")
+        f"{PROFILES['empty']} of them with no device activity recorded, "
+        f"{PROFILES['incomplete']} of the device times' with some of the host's "
+        f"{PROFILES['queued']} launches, copies and fills not recorded ({PROFILES['unrecorded']} "
+        f"in all; each taken again, up to {PROFILE_TRIES} times a measurement: a device time "
+        f"counts only a profile that recorded them all)")
 
 
-def _profile_high_rate(k: dict, corpus: dict) -> None:
+def _profile_high_rate(k: dict, fk: dict, corpus: dict) -> None:
     """Phase 10's part of the streamed table (its first profiles): one 88.2
     kHz batch of 8 x 60 s through ``decode_batch``; the streamed kernel's
     device time at each of phase 2's high-rate shapes (the launcher's record
     of the instance it launched must be the streamed one, and so must the
     trace's kernel where the profiler recorded it), with its bound and the
-    DFT core's product; ``probe_at``'s device time at that batch's call (runs
-    read straight from device memory).  Where the profiler records no device
-    activity at all (``_profiled``) the device time is taken with CUDA events
-    instead and says so."""
+    DFT core's product and, on one row, the standard shape's; then
+    ``probe_at``'s device time at phase 2d's 88.2 and 96 kHz batch calls,
+    at the launcher's geometry (its record must name it) and at the standard
+    one, beside ``frames @ trig``.  Where no profile records every device
+    event (``_complete_device_events``) the streamed kernel's device time is
+    taken with CUDA events instead and says so."""
     from axctdprocessor_tpu_torch.ops import goertzel, tonepower
+    from axctdprocessor_tpu_torch.ops.kernels import extension
     from axctdprocessor_tpu_torch.parallel import batch
 
     rows = corpus["hr"]["rows"]
@@ -1695,31 +1941,53 @@ def _profile_high_rate(k: dict, corpus: dict) -> None:
         _tone_launched(name, window, stride, False, *rec["block_shape"], True)
         if rec["device_ms"] is None:
             rec["device_ms"] = statistics.median(_event_ms(fn, 10) for _ in range(5))
-            rec["device_ms_from"] = "CUDA events (the profiler recorded no device activity)"
+            rec["device_ms_from"] = "CUDA events (no profile recorded every device event)"
         rec["share_of_bound_device"] = (rec["bound_us"] / 1e3 / rec["device_ms"]
                                         if rec["device_ms"] else None)
         rec["dft_core_device_ms"] = _device_total_ms(_frontend_library("tone_powers",
                                                                        (xd, tm, window, stride)))
-        log(f"[10] streamed table, {name} (the launcher recorded the streamed instance; {trace}): "
-            f"device {rec['device_ms']:.4f} ms from "
+        log(f"[10] streamed table, {name} (the launcher recorded the streamed instance of "
+            f"{tuple(rec['block_shape'])}; {trace}): device {rec['device_ms']:.4f} ms from "
             f"{rec['device_ms_from']}, bound {rec['bound_us']:.1f} us, share of bound "
-            f"{rec['share_of_bound_device']:.3f}; the DFT core's torch.matmul "
-            f"{_ms_text(rec['dft_core_device_ms'])}")
-    calls, path = [], ["88.2 kHz"]
-    real_probe = goertzel.probe_at
-    goertzel.probe_at = _Recorder(real_probe, calls, path)
-    try:
-        batch.decode_batch(rows, 88200, device="cuda")
-    finally:
-        goertzel.probe_at = real_probe
-    args = calls[0][1]
-    probe = corpus["hr"]["probe"]
-    probe["device_ms"] = _device_ms(lambda: goertzel.probe_at(*args), FRONTEND_IN_TRACE["probe_at"],
-                                    calls=10)
-    probe["library_device_ms"] = _device_total_ms(_frontend_library("probe_at", args))
-    log(f"[10] probe_at at 88.2 kHz ({probe['shape']}; {probe['unstaged_share']:.3f} of its runs "
-        f"unstaged): device {_ms_text(probe['device_ms'])}, bound {1e3 * probe['bound_ms']:.2f} "
-        f"us ({probe['bound_by']}); frames @ trig {_ms_text(probe['library_device_ms'])}")
+            f"{rec['share_of_bound_device']:.3f}"
+            + _standard_device_text(rec, xd, tm, window, stride)
+            + f"; the DFT core's torch.matmul {_ms_text(rec['dft_core_device_ms'])}")
+    ext = extension()
+    for rec, (name, args) in zip(fk["high_rate"], _high_rate_probe_calls()):
+        assert rec["shape"].startswith(name), (rec["shape"], name)
+        x, starts, _, trig = args
+        rec["device_ms"] = _device_ms(lambda: goertzel.probe_at(*args),
+                                      FRONTEND_IN_TRACE["probe_at"], calls=10)
+        assert ext.probe_last_launch() == tuple(rec["geometry"]), name
+        rec["standard_device_ms"] = _device_ms(
+            lambda: ext.probe_at(x, starts, trig, *rec["standard_geometry"]),
+            FRONTEND_IN_TRACE["probe_at"], calls=10)
+        rec["library_device_ms"] = _device_total_ms(_frontend_library("probe_at", args))
+        rec["share_of_bound_device"] = (rec["bound_ms"] / rec["device_ms"]
+                                        if rec["device_ms"] else None)
+        log(f"[10] probe_at {rec['shape']} ({rec['staged_share']:.3f} of its runs staged at "
+            f"{tuple(rec['geometry'])}): device {_ms_text(rec['device_ms'])}, bound "
+            f"{1e3 * rec['bound_ms']:.2f} us ({rec['bound_by']}); the standard geometry "
+            f"{tuple(rec['standard_geometry'])} ({rec['standard_staged_share']:.3f} staged) "
+            f"{_ms_text(rec['standard_device_ms'])}; frames @ trig "
+            f"{_ms_text(rec['library_device_ms'])}")
+
+
+def _standard_device_text(rec: dict, xd, tm, window: int, stride: int) -> str:
+    """Where phase 2 found ``tone_ratios`` at a small block shape: the
+    device time of the standard shape forced on the same input, into
+    ``rec``, and a few words for the log."""
+    from axctdprocessor_tpu_torch.ops import tonepower
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    if rec["block_shape"] == rec["standard_shape"]:
+        return ""
+    n_win = tonepower.n_windows(xd.shape[-1], window, stride)
+    rec["standard_device_ms"] = _device_ms(
+        lambda: extension().tone_ratios(xd, tm, window, stride, n_win, *rec["standard_shape"]),
+        "tone_ratios_kernel")
+    return (f" (the standard shape {tuple(rec['standard_shape'])} "
+            f"{_ms_text(rec['standard_device_ms'])})")
 
 
 def _kernels_run(fn, calls: int = 20) -> list:
@@ -2935,9 +3203,9 @@ def _high_rate_batch(bases: dict) -> dict:
     """8 rows of the corpus's 88.2 kHz base with the corpus's kind of noise
     through ``decode_batch`` on the card at their native rate: the tone
     kernel streams its table; against the same rows on the CPU (hexframes,
-    metadata and every integer field of the packed result equal); then
-    ``probe_at``'s call of that decode, whose runs' spans exceed the staged
-    buffer, timed against its plain version and ``frames @ trig``."""
+    metadata and every integer field of the packed result equal); then the
+    share of the runs of ``probe_at``'s call of that decode that its
+    geometry for the window stages."""
     from axctdprocessor_tpu_torch.models import engine
     from axctdprocessor_tpu_torch.ops import goertzel
     from axctdprocessor_tpu_torch.ops.kernels import extension
@@ -2980,28 +3248,12 @@ def _high_rate_batch(bases: dict) -> dict:
     assert len(calls) == 1, len(calls)
     _, args, _ = calls[0]
     x, starts, window, _ = args
-    run, span = extension().probe_geometry()
-    st = starts.clamp(0, x.shape[-1] - window)
-    k = st.shape[-1] // run * run
-    spans = (st[:, :k].reshape(st.shape[0], -1, run).amax(-1)
-             - st[:, :k].reshape(st.shape[0], -1, run).amin(-1) + window)
-    unstaged = float((spans > span).float().mean())
-    ms = _time_turns({"kernel": lambda: goertzel.probe_at(*args),
-                      "plain": lambda: goertzel.tone_power_at(*args),
-                      "library": _frontend_library("probe_at", args)}, runs=5, calls=5)
-    bound_ms, bound_by = _probe_bound(x, starts, window)
-    probe = dict(shape=f"x {tuple(x.shape)}, K = {starts.shape[-1]}, window {window}",
-                 unstaged_share=unstaged, median_span=float(spans.float().median()),
-                 span_floats=span, ms=ms["kernel"], plain_ms=ms["plain"],
-                 library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
-                 share_of_bound=bound_ms / ms["kernel"], device_ms=None)
-    log(f"[9g] probe_at of that decode ({probe['shape']}): {unstaged:.3f} of its runs of "
-        f"{run} probes span more than the {span}-float buffer (median span "
-        f"{probe['median_span']:.0f}), so they read straight from device memory; kernel "
-        f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, frames @ trig {ms['library']:.4f} "
-        f"ms, bound {1e3 * bound_ms:.2f} us ({bound_by}), share of bound "
-        f"{probe['share_of_bound']:.3f}")
-    return dict(rows=rows, probe=probe, cpu_s=cpu_s)
+    run, span = extension().probe_geometry(window)
+    staged, median_span = _probe_staged_share(x, starts, window, run, span)
+    log(f"[9g] probe_at of that decode (x {tuple(x.shape)}, K = {starts.shape[-1]}, window "
+        f"{window}): {staged:.3f} of its runs of {run} probes staged in the {span}-float "
+        f"buffer (median span {median_span:.0f}; phase 2d times this kind of call)")
+    return dict(rows=rows, cpu_s=cpu_s)
 
 
 def _gates_60s(res, truth) -> float:
@@ -3066,14 +3318,17 @@ def _frontend_entry(name: str, fk: dict) -> dict:
     decode's probe; the 600 s segmented decode's first group of powers)."""
     recs = fk["shapes"][name]
     main_rec = recs[0]
-    return {"name": name, "route": "cuda", "source": FRONTEND_SOURCE[name],
-            "replaces": FRONTEND_REPLACES[name],
-            "launches": PATH_LAUNCHES[FRONTEND_MAIN_PATH[name]][name],
-            "launches_per_path": _per_path(name), "max_abs_err": fk["max_abs_err"][name],
-            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-            "library_ms": main_rec["library_ms"], "device_ms": main_rec["device_ms"],
-            "shape": main_rec["shape"], "shapes": [dict(r) for r in recs]}
+    entry = {"name": name, "route": "cuda", "source": FRONTEND_SOURCE[name],
+             "replaces": FRONTEND_REPLACES[name],
+             "launches": PATH_LAUNCHES[FRONTEND_MAIN_PATH[name]][name],
+             "launches_per_path": _per_path(name), "max_abs_err": fk["max_abs_err"][name],
+             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+             "library_ms": main_rec["library_ms"], "device_ms": main_rec["device_ms"],
+             "shape": main_rec["shape"], "shapes": [dict(r) for r in recs]}
+    if name == "probe_at":  # the batch paths' rows above 50 kHz (phase 2d)
+        entry["high_rate_shapes"] = [dict(r) for r in fk["high_rate"]]
+    return entry
 
 
 def _chain_walk_entry(rec: dict) -> dict:
@@ -3168,9 +3423,10 @@ def main() -> int:
         "bound_by": main_shape["bound_by"], "library_ms": None,
         "bound_us": main_shape["bound_us"], "share_of_bound": main_shape["share_of_bound"],
         "shapes": [{key: s[key] for key in (
-            "shape", "rows", "n", "stride", "n_win", "ms", "device_ms", "plain_ms", "bound_us",
-            "bound_by", "share_of_bound", "share_of_bound_device", "dft_core_matmul_ms",
-            "max_abs_err")}
+            "shape", "rows", "n", "stride", "n_win", "block_shape", "blocks", "ms", "device_ms",
+            "standard_ms", "standard_device_ms", "plain_ms", "bound_us", "bound_by",
+            "share_of_bound", "share_of_bound_device", "dft_core_matmul_ms",
+            "dft_core_device_ms", "max_abs_err")}
             for s in k["shapes"]]}, launches_per_path=_per_path("tone_ratios"))]
         + [_streamed_entry(k)]
         + [_frontend_entry(name, fk) for name in FRONTEND_REPLACES]

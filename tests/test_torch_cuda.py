@@ -627,7 +627,7 @@ def test_probe_at_kernel_runs(case, k):
     _need_cuda()
     from axctdprocessor_tpu_torch.ops.kernels import extension
 
-    run, span = extension().probe_geometry()
+    run, span = extension().probe_geometry(39)
     assert run * 97 > span > run * 57  # edges 55 apart are staged, 97 apart overflow
     rng = np.random.default_rng(13)
     length = 200_000
@@ -794,15 +794,26 @@ def test_streamed_table_kernel_vs_plain(fs, rows):
     xd = torch.from_numpy(x if rows else x[0]).cuda()
     tm = torch.from_numpy(goertzel.tone_matrix(window, FREQS, fs, np.float32)).cuda()
     n_win = tonepower.n_windows(n, window, stride)
-    plan = extension().tone_plan(False, max(rows, 1), n_win, window, stride)
-    assert plan[0] == "streamed" and plan[1:3] == (8, 16), plan
+    ext = extension()
+    plan = ext.tone_plan(False, max(rows, 1), n_win, window, stride)
     assert plan[4] <= plan[5], plan
     before, streamed = tonepower.tone_ratios.launches, tonepower.tone_ratios.streamed_launches
     got = tonepower.tone_ratios(xd, tm, window, stride)
     assert tonepower.tone_ratios.launches == before + 1
-    assert tonepower.tone_ratios.streamed_launches == streamed + 1
+    assert tonepower.tone_ratios.streamed_launches == streamed + (plan[0] == "streamed")
     _assert_close(got, tonepower.tone_ratios_reference(xd, tm, window, stride),
                   xd.shape[:-1] + (n_win,))
+    # the ratios at every block shape (the standard one streams the table;
+    # the launcher takes a small one on these grids under one wave)
+    ratio_variants = set()
+    for shape in ext.tone_powers_shapes():
+        r400, r7500, was_streamed = ext.tone_ratios(xd, tm, window, stride, n_win, *shape)
+        for g, w in zip((r400, r7500), got):
+            assert torch.equal(torch.nan_to_num(g, nan=7.0), torch.nan_to_num(w, nan=7.0)), shape
+        ratio_variants.add(was_streamed)
+        if shape == (8, 16):
+            assert was_streamed, shape
+    assert ratio_variants == ({False, True} if fs == 88200.0 else {True}), ratio_variants
     powers = tonepower.tone_powers(xd, tm, window, stride)
     np.testing.assert_allclose(powers.cpu().numpy(),
                                tonepower.tone_powers_reference(xd, tm, window, stride)
@@ -842,6 +853,126 @@ def test_tone_plan_reports_the_launch():
     assert (variant, warps, wpw) == ("resident", 8, 2) and blocks <= sms
     with pytest.raises(RuntimeError, match="at most 3 strides"):
         ext.tone_plan(False, 1, 100, 4410, 1000)
+
+
+def _drop(fs, seconds, seed):
+    """(x on the card, tm, window, stride, n_win) of one drop of `seconds`
+    at `fs` as the monolithic decode hands it to the tone kernel (a 15 s
+    bucket, its tail zero)."""
+    window, stride = int(fs / 10), int(round(fs / 25))
+    x = torch.from_numpy(_signal(fs, int(seconds * fs), 0.1, np.random.default_rng(seed))).cuda()
+    tm = torch.from_numpy(goertzel.tone_matrix(window, FREQS, fs, np.float32)).cuda()
+    return x, tm, window, stride, tonepower.n_windows(x.shape[-1], window, stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["60 s", "300 s", "88.2 kHz 60 s, streamed", "B = 3"])
+def test_tone_ratios_small_grid_equals_standard(case):
+    """``tone_ratios`` at every block shape of the kernel (the extension's
+    ``tone_powers_shapes()``, the standard one first) bit-equal to the
+    standard shape and to the launcher's choice, which is a small shape on
+    these grids under one wave, as the plan says and the launcher's record
+    names: one drop of 60 s and of 300 s, one 88.2 kHz row of 60 s (the
+    streamed table), 3 rows of 60 s."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    ext = extension()
+    fs = 88200.0 if case.startswith("88.2") else 44100.0
+    x, tm, window, stride, n_win = _drop(fs, 300.0 if case == "300 s" else 60.0, 7)
+    if case == "B = 3":
+        x = torch.stack([x, x.roll(1000), x.flip(0)])
+    rows = x.shape[0] if x.dim() == 2 else 1
+    variant, warps, wpw, blocks, _, _ = ext.tone_plan(False, rows, n_win, window, stride)
+    shapes = ext.tone_powers_shapes()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (warps, wpw) != shapes[0] and blocks <= sms, (warps, wpw, blocks)
+    got = tonepower.tone_ratios(x, tm, window, stride)
+    assert ext.tone_last_launch() == (3, False, warps, wpw, variant == "streamed")
+    for shape in shapes:
+        r400, r7500, _ = ext.tone_ratios(x, tm, window, stride, n_win, *shape)
+        for g, w in zip((r400, r7500), got):
+            assert torch.equal(torch.nan_to_num(g, nan=7.0), torch.nan_to_num(w, nan=7.0)), shape
+    with pytest.raises(RuntimeError, match="block shape"):
+        ext.tone_ratios(x, tm, window, stride, n_win, 16, 8)
+
+
+@pytest.mark.cuda
+def test_tone_plan_names_the_ratios_small_shape():
+    """``tone_plan(False, 1, n_win, ...)`` of one drop of 60 s names a small
+    block shape whose grid fits one wave, the same as the raw powers'; at 600
+    s, 8 and 64 rows of 60 s the standard shape."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    ext = extension()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    standard = ext.tone_powers_shapes()[0]
+    n_win = tonepower.n_windows(60 * 44100, 4410, 1764)
+    plan = ext.tone_plan(False, 1, n_win, 4410, 1764)
+    assert plan[1:3] != standard and plan[3] <= sms, plan
+    assert plan == ext.tone_plan(True, 1, n_win, 4410, 1764), plan
+    for rows, seconds in ((1, 600), (8, 60), (64, 60)):
+        n_win = tonepower.n_windows(seconds * 44100, 4410, 1764)
+        assert ext.tone_plan(False, rows, n_win, 4410, 1764)[1:3] == standard, (rows, seconds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [39, 81, 88])
+def test_probe_geometry_by_window(window):
+    """The probe's geometry for the engine's windows at 44.1, 88.2 and 96
+    kHz: the standard one (the first of ``probe_geometries()``) at 39, the
+    high-rate one above 50, whose buffer holds a run of bit edges at that
+    rate (110.25 and 120 samples a bit); a probe call's record names the
+    geometry it launched, a call with no start none."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    ext = extension()
+    geometries = [tuple(g) for g in ext.probe_geometries()]
+    run, span = ext.probe_geometry(window)
+    assert ((run, span) == geometries[0]) == (window <= 50), (window, run, span)
+    bit = {39: 44100, 81: 88200, 88: 96000}[window] / 800
+    assert (run - 1) * bit + window + 3 <= span, (window, run, span)
+    x = torch.randn(2, 50_000, device="cuda")
+    trig = torch.from_numpy(goertzel.tone_matrix(window, BIT_FREQS, 44100.0, np.float32)).cuda()
+    starts = torch.arange(0, 40_000, int(bit), device="cuda").repeat(2, 1)
+    goertzel.probe_at(x, starts, window, trig)
+    assert ext.probe_last_launch() == (run, span)
+    goertzel.probe_at(x, starts[:, :0], window, trig)
+    assert ext.probe_last_launch() == (0, 0)
+
+
+@pytest.mark.cuda
+def test_probe_at_88_khz_batch_rows_bitwise_at_every_geometry():
+    """``probe_at`` on 8 rows of 60 s at 88.2 kHz (window 81) with bit edges
+    110.25 samples apart after a quiet start and a tail of the terminal edge:
+    within 2e-4 of the plain version, every row bit-equal to its 1-D call,
+    and bit-equal at every geometry forced (the standard one, whose runs
+    mostly read straight from device memory here, among them)."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+
+    ext = extension()
+    fs, window, length, live, k = 88200.0, 81, int(60 * 88200), 47_600, 60_064
+    rng = np.random.default_rng(88)
+    x = torch.from_numpy(rng.standard_normal((8, length)).astype(np.float32)).cuda()
+    gaps = np.round(fs / 800 + rng.uniform(-1, 1, (8, live)))
+    edges = (0.3 * fs + rng.integers(0, 200, (8, 1)) + np.cumsum(gaps, axis=1)).astype(np.int64)
+    st = np.concatenate([edges, np.repeat(edges[:, -1:], k - live, axis=1)], axis=1)
+    starts = torch.from_numpy(st).cuda()
+    trig = torch.from_numpy(goertzel.tone_matrix(window, BIT_FREQS, fs, np.float32)).cuda()
+    got = goertzel.probe_at(x, starts, window, trig)
+    assert ext.probe_last_launch() == ext.probe_geometry(window)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               goertzel.tone_power_at(x, starts, window, trig).cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    for r in range(8):
+        assert torch.equal(goertzel.probe_at(x[r], starts[r], window, trig), got[r]), r
+    for g in ext.probe_geometries():
+        assert torch.equal(ext.probe_at(x, starts, trig, *g), got), g
+    with pytest.raises(RuntimeError, match="geometry"):
+        ext.probe_at(x, starts, trig, 96, 4096)
 
 
 @pytest.mark.cuda

@@ -4,8 +4,9 @@ package's functions, on the CPU.
 * ``goertzel.probe_at`` (on a CPU tensor its plain version, the batched
   ``tone_power_at``) against JAX's ``tone_power_at`` (a correlation, then a
   gather) at rtol = atol = 2e-4, with hypothesis over starts at the edges of
-  the rows, K = 0 and rows one window long; each row of a batch bit for bit
-  the 1-D call on that row;
+  the rows, K = 0 and rows one window long, and at 88.2 and 96 kHz (the
+  batch paths' native rates) on bit edges as a decode hands them over; each
+  row of a batch bit for bit the 1-D call on that row;
 * ``tonepower.tone_powers`` (on a CPU tensor ``framed_tone_power_tiled``)
   against JAX's ``framed_tone_power_tiled`` at the same tolerance, on rows
   and on views of a wider tensor; each row bit for bit the 1-D call;
@@ -79,6 +80,40 @@ def test_probe_at_rows_bitwise_and_equal_jax(rows):
                                        **TOL)
             np.testing.assert_array_equal(
                 goertzel.probe_at(t[r], torch.from_numpy(starts[r]), NPCM, trig).numpy(), got[r])
+
+
+@pytest.mark.parametrize("fs", [88200.0, 96000.0])
+def test_probe_at_plain_equals_jax_above_50_khz(fs):
+    """At the batch paths' native rates, at the window ``engine.probe_window``
+    gives (81 samples at 88.2 kHz, 88 at 96 kHz): 3 rows of 2 s, bit edges
+    fs / 800 apart (a sample of jitter) after a quiet start of about 0.3 s,
+    then a tail that repeats the terminal edge, its last entry beyond the
+    row (clamped to L - window).  Each row within 2e-4 of JAX's
+    ``tone_power_at`` and bit for bit the 1-D call."""
+    from axctdprocessor_tpu_torch.models import engine
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+
+    window = engine.probe_window(DecoderConfig(), fs)
+    assert window == {88200.0: 81, 96000.0: 88}[fs]
+    length, live, k = int(2 * fs), 1_100, 1_300
+    rng = np.random.default_rng(int(fs))
+    x = _rows(3, length, int(fs))
+    gaps = np.round(fs / 800 + rng.uniform(-1, 1, (3, live)))
+    edges = (0.3 * fs + rng.integers(0, 200, (3, 1)) + np.cumsum(gaps, axis=1)).astype(np.int64)
+    starts = np.concatenate([edges, np.repeat(edges[:, -1:], k - live, axis=1)], axis=1)
+    starts[:, -1] = length + 50
+    assert starts[:, live - 1].max() <= length - window
+    trig = goertzel.tone_matrix(window, [400.0, 800.0], fs, np.float32)
+    got = goertzel.probe_at(torch.from_numpy(x), torch.from_numpy(starts), window,
+                            torch.from_numpy(trig)).numpy()
+    assert got.shape == (3, k, 2)
+    for r in range(3):
+        want = np.asarray(jgoertzel.tone_power_at(jnp.asarray(x[r]), jnp.asarray(starts[r]),
+                                                  window, jnp.asarray(trig)))
+        np.testing.assert_allclose(got[r], want, **TOL)
+        one = goertzel.probe_at(torch.from_numpy(x[r]), torch.from_numpy(starts[r]), window,
+                                torch.from_numpy(trig))
+        np.testing.assert_array_equal(one.numpy(), got[r])
 
 
 @pytest.mark.parametrize("fs,n", [(44100.0, 20 * 44100 + 3), (22050.0, 30 * 22050),
