@@ -20,6 +20,12 @@ The host finishes: exact float64 metadata from the header frames, science
 conversion and QC (``finish_result``).  The packed layout is the JAX
 engine's, element for element, so the two are compared directly.
 
+``decode_waveform`` runs the forward through the cached program of its
+static shape (``fused_program``, ``models/programs.py``; the JAX engine's
+``_fused`` under ``jax.jit`` with its host tables cached): the module and its
+tables are made and uploaded once per shape, and on a GPU the forward is
+captured as a CUDA graph at the shape's second decode and replayed after.
+
 Inside the program nothing reads a device value on the host: the
 dynamic indices of the JAX code (``argmax``, ``roll`` by a traced amount,
 ``dynamic_slice``) are gathers with index tensors here, and a scalar index
@@ -57,6 +63,7 @@ from ..utils.lut import load_temp_lut
 from ..utils.profiling import StageTimer
 from . import frames as frames_host
 from . import metadata as md
+from . import programs
 from .result import DecodeResult
 
 
@@ -801,6 +808,35 @@ def engine_tables(cfg: DecoderConfig, fs: float, dims: EngineDims,
     return tables
 
 
+EDGE_PAD = 100  # samples at the start of a drop where no bit edge is taken
+
+
+def fused_program(tables: dict, dims: EngineDims, fs: float, cfg: DecoderConfig,
+                  pcm: np.ndarray, device, *, decimate2: bool = False,
+                  use_kernel: bool = True) -> programs.Program:
+    """The cached program (``models.programs``) of the fused decode of
+    wire-format PCM of `pcm`'s dtype and shape, one waveform or a (B, N)
+    batch, on `device`: a ``FusedDecoder`` with `tables` on the device, a
+    static input of that shape and its ``n_valid`` (0-d, or one per row).
+    The key holds everything the forward takes as a constant."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    bitrate, bit_inset = float(cfg.bitrate), int(cfg.bit_inset)
+    key = ("fused", dims, float(fs), bool(decimate2), bool(use_kernel), pcm.dtype.str,
+           pcm.shape, str(dev), bitrate, bit_inset, EDGE_PAD, programs.table_key(tables))
+
+    def build():
+        model = FusedDecoder.from_numpy_tables(
+            tables, dims, fs, bitrate=bitrate, bit_inset=bit_inset, edge_pad=EDGE_PAD,
+            decimate2=decimate2, use_kernel=use_kernel, device=dev)
+        x = torch.empty(pcm.shape, dtype=torch.from_numpy(pcm[:0]).dtype, device=dev)
+        n_valid = torch.empty(pcm.shape[:-1], dtype=torch.int64, device=dev)
+        return programs.Program(model, (x, n_valid), dev, module=model)
+
+    return programs.cached(key, build)
+
+
 def qc_limits(cfg: DecoderConfig, dtype=np.float32) -> np.ndarray:
     """The six in-profile QC limits as one array: min dR7500, min R400, the
     temperature bounds, the salinity bounds."""
@@ -1007,7 +1043,10 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
 
     The monolithic program: waveforms are zero-padded up to 15 s buckets;
     the true length rides along as ``n_valid`` (exact conditioning, no
-    crossings in the padding, trigger grid clipped to real windows).
+    crossings in the padding, trigger grid clipped to real windows).  Each
+    bucket, wire and rate is one cached program (``fused_program``): the
+    first decode of a shape runs its module eagerly, the second captures it
+    as a CUDA graph on a GPU, later ones replay it.
     Integer PCM ships as the `wire` format and is conditioned on the
     device; >50 kHz input is decimated by 2 on the device.  An int4-wire
     decode that comes back degenerate is retried once at int8
@@ -1064,17 +1103,14 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
             pcm = np.concatenate([pcm, np.zeros(n_padded - n_raw, pcm.dtype)])
         if not np.issubdtype(pcm.dtype, np.integer):
             pcm = pcm.astype(np.float32)
-        x = to_device(pcm, dev)
+        dims = EngineDims.for_waveform(n_padded // rate_mult, fs, cfg.bitrate,
+                                       probe_window(cfg, fs))
+        # the shape's cached program; the upload goes into its static input
+        program = fused_program(engine_tables(cfg, fs, dims, decimate2), dims, fs, cfg, pcm,
+                                dev, decimate2=decimate2, use_kernel=use_kernel)
+        program.load(pcm, n_raw)
     n = (n_raw + 1) // 2 if decimate2 else n_raw
-    dims = EngineDims.for_waveform(n_padded // rate_mult, fs, cfg.bitrate,
-                                   probe_window(cfg, fs))
-    model = FusedDecoder.from_numpy_tables(
-        engine_tables(cfg, fs, dims, decimate2), dims, fs,
-        bitrate=float(cfg.bitrate), bit_inset=cfg.bit_inset, edge_pad=100,
-        decimate2=decimate2, use_kernel=use_kernel, device=dev)
-    with torch.inference_mode():
-        out = model(x, torch.full((), n_raw, dtype=torch.int64, device=dev))
-    host = out.cpu().numpy()  # the decode's one device-to-host transfer
+    host = program.run().cpu().numpy()  # the decode's one device-to-host transfer
     res = finish_result(host, fs_report, n, fs, cfg, wire_used=wire_used)
     if lossy_retry and lossy_retry_worthy(res, n, fs, cfg):
         return decode_waveform(pcm0, fs0, device=dev, config=cfg,

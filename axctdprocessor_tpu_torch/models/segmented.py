@@ -40,6 +40,7 @@ variant, on the CPU from the plain tiled version.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -51,6 +52,7 @@ from ..ops import wire as wire_ops
 from ..utils.config import DecoderConfig
 from ..utils.profiling import StageTimer
 from . import engine as eng
+from . import programs
 from .result import DecodeResult
 
 SEG_NFFT = 1 << 20          # per-segment FFT size (fixed pow2)
@@ -432,9 +434,11 @@ class PrestagedDrop:
     the device, the tables staged.  ``decode()`` is then compute plus one
     packed-result fetch, with no upload.  ``fused`` keeps the groups as one
     (n_chunk, G, buf_len) stack decoded by one module forward
-    (``SegmentedDecoder.forward``); otherwise a list of groups decoded
-    group by group.  Both run the same computation and give equal
-    results."""
+    (``SegmentedDecoder.forward``) through the drop's own program
+    (``models.programs``, the JAX package's ``_resident_program``: a CUDA
+    graph on a GPU from the second ``dispatch()`` on); otherwise a list of
+    groups decoded group by group, eagerly.  Both run the same computation
+    and give equal results."""
 
     def __init__(self, plan: DropPlan, exts: list, fused: bool = False):
         self.plan = plan
@@ -444,17 +448,24 @@ class PrestagedDrop:
             self.ext_all = torch.stack([
                 torch.cat([e, e.new_full((g - e.shape[0], e.shape[1]),
                                          int(plan.fill))]) for e in exts])
+            # the forward takes the segment count and the valid length as
+            # Python ints, which a capture freezes: they are this drop's, so
+            # the program (and its graph) is the drop's, not a shared cache's
+            self.program = programs.Program(
+                functools.partial(plan.model, self.ext_all, plan.n_seg, plan.dc, plan.peak,
+                                  plan.n_raw, plan.nv_dec, plan.dims), (), plan.nv_dec.device,
+                module=plan.model)
         else:
             self.exts = exts
 
     def dispatch(self) -> torch.Tensor:
         """Queue the whole decode; returns the packed result on the device
-        without waiting (back-to-back dispatches queue behind each other)."""
+        without waiting (back-to-back dispatches queue behind each other,
+        each its own tensor)."""
+        if self.fused:
+            return self.program()
         p = self.plan
         with torch.inference_mode():
-            if self.fused:
-                return p.model(self.ext_all, p.n_seg, p.dc, p.peak, p.n_raw,
-                               p.nv_dec, p.dims)
             outs = p.model.segment_groups(self.exts, p.dc, p.peak, p.n_raw)
             return p.model.assemble(outs, p.nv_dec, p.dims)
 

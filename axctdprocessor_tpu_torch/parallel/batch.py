@@ -6,11 +6,14 @@ The archive path: a (B, N) batch of drops through the fused decode
 tensor and its tone ratios are ONE launch of the tone-ratio kernel, as the
 JAX engine's vmapped Pallas kernel is one ``pallas_call`` with a batch grid
 axis; the demod front end and the back half then run row by row on the
-device.  ``dispatch_batch`` queues all of it without a host sync, and
-behind it the batch's one device-to-host copy of the (B, L) packed matrix,
-on a side stream; ``finish_dispatched`` waits for that copy alone and the
-host finishes each row.  ``BatchPlan`` holds what the batches of one shape
-share; ``parallel.pipeline`` runs on it too.
+device.  ``dispatch_batch`` queues all of it without a host sync, through
+the cached program of the batch's shape (``models.programs``: one per
+dtype, rows, width, fs, config, wire and device, the JAX package's
+``_batched_fused``; a CUDA graph on a GPU from the shape's second batch
+on), and behind it the batch's one device-to-host copy of the (B, L)
+packed matrix, on the program's fetch stream; ``finish_dispatched`` waits
+for that copy alone and the host finishes each row.  ``BatchPlan`` holds
+what the batches of one shape share; ``parallel.pipeline`` runs on it too.
 
 With a ``mesh`` (``parallel.mesh``) the rows are padded to a multiple of its
 ``dp`` axis and cut into ``dp`` contiguous runs, each queued on its device as
@@ -20,6 +23,8 @@ another.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -97,8 +102,11 @@ def run_back_half_batched(s1: dict, cfg: DecoderConfig, fs: float,
 
 class BatchPlan:
     """What every batch of one (dtype, N, fs, config, wire) shares: the wire
-    format, the decoder module with its tables on the device, and the side
-    stream that fetches packed results (a GPU only)."""
+    format and the tables; the cached program of a batch's shape
+    (:meth:`program`, ``models.programs``: the module with its tables on the
+    device, captured as a CUDA graph on a GPU, with a fetch stream of its
+    own), or the module alone for callers that run its two halves apart
+    (``model``, ``parallel.pipeline``)."""
 
     def __init__(self, dtype, n: int, fs, config: DecoderConfig | None, wire: str,
                  device):
@@ -114,14 +122,26 @@ class BatchPlan:
         if self.wire_used == "int4":
             n += n % 2  # packed int4 rows carry an even sample count
         cfg = self.cfg
-        dims = eng.EngineDims.for_waveform(n, self.fs, cfg.bitrate,
-                                           eng.probe_window(cfg, self.fs))
-        self.model = eng.FusedDecoder.from_numpy_tables(
-            eng.engine_tables(cfg, self.fs, dims), dims, self.fs,
-            bitrate=float(cfg.bitrate), bit_inset=cfg.bit_inset, edge_pad=100,
-            device=self.dev)
+        self.dims = eng.EngineDims.for_waveform(n, self.fs, cfg.bitrate,
+                                                eng.probe_window(cfg, self.fs))
+        self.tables = eng.engine_tables(cfg, self.fs, self.dims)
         self.on_card = self.dev.type == "cuda"
-        self.fetch_stream = torch.cuda.Stream(self.dev) if self.on_card else None
+
+    @functools.cached_property
+    def model(self) -> eng.FusedDecoder:
+        """The decoder module alone, its tables on the device, run eagerly."""
+        return eng.FusedDecoder.from_numpy_tables(
+            self.tables, self.dims, self.fs, bitrate=float(self.cfg.bitrate),
+            bit_inset=self.cfg.bit_inset, edge_pad=eng.EDGE_PAD, device=self.dev)
+
+    @functools.cached_property
+    def fetch_stream(self):
+        """The side stream that fetches packed results (a GPU only)."""
+        return torch.cuda.Stream(self.dev) if self.on_card else None
+
+    def program(self, rows: np.ndarray):
+        """The cached program of a batch of these encoded rows' shape."""
+        return eng.fused_program(self.tables, self.dims, self.fs, self.cfg, rows, self.dev)
 
     def encode(self, pcms: np.ndarray) -> np.ndarray:
         """The rows as they go to the device: the wire format of integer
@@ -130,22 +150,24 @@ class BatchPlan:
             return wire_ops.encode_rows(pcms, self.wire_used)
         return pcms.astype(np.float32)
 
-    def start_fetch(self, out: torch.Tensor):
+    def start_fetch(self, out: torch.Tensor, stream=None):
         """Queue the copy of a packed matrix to pinned host memory behind
-        the work queued so far, on the fetch stream, so that waiting for it
-        does not wait for work queued later.  Returns (host tensor, the
-        copy's event); on the CPU the matrix itself and None."""
+        the work queued so far, on `stream` (the plan's fetch stream by
+        default), so that waiting for it does not wait for work queued
+        later.  Returns (host tensor, the copy's event); on the CPU the
+        matrix itself and None."""
         if not self.on_card:
             return out, None
+        stream = stream or self.fetch_stream
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.dev))
-        self.fetch_stream.wait_event(done)
-        with torch.cuda.stream(self.fetch_stream):
+        stream.wait_event(done)
+        with torch.cuda.stream(stream):
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             copied = torch.cuda.Event()
-            copied.record(self.fetch_stream)
-        out.record_stream(self.fetch_stream)
+            copied.record(stream)
+        out.record_stream(stream)
         return host, copied
 
     def finish(self, host: torch.Tensor, copied, lengths) -> list[DecodeResult]:
@@ -195,12 +217,14 @@ def dispatch_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cud
 
 
 def _dispatch_run(pcms: np.ndarray, lengths: np.ndarray, fs, config, wire: str, device):
-    """Queue one batch on one device: (its packed matrix, (plan, fetch, lengths))."""
+    """Queue one batch on one device through the cached program of its
+    shape: (its packed matrix, a clone of the program's static output that
+    the next batch's replay does not touch; (plan, fetch, lengths))."""
     plan = BatchPlan(pcms.dtype, pcms.shape[1], fs, config, wire, device)
-    with torch.inference_mode():
-        out = plan.model(eng.to_device(plan.encode(pcms), plan.dev),
-                         eng.to_device(lengths.astype(np.int64), plan.dev))
-        fetch = plan.start_fetch(out)
+    rows = plan.encode(pcms)
+    program = plan.program(rows)
+    out = program(rows, lengths.astype(np.int64))
+    fetch = plan.start_fetch(out, program.fetch_stream)
     return out, (plan, fetch, lengths)
 
 

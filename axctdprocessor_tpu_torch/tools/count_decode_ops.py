@@ -1,17 +1,23 @@
 """Count what one monolithic decode dispatches: PyTorch operations, and on a
-GPU the kernel launches.
+GPU the host's launch calls and the device's kernels.
 
 The decode runs on the card (``--device cuda``, the default, as every entry
 point of the port; it raises without a GPU) or, with ``--device cpu``, on
-the host.  The operations are counted with ``TorchDispatchMode`` on a
-synthetic drop made by the simulator of the tree under test
-(``SimSpec(duration=SECONDS, profile_start=33, seed=11)``, int16), after one
-warm-up decode.  Besides the total it counts the operations inside the
-bit-edge chain (``ops.chain.enumerate_bit_edges``) and inside frame sync
-(``ops.chain.enumerate_frames``), and lists the most frequent operations.
-On the card the same decode then runs, in a second run, under
-``torch.profiler``, whose launch events (``cudaLaunchKernel``,
-``cuLaunchKernel``) are counted as ``chip_smoke.py`` phase 10 counts them;
+the host.  The operations are those of the eager forward: they are counted
+with ``TorchDispatchMode`` on a synthetic drop made by the simulator of the
+tree under test (``SimSpec(duration=SECONDS, profile_start=33, seed=11)``,
+int16), after one warm-up decode, with the decode's cached program
+(``models/programs.py``, in a tree that has one) made to run its module
+eagerly over its static buffers.  Besides the total it counts the
+operations inside the bit-edge chain (``ops.chain.enumerate_bit_edges``)
+and inside frame sync (``ops.chain.enumerate_frames``), and lists the most
+frequent operations.  On the card the same decode then runs under
+``torch.profiler``, in the eager form (``eager``) and, in a tree with cached
+programs, through the program as the entry point runs it, a CUDA graph
+captured at its second call and replayed after (``program``): per form the
+kernel launches (``cudaLaunchKernel``, ``cuLaunchKernel``, as ``chip_smoke.py``
+phase 10 counts them before PR 15), the host's launch calls (kernel and graph
+launches, copies, fills) and the device's kernels.
 ``--plain-tone-ratios`` decodes with the plain tone-ratio version
 (``use_kernel=False``), so that a tree's own kernel need not be built.
 ``--tree`` names the root of another checkout of the repository (for
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import sys
@@ -82,20 +89,60 @@ def main() -> None:
         return engine.decode_waveform(raw, 44100, device=args.device, mode="monolithic",
                                       use_kernel=not args.plain_tone_ratios)
 
+    try:
+        from axctdprocessor_tpu_torch.models import programs
+    except ImportError:  # a tree from before the cached programs: eager only
+        programs = None
+
+    @contextlib.contextmanager
+    def eager():
+        """The cached program, if any, runs its module eagerly."""
+        if programs is None:
+            yield
+            return
+        saved = programs.Program.capture, programs.Program.replay
+        programs.Program.capture = programs.Program.replay = programs.Program.run_eager
+        try:
+            yield
+        finally:
+            programs.Program.capture, programs.Program.replay = saved
+
     decode()  # warm-up
-    with Count():
+    with eager(), Count():
         res = decode()
     out = dict(tree=os.path.abspath(args.tree), seconds=args.seconds, device=args.device,
                status=res.status, frames=len(res.hexframes), ops=inside,
                top=names.most_common(8))
     if args.device == "cuda":
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            decode()
-            torch.cuda.synchronize()
-        out["launches"] = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
-                              for e in prof.events())
+        def profiled():
+            decode()  # the program's capture, where it has none yet
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                decode()
+                torch.cuda.synchronize()
+            events = prof.events()
+            host = collections.Counter()
+            for e in events:
+                if e.device_type != DeviceType.CPU:
+                    continue
+                if "GraphLaunch" in e.name:
+                    host["graph launches"] += 1
+                elif "Launch" in e.name and "Kernel" in e.name:
+                    host["kernel launches"] += 1
+                elif "Memcpy" in e.name or "Memset" in e.name:
+                    host["copies and fills"] += 1
+            return dict(launches=host["kernel launches"], host_launch_calls=sum(host.values()),
+                        host=dict(host), device_kernels=sum(
+                            e.device_type == DeviceType.CUDA
+                            and not e.name.startswith(("Memcpy", "Memset")) for e in events))
+
+        with eager():
+            out["eager"] = profiled()
+        out["launches"] = out["eager"]["launches"]
+        if programs is not None:
+            out["program"] = profiled()
         out["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
 

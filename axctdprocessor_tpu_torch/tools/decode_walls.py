@@ -21,8 +21,14 @@ profile_start=33, seed=11)``) and 8 rows of 60 s at 88.2 kHz (as
 * ``corpus``: the 64 rows as int16 WAVs through ``reprocess_corpus(batch_size=8)``,
   into a new output directory each time (drops per second is 64 / wall).
 
+The paths run as a user calls them: in a tree with cached programs
+(``models/programs.py``) the monolithic decodes and the batches go through
+the program of their shape, whose first call runs eagerly and whose second
+captures a CUDA graph, so that the timed decodes replay it; the segmented
+decode and the prestaged one (group by group) are eager in every tree.
+
 ``--paths`` picks some of them (comma-separated names; all by default).
-Each path is decoded once to warm up, then ``--repeats`` times; the script
+Each path is decoded twice to warm up, then ``--repeats`` times; the script
 prints one JSON line with the card, the tree, and per path every wall and
 their median, in seconds.  ``--tree`` names the root of another checkout (for
 example an earlier commit's, unpacked with ``git archive``); run one tree per
@@ -120,6 +126,7 @@ def main() -> int:
         for name in names:
             run = paths_run[name]
             run()  # warm-up: the kernels' build, the plans
+            run()  # the programs' captures
             torch.cuda.synchronize()
             walls[name] = []
             for _ in range(args.repeats):

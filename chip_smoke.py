@@ -199,6 +199,26 @@ Phases, one line each or more (any failure raises and exits non-zero):
    decode's ``probe_at`` runs its geometry stages;
    ``--only-corpus`` runs the build, phase 2's high-rate cases and this phase
    and exits 3 without result lines (a development run);
+9h. the cached programs (``models/programs.py``: one per static shape, run
+   eagerly at its first call, captured as a CUDA graph at its second and
+   replayed after) against the eager module (the program's own
+   ``FusedDecoder`` / ``SegmentedDecoder`` forward on the same static
+   input), bit for bit on every field of the packed vector or matrix: one
+   drop of 60 s, one of 300 s and the 600 s drop forced monolithic, each as
+   three drops of one 15 s bucket with different seeds and the first again,
+   at int16 and at int8; 8 and 64 rows of 60 s as three batches with their
+   own row orders and true lengths, then two of them interleaved (dispatch
+   k, dispatch k+1, finish k, finish k+1), at int16 and int8; three 600 s
+   drops prestaged ``fused`` (each its own program: three dispatches in a
+   row, then 8 queued, 8 distinct outputs); every kernel's launches per
+   call the same whether eager, captured or replayed; the walls of the
+   first (eager) call, the capture call and the replays; host syncs of a
+   replayed decode (at most one); warm walls eager (``_eager_programs``)
+   against program in turns, medians of 5, on the six shapes; the cuFFT
+   plan cache's size against its bound; the memory the program cache holds
+   (also after phases 9 and 9g).  ``--only-programs`` runs the build, this
+   phase and phase 10's part of it and exits 3 without result lines (a
+   development run);
 10. ``torch.profiler`` last, after every wall (a process that has run the
    profiler launches more slowly from then on): one segmented, one
    prestaged ``fused``, one monolithic and one time-sharded decode of the
@@ -219,11 +239,22 @@ Phases, one line each or more (any failure raises and exits non-zero):
    kernel's device time at phase 2's high-rate shapes beside its bound and
    the DFT core's product, and ``probe_at``'s at phase 2d's 88.2 and 96 kHz
    calls, at the launcher's geometry and the standard one, beside
-   ``frames @ trig``.
+   ``frames @ trig``.  Then a warm decode of the 600 s drop monolithic, of
+   ``decode_batch`` of 8 x 60 s and of the prestaged ``fused`` drop, eager
+   and through its program: the host's launch calls (kernel launches, graph
+   launches, copies, fills) beside the device's kernels (the same in both;
+   at most 10 host launch calls through the program for the first two),
+   device busy time and idle share.  Every profile of a decode counts the
+   host's launch calls and the device's kernels, those under a graph
+   launch's correlation id apart.
 
-Each path is driven with every kernel's launch count set to 0 just before
-and read just after (each chain kernel and ``probe_at`` must have launched on
-every path, exactly one of ``tone_ratios`` and ``tone_powers``, the streamed
+A stand-in that records or checks a wrapper's calls while a path runs
+(phases 2b, 2d, 9g, 10) runs every program eagerly meanwhile: a replay calls
+no wrapper, and a capture must not run a stand-in.  Each path is driven
+with every kernel's launch count set to 0 just before and read just after
+(a replay adds its capture's counts: each kernel counts one launch per
+replay, as it did eagerly; each chain kernel and ``probe_at`` must have
+launched on every path, exactly one of ``tone_ratios`` and ``tone_powers``, the streamed
 table on the 88.2 kHz batch and on no other path, and ``chain_walk``, the
 general map's walk, never).  At the end neither jax nor any module of the JAX
 package (``axctdprocessor_tpu``) may be loaded.  Then come the line
@@ -430,10 +461,58 @@ def count_syncs():
             box["n"] = sum("synchroniz" in str(w.message) for w in caught)
 
 
+def _launch_kind(name: str) -> str | None:
+    """The kind of work a host-side CUDA runtime or driver call of this name
+    puts on the card's queue (a graph launch queues the graph's kernels,
+    copies and fills at once), or None."""
+    if "GraphLaunch" in name:
+        return "graph launches"
+    if "Launch" in name and "Kernel" in name:
+        return "kernel launches"
+    if "Memcpy" in name:
+        return "copies"
+    if "Memset" in name:
+        return "fills"
+    return None
+
+
+def launch_counts(events, skip=frozenset()) -> dict:
+    """From a profile's events, less those of the correlation ids in `skip`:
+    the host's launch calls by kind (kernel launches, graph launches, copies,
+    fills) and in all, and the device's kernels, copies and fills in all and
+    those under a graph launch's correlation id (the graph's own)."""
+    from torch.autograd import DeviceType
+
+    out = {k: 0 for k in ("kernel launches", "graph launches", "copies", "fills")}
+    graphs = set()
+    events = [e for e in events if e.id not in skip]
+    for e in events:
+        kind = _launch_kind(e.name) if e.device_type == DeviceType.CPU else None
+        if kind:
+            out[kind] += 1
+            if kind == "graph launches":
+                graphs.add(e.id)
+    out["host launch calls"] = sum(out.values())
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    out.update({"device kernels": len(kernels),
+                "device copies and fills": len(device) - len(kernels),
+                "device kernels of graph launches": sum(e.id in graphs for e in kernels)})
+    return out
+
+
+def launches_text(c: dict) -> str:
+    return (f"host launch calls {c['host launch calls']} (kernel launches "
+            f"{c['kernel launches']}, graph launches {c['graph launches']}, copies "
+            f"{c['copies']}, fills {c['fills']}), device kernels {c['device kernels']} "
+            f"({c['device kernels of graph launches']} of them under a graph launch)")
+
+
 def profile_run(fn) -> str:
-    """One run of `fn` under ``torch.profiler``: wall, kernel launches, device
-    busy time (union of device activity) and idle share, and the
-    host-to-device copies by kind."""
+    """One run of `fn` under ``torch.profiler``: wall, the host's launch
+    calls and the device's kernels (``launch_counts``), device busy time
+    (union of device activity) and idle share, and the host-to-device
+    copies by kind."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -443,7 +522,7 @@ def profile_run(fn) -> str:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
-    launches = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for e in events)
+    launches = launches_text(launch_counts(events))
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == DeviceType.CUDA)
     busy, end = 0.0, -1e30
@@ -457,9 +536,9 @@ def profile_run(fn) -> str:
             n, us = h2d.get(e.name, (0, 0.0))
             h2d[e.name] = (n + 1, us + e.time_range.elapsed_us())
     if not spans:
-        return (f"profiled wall {wall_us / 1e3:.1f} ms, launches {launches}; device time "
+        return (f"profiled wall {wall_us / 1e3:.1f} ms, {launches}; device time "
                 "not measured")
-    return (f"profiled wall {wall_us / 1e3:.1f} ms, kernel launches {launches}, device busy "
+    return (f"profiled wall {wall_us / 1e3:.1f} ms, {launches}, device busy "
             f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, H2D "
             + ("; ".join(f"{k}: {n} copies {us / 1e3:.2f} ms" for k, (n, us) in h2d.items())
                or "none"))
@@ -526,9 +605,10 @@ def _profiled(fn, calls: int = 1, cpu: bool = False, lead: bool = False):
 
 
 def _queues_device_work(name: str) -> bool:
-    """Whether a host-side CUDA runtime or driver call of this name puts one
-    piece of work on the card's queue: a kernel launch, a copy or a fill."""
-    return ("Launch" in name and "Kernel" in name) or "Memcpy" in name or "Memset" in name
+    """Whether a host-side CUDA runtime or driver call of this name puts
+    work on the card's queue: a kernel launch, a graph launch, a copy or a
+    fill (``_launch_kind``)."""
+    return _launch_kind(name) is not None
 
 
 def _complete_device_events(fn, calls: int):
@@ -899,6 +979,25 @@ class _Recorder(_Standin):
         return self.fn(*args, **kwargs)
 
 
+@contextlib.contextmanager
+def _eager_programs():
+    """While the block runs, every cached program (``models/programs.py``)
+    runs its module's forward eagerly over its static buffers, as a
+    program's first decode does, and neither captures nor replays: a
+    stand-in for a kernel's wrapper then sees every call a decode makes (a
+    replay calls no wrapper), and no stand-in runs inside a capture (where
+    a recorded tensor would be the graph's and a check's host read would
+    fail the capture).  Also the eager side of the walls in turns."""
+    from axctdprocessor_tpu_torch.models import programs
+
+    capture, replay = programs.Program.capture, programs.Program.replay
+    programs.Program.capture = programs.Program.replay = programs.Program.run_eager
+    try:
+        yield
+    finally:
+        programs.Program.capture, programs.Program.replay = capture, replay
+
+
 def _record_chain_calls(drops: dict) -> dict:
     """The chain kernels' arguments as the main paths hand them over: the
     600 s drop monolithic, segmented and time-sharded on dp 1 x sp 4, 4
@@ -933,9 +1032,10 @@ def _record_chain_calls(drops: dict) -> dict:
     for name, fn in originals.items():
         setattr(chain, CHAIN_WRAPPERS[name], _Recorder(fn, calls[name], path))
     try:
-        for label, run in runs:
-            path[0] = label
-            run()
+        with _eager_programs():
+            for label, run in runs:
+                path[0] = label
+                run()
     finally:
         for name, fn in originals.items():
             setattr(chain, CHAIN_WRAPPERS[name], fn)
@@ -1368,9 +1468,10 @@ def _record_frontend_calls(drops: dict) -> dict:
     for name, mod in where.items():
         setattr(mod, name, _Recorder(originals[name], calls[name], path))
     try:
-        for label, run in runs:
-            path[0] = label
-            run()
+        with _eager_programs():
+            for label, run in runs:
+                path[0] = label
+                run()
     finally:
         for name, mod in where.items():
             setattr(mod, name, originals[name])
@@ -1594,7 +1695,8 @@ def _high_rate_probe_calls() -> list:
         real_probe = goertzel.probe_at
         goertzel.probe_at = _Recorder(real_probe, calls, path)
         try:
-            batch.decode_batch(rows, fs, device="cuda")
+            with _eager_programs():
+                batch.decode_batch(rows, fs, device="cuda")
         finally:
             goertzel.probe_at = real_probe
         assert len(calls) == 1, len(calls)
@@ -1788,6 +1890,91 @@ def phase2e_batched_rows(drops: dict) -> None:
         f"also to the 1-D call")
 
 
+def _profile_counts(fn) -> dict:
+    """One call of `fn` (after a warm-up call) under ``torch.profiler``,
+    behind a lead kernel (``_profiled``; left out of the counts):
+    ``launch_counts``, the wall, device busy ms (the union of device
+    activity) and idle share, and whether every host launch call has device
+    events under its correlation id (``complete``; up to PROFILE_TRIES
+    profiles are taken for one that does)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(LEAD_CYCLES)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        calls = sorted((e for e in events
+                        if e.device_type == DeviceType.CPU and _launch_kind(e.name)),
+                       key=lambda e: e.time_range.start)
+        lead = {calls[0].id} if calls else set()
+        out = launch_counts(events, skip=lead)
+        host = {e.id for e in calls} - lead
+        device = [e for e in events if e.device_type == DeviceType.CUDA and e.id not in lead]
+        busy, end = 0.0, -1e30
+        for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        out.update(complete=bool(host) and host <= {e.id for e in device},
+                   wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, idle_share=1 - busy / wall_us)
+        if out["complete"]:
+            break
+        PROFILES["incomplete"] += 1
+    return out
+
+
+def _profile_programs(seg: dict, drops: dict) -> None:
+    """A warm decode of each path the programs serve (the 600 s drop
+    monolithic, ``decode_batch`` of 8 x 60 s, the 600 s drop prestaged
+    ``fused``), eager and through its program: the host's launch calls and
+    the device's kernels, device busy time and idle share.  The device's
+    kernels are the same in both; through the program the monolithic decode
+    and the batch queue at most 10 host launch calls."""
+    from axctdprocessor_tpu_torch.models import engine, segmented
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    raw, fs = seg["raw"], seg["fs"]
+    staged = segmented.prestage_waveform(raw, fs, device="cuda", fused=True)
+    fns = {"600 s monolithic": lambda: engine.decode_waveform(raw, fs, device="cuda",
+                                                               mode="monolithic"),
+           "decode_batch of 8 x 60 s": lambda: batch.decode_batch(
+               drops["batch"][:8], drops["batch_fs"], device="cuda"),
+           "600 s prestaged fused": staged.decode}
+    for name, fn in fns.items():
+        fn()
+        fn()  # the program of this shape captured
+        with _eager_programs():
+            eager = _profile_counts(fn)
+        prog = _profile_counts(fn)
+        for form, c in (("eager", eager), ("program", prog)):
+            log(f"[10] {name}, {form}: {launches_text(c)}; device copies and fills "
+                f"{c['device copies and fills']}; profiled wall {c['wall_ms']:.1f} ms, device busy "
+                f"{c['busy_ms']:.2f} ms, idle share {c['idle_share']:.3f}"
+                + ("" if c["complete"] else "; some device events not recorded"))
+        if name != "600 s prestaged fused":
+            assert prog["host launch calls"] <= 10, (name, prog)
+        # the same device work: the graph runs some of the forward's copies and
+        # fills as kernels, and the eager form copies its result into the static
+        # output once more
+        work = {form: c["device kernels"] + c["device copies and fills"]
+                for form, c in (("eager", eager), ("program", prog))}
+        compared = eager["complete"] and prog["complete"]
+        if compared:
+            assert work["program"] == work["eager"] - 1, (name, eager, prog)
+        log(f"[10] {name}: device kernels, copies and fills {work['eager']} eager, "
+            f"{work['program']} through the program (the eager form copies its result into "
+            "the static output once more): "
+            + ("the same work" if compared else "not compared (a profile missed some events)"))
+    del staged
+
+
 def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict,
                      corpus: dict) -> None:
     """``torch.profiler`` runs, after every wall: a process that has run the
@@ -1802,16 +1989,18 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict,
     from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
 
     _profile_high_rate(k, fk, corpus)
+    _profile_programs(seg, drops)
     raw, fs = seg["raw"], seg["fs"]
     log("[10] 600 s segmented decode: "
         + profile_run(lambda: segmented.decode_waveform_segmented(raw, fs, device="cuda")))
     staged = segmented.prestage_waveform(raw, fs, device="cuda", fused=True)
     staged.decode()
-    log("[10] 600 s prestaged decode (fused: every segment in one pass), int8 wire: "
-        + profile_run(staged.decode))
+    staged.decode()  # its program captured: the profile is of a replay
+    log("[10] 600 s prestaged decode (fused: every segment in one pass), int8 wire, its "
+        "program replayed: " + profile_run(staged.decode))
     del staged
     with _frame_sync_watched() as frame_calls:
-        log("[10] 600 s monolithic decode: "
+        log("[10] 600 s monolithic decode, its program run eagerly: "
             + profile_run(lambda: engine.decode_waveform(raw, fs, device="cuda",
                                                          mode="monolithic")))
     _frame_sync_alone(frame_calls)
@@ -1821,9 +2010,12 @@ def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict,
     # 8 and 16 of the 64 rows: the launches per row and the idle share are
     # those of the whole batch, and the profiler's own bookkeeping of a
     # quarter of a million launches took half of this script's time
-    log("[10] batch 1 x 8 x 60 s: "
-        + profile_run(lambda: batch.decode_batch(drops["batch"][:8], drops["batch_fs"],
-                                                 device="cuda")))
+    def batch8():
+        return batch.decode_batch(drops["batch"][:8], drops["batch_fs"], device="cuda")
+
+    batch8()
+    batch8()  # its program captured: the profile is of a replay
+    log("[10] batch 1 x 8 x 60 s, its program replayed: " + profile_run(batch8))
     batches = [(sub, None) for sub in np.split(drops["batch"][:16], 2)]
     log("[10] pipeline 2 x 8 x 60 s: "
         + profile_run(lambda: pipeline.decode_batches_pipelined(batches, drops["batch_fs"],
@@ -1930,8 +2122,13 @@ def _profile_high_rate(k: dict, fk: dict, corpus: dict) -> None:
     from axctdprocessor_tpu_torch.parallel import batch
 
     rows = corpus["hr"]["rows"]
-    log(f"[10] {HIGH_RATE_PATH}: "
-        + profile_run(lambda: batch.decode_batch(rows, 88200, device="cuda")))
+
+    def high_rate():
+        return batch.decode_batch(rows, 88200, device="cuda")
+
+    high_rate()
+    high_rate()  # its program captured: the profile is of a replay
+    log(f"[10] {HIGH_RATE_PATH}, its program replayed: " + profile_run(high_rate))
     for rec, (name, xd, fs) in zip(k["streamed"], _high_rate_cases()):
         assert rec["shape"] == name, (rec["shape"], name)
         window, stride, tm = _table(fs)
@@ -2044,7 +2241,8 @@ def _frame_sync_watched():
 
     chain.enumerate_frames, chain.jump_levels = recorded, counted
     try:
-        yield made
+        with _eager_programs():
+            yield made
     finally:
         chain.enumerate_frames, chain.jump_levels = enumerate_frames, jump_levels
     assert made, "no frame-sync call recorded"
@@ -2133,6 +2331,9 @@ def phase3_end_to_end(drops: dict) -> dict:
     plain = engine.decode_wav(wav, device="cuda", mode="monolithic", use_kernel=False)
     agree_plain = _agreement(res.hexframes, plain.hexframes)
     assert agree_plain >= 0.99, agree_plain
+    t0 = time.perf_counter()
+    engine.decode_wav(wav, device="cuda", mode="monolithic")  # the shape's program captured
+    capture_s = time.perf_counter() - t0
 
     walls = []
     for _ in range(3):
@@ -2160,7 +2361,8 @@ def phase3_end_to_end(drops: dict) -> dict:
         f"frames {len(res.hexframes)}, in truth {in_truth:.4f}, agreement with the "
         f"plain-tone-ratio decode {agree_plain:.4f}, repeat agreement {agree_repeat:.4f}; "
         f"launches {counts_text(counts)}")
-    log(f"[3] first decode {first_s:.3f} s, warm wall (median of 3) {wall:.4f} s "
+    log(f"[3] first decode {first_s:.3f} s (eager), the capture decode {capture_s:.3f} s, "
+        f"warm wall (median of 3, replays) {wall:.4f} s "
         f"{[round(w, 4) for w in walls]}, "
         f"realtime factor {600.0 / wall:.1f}x, "
         f"peak device memory {peak_gib:.2f} GiB, host syncs per decode {syncs['n']}")
@@ -2272,6 +2474,7 @@ def phase7_prestaged(drops: dict, seg: dict) -> None:
     res_f = fused.decode()
     assert res_f.hexframes == res.hexframes and res_f.time == res.time, "fused != unfused"
     assert res_f.metadata == res.metadata
+    fused.decode()  # its program captured: the walls replay
     f_wall = statistics.median(_walls(fused.decode, 5))
     log(f"[7] prestaged 600 s (int8 wire, staged in {stage_s:.3f} s): status {res.status}, "
         f"frames {len(res.hexframes)}, in truth {in_truth:.4f}, agreement with the streamed "
@@ -2322,7 +2525,8 @@ def phase9_batch(drops: dict) -> dict:
 
     out, kept = {}, {}
     for name, subs in (("1 x 64", [rows]), ("8 x 8", np.split(rows, 8))):
-        batch.decode_batch(subs[0], fs, device="cuda")  # warm-up
+        for _ in range(2):  # warm-up; the second captures the shape's program
+            batch.decode_batch(subs[0], fs, device="cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kept[name] = []
@@ -2349,6 +2553,7 @@ def phase9_batch(drops: dict) -> dict:
     check(batch.finish_dispatched(res_out, ctx), 64)
     log(f"[9] host syncs in dispatch_batch of 64: {n_dispatch} (it queues the batch's one "
         f"device-to-host copy on a side stream; finish_dispatched waits on that copy's event)")
+    log(f"[9] program cache after the batches of 64 and of 8 rows: {cache_text()}")
     return dict(launches=1, rows_8x8=kept["8 x 8"], wall_8x8=out["8 x 8"])
 
 
@@ -2721,6 +2926,8 @@ def _wire_long_drop(drops: dict, raw: np.ndarray, fs) -> dict:
             first[w] = (in_truth, agree, peak, launches)
         walls = {w: [] for w in WIRES}
         stages = {w: [] for w in WIRES}
+        for w in WIRES:  # each wire's program captured: the walls replay
+            engine.decode_wav(wav, device=DEV, wire=w, mode=mode)
         for _ in range(3):  # in turns: walls drift within a process
             for w in WIRES:
                 timer = StageTimer()
@@ -2766,7 +2973,8 @@ def _wire_rows(tmp: str, drops: dict) -> list:
     cfg = DecoderConfig()
     out, runs = {}, {w: [] for w in WIRES}
     for w in WIRES:
-        batch.decode_batch(subs[0], fs, device=DEV, wire=w)  # warm-up
+        for _ in range(2):  # warm-up; the second captures the wire's program
+            batch.decode_batch(subs[0], fs, device=DEV, wire=w)
     for turn in range(3):  # in turns: walls drift within a process
         for w in WIRES:
             if w == "int4" and turn:  # at over twice the wall, once tells enough
@@ -3041,7 +3249,8 @@ def _checked_kernels(stats: dict):
     for (mod, attr, name, plain), (_, _, fn) in zip(where, originals):
         setattr(mod, attr, _Checker(name, fn, plain, stats))
     try:
-        yield stats
+        with _eager_programs():
+            yield stats
     finally:
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
@@ -3194,9 +3403,311 @@ def phase9g_corpus(tmp: str) -> dict:
         f"reports byte-equal to the fresh run's; the kept entries untouched")
     shutil.rmtree(cdir)
 
+    log(f"[9g] program cache after the corpus runs: {cache_text()}")
     hr = _high_rate_batch(bases)
     log(f"[9g] phase time {time.perf_counter() - t_phase:.0f} s (build {build_s:.0f} s)")
     return dict(n=n, wall=wall, launches=counts, batches=n_batches, hr=hr, peak_120=peak_120)
+
+
+# ---------------------------------------------------------------------------
+# phase 9h: the cached programs (models/programs.py)
+# ---------------------------------------------------------------------------
+
+def _cache_held() -> dict:
+    """What the program cache holds on the card: its programs, how many are
+    captured, the bytes of their graphs' private memory pools (the segments
+    of ``torch.cuda.memory_snapshot()`` under the pools' ids) and of their
+    static inputs and tables."""
+    from axctdprocessor_tpu_torch.models import programs
+
+    progs = programs.programs()
+    by_pool = {tuple(p.graph.pool()): 0 for p in progs if p.graph is not None}
+    segs = [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) in by_pool]
+    for seg in segs:
+        by_pool[tuple(seg["segment_pool_id"])] += seg["total_size"]
+    static = [t for p in progs
+              for t in (*p.inputs, *(p.module.buffers() if p.module is not None else ()))]
+    each = [f"{str(p.inputs[0].dtype).replace('torch.', '')} {tuple(p.inputs[0].shape)} "
+            f"{by_pool[tuple(p.graph.pool())] / 2 ** 30:.3f}" for p in progs if p.graph is not None]
+    return dict(programs=len(progs), captured=len(by_pool), pool_segments=len(segs),
+                pool_gib=sum(by_pool.values()) / 2 ** 30, each=each,
+                static_gib=sum(t.numel() * t.element_size() for t in static) / 2 ** 30)
+
+
+def cache_text() -> str:
+    h = _cache_held()
+    pools = (f"{h['pool_gib']:.3f} GiB in their graphs' private pools ({h['pool_segments']} "
+             f"segments; by input, GiB: {'; '.join(h['each'])})"
+             if h["pool_segments"] or not h["captured"] else
+             "their graphs' pools not measured (no segment under their ids)")
+    return (f"{h['programs']} programs ({h['captured']} captured): {pools}, "
+            f"{h['static_gib']:.3f} GiB of static inputs and tables; the card's reserved memory "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB")
+
+
+@contextlib.contextmanager
+def _packed_results():
+    """Every packed vector the host finish is handed while the block runs
+    (``engine.finish_result``), as numpy arrays, in order."""
+    from axctdprocessor_tpu_torch.models import engine
+
+    got, real = [], engine.finish_result
+
+    def finish(out, *args, **kwargs):
+        got.append(np.array(out))
+        return real(out, *args, **kwargs)
+
+    engine.finish_result = finish
+    try:
+        yield got
+    finally:
+        engine.finish_result = real
+
+
+def _int16_drop(duration: float, seed: int) -> np.ndarray:
+    from axctdprocessor_tpu_torch.models import simulator
+
+    pcm, _ = simulator.synthesize(simulator.SimSpec(duration=duration, profile_start=33.0,
+                                                    seed=seed))
+    return np.round(pcm * (28000 / np.max(np.abs(pcm)))).astype(np.int16)
+
+
+# the monolithic shapes' three drops (duration s, simulator seed): different
+# lengths inside one 15 s bucket, different seeds (600 s: the bench drop first)
+PROGRAM_DROPS = {"60 s": ((46.0, 21), (53.0, 22), (60.0, 23)),
+                 "300 s": ((287.0, 11), (293.0, 12), (300.0, 13)),
+                 "600 s": ((600.0, 11), (589.0, 12), (595.0, 13))}
+PROGRAM_WIRES = ("int16", "int8")
+
+
+def _newest_program(calls: int):
+    from axctdprocessor_tpu_torch.models import programs
+
+    program = programs.programs()[-1]
+    assert program.calls == calls and program.graph is not None, (program.calls, program.graph)
+    return program
+
+
+def _program_steps(label: str, fns: list, first_differs: bool = False) -> tuple[list, list]:
+    """Each of `fns` once, in order, through a program of one shape that is
+    new (the first call eager, the second captured, the rest replayed):
+    their walls, and every kernel's launches per call, which must equal the
+    first (eager) call's; with `first_differs`, one more call made eagerly
+    (``_eager_programs``) after them (the prestaged module computes its
+    shared zero segment once, in its first forward)."""
+    walls, counts = [], []
+    for i, fn in enumerate(fns + ([fns[-1]] if first_differs else [])):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _eager_programs() if first_differs and i == len(fns) else contextlib.nullcontext():
+            fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append(read_counts(f"program {label}, call {i + 1}"))
+    same = counts[1:] if first_differs else counts
+    assert all(c == same[-1] for c in same), (label, counts)
+    return walls[: len(fns)], same[-1]
+
+
+def _program_monolithic(label: str, raws: list, fs, wire: str) -> dict:
+    """Three drops of one bucket and the first again through
+    ``decode_waveform(mode="monolithic")``: every packed vector bit for bit
+    the eager module's forward on the same static input."""
+    from axctdprocessor_tpu_torch.models import engine
+    from axctdprocessor_tpu_torch.ops import wire as wire_ops
+
+    seq = raws + raws[:1]
+    with _packed_results() as packed:
+        walls, counts = _program_steps(f"monolithic {label} {wire}", [
+            lambda raw=raw: engine.decode_waveform(raw, fs, device="cuda", mode="monolithic",
+                                                   wire=wire, lossy_retry=False)
+            for raw in seq])
+    program = _newest_program(len(seq))
+    n = program.inputs[0].shape[0]
+    for raw, got in zip(seq, packed):
+        enc = wire_ops.encode(raw, wire)
+        x = torch.from_numpy(np.concatenate([enc, np.zeros(n - len(enc), enc.dtype)])).cuda()
+        with torch.inference_mode():
+            want = program.module(x, torch.full((), len(raw), dtype=torch.int64, device="cuda"))
+        assert np.array_equal(got, want.cpu().numpy()), (label, wire)
+        assert engine.unpack_result(got)["scal_i"][1] >= 0, (label, wire)  # a profile found
+    assert np.array_equal(packed[-1], packed[0])
+    return dict(walls=walls, counts=counts)
+
+
+def _variant_batches(rows: np.ndarray, fs) -> list:
+    """Three batches of `rows`' shape: the rows, and the rows in two
+    shuffled orders (rng seeds 1, 2), each with its own true lengths (up to
+    5 s short of the width, zeros after)."""
+    out = []
+    for seed in (0, 1, 2):
+        rng = np.random.default_rng(seed)
+        sub = (rows if seed == 0 else rows[rng.permutation(len(rows))]).copy()
+        lengths = rows.shape[1] - rng.integers(0, int(5 * fs), len(rows))
+        for r, n in enumerate(lengths):
+            sub[r, n:] = 0  # zero-padded past the true length, as pad_batch pads
+        out.append((sub, lengths))
+    return out
+
+
+def _program_batches(label: str, batches: list, fs, wire: str) -> dict:
+    """Three batches of one shape through ``dispatch_batch`` in a row, then
+    two interleaved (dispatch k, dispatch k+1, finish k, finish k+1): every
+    packed matrix bit for bit the eager module's forward on the same rows,
+    every row at status 2."""
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    outs = []
+
+    def one(rows, lengths):
+        out, ctx = batch.dispatch_batch(rows, fs, device="cuda", lengths=lengths, wire=wire)
+        assert all(r.status == 2 for r in batch.finish_dispatched(out, ctx)), label
+        outs.append(out)
+
+    walls, counts = _program_steps(f"{label} {wire}", [
+        lambda b=b: one(*b) for b in batches])
+    k, k1 = (batch.dispatch_batch(rows, fs, device="cuda", lengths=lengths, wire=wire)
+             for rows, lengths in batches[1:])
+    interleaved = [k[0], k1[0]]
+    for out, ctx in (k, k1):
+        assert all(r.status == 2 for r in batch.finish_dispatched(out, ctx)), label
+    program = _newest_program(len(batches) + 2)
+    plan = batch.BatchPlan(batches[0][0].dtype, batches[0][0].shape[1], fs, None, wire, "cuda")
+    for (rows, lengths), out in zip(batches + batches[1:], outs + interleaved):
+        with torch.inference_mode():
+            want = program.module(torch.from_numpy(plan.encode(rows)).cuda(),
+                                  torch.from_numpy(lengths.astype(np.int64)).cuda())
+        assert torch.equal(out, want), (label, wire)
+    return dict(walls=walls, counts=counts)
+
+
+def _program_prestaged(raws: list, fs) -> dict:
+    """Three 600 s drops staged with ``fused=True`` (int8, int16, int8), each
+    its own program: three ``dispatch()`` calls in a row (eager, captured,
+    replayed), then 8 queued: every output bit for bit the eager module's
+    forward on the staged stack, 8 distinct tensors."""
+    from axctdprocessor_tpu_torch.models import segmented
+
+    walls = []
+    for i, (raw, wire) in enumerate(zip(raws, ("int8", "int16", "int8"))):
+        st = segmented.prestage_waveform(raw, fs, device="cuda", wire=wire, fused=True)
+        outs = []
+        w, counts = _program_steps(f"prestaged 600 s {wire} drop {i + 1}", [
+            lambda: outs.append(st.dispatch()) or st.finish(outs[-1]) for _ in range(3)],
+            first_differs=True)
+        walls.append(w)
+        queued = [st.dispatch() for _ in range(8)]
+        assert st.program.calls == 12 and st.program.graph is not None
+        assert len({o.data_ptr() for o in queued}) == 8
+        p = st.plan
+        with torch.inference_mode():
+            want = p.model(st.ext_all, p.n_seg, p.dc, p.peak, p.n_raw, p.nv_dec, p.dims)
+        assert all(torch.equal(o, want) for o in outs + queued), (i, wire)
+        assert st.finish(queued[-1]).status == 2
+        del st, outs, queued
+    return dict(walls=walls, counts=counts)
+
+
+def _turns(fns: dict, runs: int = 5) -> dict:
+    """Warm walls of each path eager (``_eager_programs``: the module's
+    forward over the program's static buffers) and through its program, in
+    turns, `runs` of each: {path: (eager walls, program walls)}."""
+    out = {name: ([], []) for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            with _eager_programs():
+                out[name][0].extend(_walls(fn, 1))
+            out[name][1].extend(_walls(fn, 1))
+    return out
+
+
+def phase9h_programs(drops: dict, seg: dict) -> dict:
+    """The cached programs against the eager module, bit for bit, on every
+    path they serve; their counts, syncs and walls.  Shapes: one drop of 60
+    s, one of 300 s and the 600 s drop forced monolithic (at int16 and int8:
+    three drops of one bucket with different seeds, then the first again),
+    8 and 64 rows of 60 s (three batches, then two interleaved), the 600 s
+    drop prestaged with ``fused=True`` (three drops, each its own program).
+    Then host syncs of a replayed decode, warm walls eager against program in
+    turns (medians of 5), the capture decode's wall, the cuFFT plan cache and
+    the memory the program cache holds."""
+    from axctdprocessor_tpu_torch.models import engine, programs, segmented
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    t_phase = time.perf_counter()
+    programs.clear()
+    fs = seg["fs"]
+    steps = {}
+    raws = {}
+    for label, specs in PROGRAM_DROPS.items():
+        raws[label] = [seg["raw"] if (d, s) == (600.0, 11) else _int16_drop(d, s)
+                       for d, s in specs]
+        for wire in PROGRAM_WIRES:
+            steps[f"monolithic {label} {wire}"] = _program_monolithic(label, raws[label], fs,
+                                                                     wire)
+    rows, bfs = drops["batch"], drops["batch_fs"]
+    for label, sub in (("decode_batch 8 x 60 s", rows[:8]), ("decode_batch 64 x 60 s", rows)):
+        for wire in PROGRAM_WIRES:
+            steps[f"{label} {wire}"] = _program_batches(label, _variant_batches(sub, bfs), bfs,
+                                                        wire)
+    steps["prestaged 600 s fused"] = _program_prestaged(raws["600 s"], fs)
+    for name, st in steps.items():
+        walls = st["walls"] if name != "prestaged 600 s fused" else st["walls"][0]
+        log(f"[9h] {name}: every output bit for bit the eager module's forward; walls of the "
+            f"calls in order (eager, capture, replays) {[round(w, 4) for w in walls]} s; "
+            f"launches a call {counts_text(st['counts'])}")
+    raw600 = seg["raw"]
+    staged = segmented.prestage_waveform(raw600, fs, device="cuda", fused=True)
+    fns = {
+        "monolithic 60 s": lambda: engine.decode_waveform(raws["60 s"][2], fs, device="cuda"),
+        "monolithic 300 s": lambda: engine.decode_waveform(raws["300 s"][2], fs, device="cuda"),
+        "monolithic 600 s": lambda: engine.decode_waveform(raw600, fs, device="cuda",
+                                                           mode="monolithic"),
+        "decode_batch 8 x 60 s": lambda: batch.decode_batch(rows[:8], bfs, device="cuda"),
+        "decode_batch 64 x 60 s": lambda: batch.decode_batch(rows, bfs, device="cuda"),
+        "prestaged 600 s fused": staged.decode,
+    }
+    syncs = {}
+    for name, fn in fns.items():
+        fn()
+        fn()  # the program of this shape captured
+        with count_syncs() as box:
+            fn()
+        syncs[name] = box["n"]
+        assert box["n"] <= 1, (name, box["n"])
+    turns = _turns(fns)
+    med = {name: (statistics.median(e), statistics.median(p)) for name, (e, p) in turns.items()}
+    for name, (e, p) in med.items():
+        log(f"[9h] {name}: warm wall (median of 5, in turns) eager {e:.4f} s, program "
+            f"{p:.4f} s, ratio {e / p:.2f}; eager {[round(w, 4) for w in turns[name][0]]}, "
+            f"program {[round(w, 4) for w in turns[name][1]]}; host syncs per replayed decode "
+            f"{syncs[name]}")
+    def queued(k: int = 8) -> float:
+        t0 = time.perf_counter()
+        outs = [staged.dispatch() for _ in range(k)]
+        for o in outs:
+            staged.finish(o)
+        return (time.perf_counter() - t0) / k
+
+    per = {"eager": [], "program": []}
+    for _ in range(3):  # in turns
+        with _eager_programs():
+            per["eager"].append(queued())
+        per["program"].append(queued())
+    e, p = med["prestaged 600 s fused"]
+    log(f"[9h] 8 queued prestaged fused decodes (8 dispatches, then 8 finishes), per decode, "
+        f"median of 3 in turns: eager {statistics.median(per['eager']):.4f} s "
+        f"{[round(w, 4) for w in per['eager']]}, program {statistics.median(per['program']):.4f}"
+        f" s {[round(w, 4) for w in per['program']]}; one decode: eager {e:.4f} s, program "
+        f"{p:.4f} s")
+    plans = torch.backends.cuda.cufft_plan_cache[torch.cuda.current_device()]
+    log(f"[9h] cuFFT plan cache: {plans.size} plans of at most {plans.max_size}; program "
+        f"cache {cache_text()}; phase time {time.perf_counter() - t_phase:.0f} s")
+    assert plans.size < plans.max_size, "the cuFFT plan cache is full: a cached graph's plan may go"
+    del staged
+    return dict(walls={k: v for k, v in med.items()}, syncs=syncs, steps=steps)
 
 
 def _high_rate_batch(bases: dict) -> dict:
@@ -3220,9 +3731,10 @@ def _high_rate_batch(bases: dict) -> dict:
     real_probe = goertzel.probe_at
     goertzel.probe_at = _Recorder(real_probe, calls, path)
     try:
-        out, ctx = batch.dispatch_batch(rows, 88200, device="cuda")
-        card = out.cpu().numpy()
-        got = batch.finish_dispatched(out, ctx)
+        with _eager_programs():
+            out, ctx = batch.dispatch_batch(rows, 88200, device="cuda")
+            card = out.cpu().numpy()
+            got = batch.finish_dispatched(out, ctx)
     finally:
         goertzel.probe_at = real_probe
     counts = read_counts(HIGH_RATE_PATH, high_rate=True)
@@ -3363,6 +3875,15 @@ def main() -> int:
             phase9g_corpus(tmp)
             mark("9g")
             return 3
+        if sys.argv[1:] == ["--only-programs"]:  # a development run: no result lines
+            from axctdprocessor_tpu_torch.utils.wavio import read_wav_raw16
+
+            raw, fs = read_wav_raw16(drops["wav"])
+            phase9h_programs(drops, dict(raw=raw, fs=fs))
+            mark("9h")
+            _profile_programs(dict(raw=raw, fs=fs), drops)
+            mark("10 (programs)")
+            return 3
         if sys.argv[1:] == ["--only-frontend"]:  # a development run: no result lines
             phase2c_fft(drops)
             mark("2c")
@@ -3401,6 +3922,8 @@ def main() -> int:
         mark("9e-9f")
         corpus = phase9g_corpus(tmp)
         mark("9g")
+        phase9h_programs(drops, seg)
+        mark("9h")
         phase10_profiles(drops, seg, k, ck, fk, corpus)
         mark("10")
     assert "jax" not in sys.modules, "the port loaded jax"

@@ -1075,3 +1075,117 @@ def test_high_rate_batch_on_card_equals_cpu(fs):
         gu, wu = engine.unpack_result(card[r]), engine.unpack_result(out_cpu.numpy()[r])
         for name in ("scal_i", "hdr", "hexpack", "edges"):
             np.testing.assert_array_equal(gu[name], wu[name], err_msg=f"{name} row {r}")
+
+
+
+def _counts():
+    from axctdprocessor_tpu_torch.ops import chain
+
+    return {"tone_ratios": tonepower.tone_ratios.launches, "probe_at": goertzel.probe_at.launches,
+            "chain_walk_segments": chain.chain_enumerate_strided.launches,
+            "chain_walk_frames": chain.chain_enumerate_frames.launches}
+
+
+def _int16_drop(duration: float, seed: int) -> np.ndarray:
+    pcm, _ = simulator.synthesize(simulator.SimSpec(duration=duration, profile_start=20.0,
+                                                    seed=seed))
+    return np.round(pcm * 28000 / np.max(np.abs(pcm))).astype(np.int16)
+
+
+@pytest.mark.cuda
+def test_program_replay_equals_the_eager_module(monkeypatch):
+    """Four drops of one 45 s bucket in a row through the monolithic decode's
+    cached program (eager; captured and replayed; replayed twice): each
+    packed vector bit for bit a fresh ``FusedDecoder``'s eager forward on
+    the card; every decode, replayed or not, adds the eager forward's
+    launches to each kernel's count, and the program's records name the
+    launches its capture made."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.models import programs
+    from axctdprocessor_tpu_torch.ops.kernels import extension
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+
+    packed = []
+    real = engine.finish_result
+    monkeypatch.setattr(engine, "finish_result",
+                        lambda out, *a, **k: packed.append(np.array(out)) or real(out, *a, **k))
+    programs.clear()
+    drops = [_int16_drop(d, s) for d, s in ((36.0, 3), (44.0, 8), (40.0, 17), (41.0, 5))]
+    steps = []
+    for raw in drops:
+        before = _counts()
+        assert engine.decode_waveform(raw, 44100, device="cuda").status == 2
+        steps.append({k: v - before[k] for k, v in _counts().items()})
+    (program,) = programs.programs()
+    assert program.calls == 4 and program.graph is not None
+    assert steps[0]["tone_ratios"] == 1 and all(s == steps[0] for s in steps), steps
+    assert program.records["tone"] is not None
+    assert program.records["probe"] == tuple(extension().probe_geometry(program.module.dims.npcm))
+    cfg = DecoderConfig()
+    dims = program.module.dims
+    fresh = engine.FusedDecoder.from_numpy_tables(
+        engine.engine_tables(cfg, 44100.0, dims), dims, 44100.0, bitrate=cfg.bitrate,
+        bit_inset=cfg.bit_inset, device="cuda")
+    for raw, got in zip(drops, packed):
+        x = torch.from_numpy(np.concatenate([raw, np.zeros(dims.n - len(raw), np.int16)]))
+        with torch.inference_mode():
+            want = fresh(x.cuda(), torch.tensor(len(raw), device="cuda")).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+    programs.clear()
+
+
+@pytest.mark.cuda
+def test_program_whose_capture_fails_raises():
+    """A forward that cannot be captured (it reads a device value on the
+    host) runs on its first call, raises at its capture and at every later
+    call, and never decodes eagerly in its place; the card goes on
+    capturing other programs."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.models import programs
+
+    ones = np.ones(4, np.float32)
+    bad = programs.Program(lambda x: x * x.sum().item(), (torch.zeros(4, device="cuda"),),
+                           "cuda")
+    assert torch.equal(bad(ones).cpu(), torch.full((4,), 4.0))
+    before = _counts()
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            bad(ones)
+        assert bad.graph is None and bad.calls == 1
+    assert _counts() == before
+    good = programs.Program(lambda x: x * 2, (torch.zeros(4, device="cuda"),), "cuda")
+    outs = [good(ones * k) for k in (1, 2, 3)]
+    assert good.graph is not None
+    for k, out in zip((1, 2, 3), outs):
+        assert torch.equal(out.cpu(), torch.full((4,), 2.0 * k))
+
+
+@pytest.mark.cuda
+def test_program_replay_adds_the_counts_of_its_capture():
+    """A batch program's replays: the kernels' counts rise by the capture's
+    deltas on every replay, as the eager forward raises them; interleaved
+    dispatches of two batches each equal the batch's eager forward."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.models import programs
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    programs.clear()
+    rows = np.stack([_int16_drop(40.0, s) for s in (3, 8, 17, 21)])
+    before = _counts()
+    outs = [batch.dispatch_batch(sub, 44100, device="cuda") for sub in (rows[:2], rows[2:]) * 2]
+    after = _counts()
+    (program,) = programs.programs()
+    assert program.calls == 4 and program.graph is not None
+    assert {k: (after[k] - before[k]) / 4 for k in after} == {
+        "tone_ratios": 1, "probe_at": 1, "chain_walk_segments": 3, "chain_walk_frames": 3}
+    assert sum(d for (_, name, count), d in program.deltas.items()
+               if name == "tone_ratios" and count == "launches") == 1
+    plan = batch.BatchPlan(rows.dtype, rows.shape[1], 44100, None, "auto", "cuda")
+    for k, (out, ctx) in enumerate(outs):
+        sub = (rows[:2], rows[2:])[k % 2]
+        with torch.inference_mode():
+            want = plan.model(torch.from_numpy(sub).cuda(),
+                              torch.full((2,), sub.shape[1], device="cuda"))
+        assert torch.equal(out, want), k
+        assert all(r.status == 2 for r in batch.finish_dispatched(out, ctx))
+    programs.clear()
