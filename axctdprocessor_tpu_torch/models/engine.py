@@ -819,9 +819,7 @@ def fused_program(tables: dict, dims: EngineDims, fs: float, cfg: DecoderConfig,
     batch, on `device`: a ``FusedDecoder`` with `tables` on the device, a
     static input of that shape and its ``n_valid`` (0-d, or one per row).
     The key holds everything the forward takes as a constant."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = programs.device_key(device)
     bitrate, bit_inset = float(cfg.bitrate), int(cfg.bit_inset)
     key = ("fused", dims, float(fs), bool(decimate2), bool(use_kernel), pcm.dtype.str,
            pcm.shape, str(dev), bitrate, bit_inset, EDGE_PAD, programs.table_key(tables))

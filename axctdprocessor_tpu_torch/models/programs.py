@@ -26,9 +26,18 @@ the ~1,200 kernels that the eager forward queues one Python op at a time.
   warms up (autograd's accumulation streams, DDP's hooks, cuBLAS
   workspaces), and these forwards run in inference mode, take no gradient
   and call no cuBLAS; cuFFT plans are cached by shape, not by stream.  The
-  warm-up runs on the current stream, the capture on ``torch.cuda.graph``'s
-  own side stream.  Entering ``torch.cuda.graph`` synchronizes the device
-  and empties PyTorch's cache: a capture costs more than a warm decode.
+  warm-up runs on the current stream, the capture on a side stream of the
+  program's own on its device (``capture_stream``), in the thread-local
+  capture mode: the pipeline's stager thread uploads the next batch on a
+  stream of its own while the main thread captures, and in the global mode
+  its calls invalidate the capture.  ``torch.cuda.graph``'s default capture
+  stream is one stream, made on whichever device was current at the first
+  capture of the process; a program on another GPU (the pipeline's back
+  half on a second card) would capture its kernels' device's current
+  stream, not the capture stream.  So every call runs with the program's
+  device current, and each program captures on a stream of that device.
+  Entering ``torch.cuda.graph`` synchronizes the device and empties
+  PyTorch's cache: a capture costs more than a warm decode.
 * **On the CPU** every call runs the forward eagerly over the static
   buffers, copies its result into the static output and returns a clone:
   the data flow of a replay without a graph, so that a stale static input
@@ -52,23 +61,49 @@ the ~1,200 kernels that the eager forward queues one Python op at a time.
   records (``tone_last_launch()``, ``probe_last_launch()``) as the program's
   ``deltas`` and ``records``; every replay adds the deltas again, so a count
   reads one launch per kernel per decode, replayed or not.
-* **The cache** (:func:`cached`) holds at most ``MAX_PROGRAMS`` programs,
-  the least recently used evicted first; evicting one releases its graph and
-  its private memory pool.  The graphs hold the cuFFT plans their warm-up
-  made: PyTorch's plan cache (4,096 plans a device by default) must keep
-  them, two or four plans a program.
+* **Several inputs and outputs.** A forward may return one tensor, a tuple
+  or a dict of tensors (the segment program's five outputs, the pipeline's
+  stage 1); each is cloned on the current stream.  ``run(clone=False)``
+  hands back the static outputs themselves, for a caller that copies them
+  on the same stream before the program's next call (the segment programs'
+  outputs into the assemble program's static inputs).  :meth:`Program.load_at`
+  writes one input: the assemble's are filled from several segment calls.
+* **The cache** (:func:`cached`) holds at most ``MAX_PROGRAMS`` programs of
+  one kind (the first item of a key: the JAX package keeps an
+  ``lru_cache(maxsize=8)`` for each of its program kinds; one count over
+  all kinds would thrash a process that serves the monolithic, batch,
+  segmented, stream and pipeline paths, whose warm shapes number 11 in
+  ``chip_smoke.py``'s phase 9h), and what their graphs hold on a card at
+  most ``1 / POOL_SHARE`` of its memory (:attr:`Program.bytes`: the
+  private pool, ``pool_bytes``, read once after the capture from
+  ``torch.cuda.memory_snapshot()``, and the static inputs).  A cached XLA
+  executable holds no activations, but a captured graph keeps its whole
+  pool (7.8 GiB for 64 rows of 60 s), so the JAX package's count alone
+  does not bound the card's memory.  The least recently used programs are
+  evicted first, never the one just used nor a pinned one (:func:`pin`:
+  the programs of a running decode, :func:`pinned`, and those a live
+  stream holds from its constructor to its ``finalize()``); a pinned
+  program's bytes count against the budget all the same, so while pinned
+  programs alone exceed it the cache holds more.  The bound is enforced at
+  each lookup and again after each capture, since a capture is what makes
+  the bytes.  Evicting one releases its graph and its pool; its next call
+  builds it again (no eager decode in its place).  The graphs hold the
+  cuFFT plans their warm-up made: PyTorch's plan cache (4,096 plans a
+  device by default) must keep them, two or four plans a program.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 
 import numpy as np
 import torch
 
 from ..ops import chain, goertzel, tonepower
 
-MAX_PROGRAMS = 8  # the JAX package's lru_cache(maxsize=8) over batch programs
+MAX_PROGRAMS = 8  # of one kind: the JAX package's lru_cache(maxsize=8) over each program kind
+POOL_SHARE = 4    # the cached graphs' pools and inputs hold at most a quarter of the card's memory
 
 # the wrappers that count their kernel launches, by module and name (looked
 # up when read, so that a stand-in for a wrapper counts as the wrapper does)
@@ -127,22 +162,63 @@ def _load(buf: torch.Tensor, value) -> None:
     buf.copy_(t, non_blocking=True)
 
 
+def _each(fn, out):
+    """`fn` over one output tensor, or over each of a tuple or dict of them."""
+    if isinstance(out, dict):
+        return {k: fn(v) for k, v in out.items()}
+    if isinstance(out, tuple):
+        return tuple(fn(v) for v in out)
+    return fn(out)
+
+
+def _leaves(out) -> tuple:
+    """The output tensors: one, or each of a tuple or dict."""
+    if isinstance(out, dict):
+        return tuple(out.values())
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _current(device: torch.device):
+    """`device` current while the block runs (a GPU), else nothing."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _pool_bytes(graph) -> int:
+    """The bytes of a captured graph's private memory pool: the segments of
+    ``torch.cuda.memory_snapshot()`` under its id."""
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
 class Program:
     """`forward` over static input buffers `inputs` on `device`: eager on its
     first call and on the CPU, captured as a CUDA graph at its second call on
     a GPU and replayed after that (see the module's docstring).  `module` is
     the decoder it runs, if any; ``fetch_stream`` is a stream of its own on a
-    GPU for copying its outputs out behind it (the batch path's fetch)."""
+    GPU for copying its outputs out behind it (the batch path's fetch);
+    ``capture_stream`` the stream of its device that its capture runs on;
+    ``pool_bytes`` the bytes its graph's private pool holds (0 until a
+    capture, and on the CPU); ``key`` its key in the cache, if cached."""
 
     def __init__(self, forward, inputs: tuple, device, module=None):
         self.forward, self.inputs, self.module = forward, tuple(inputs), module
         self.device = torch.device(device)
-        self.fetch_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        self.calls = 0
-        self.graph = self.output = None
+        on_card = self.device.type == "cuda"
+        self.fetch_stream = torch.cuda.Stream(self.device) if on_card else None
+        self.capture_stream = torch.cuda.Stream(self.device) if on_card else None
+        self.input_bytes = sum(t.numel() * t.element_size() for t in self.inputs) if on_card else 0
+        self.calls = self.pins = self.pool_bytes = 0
+        self.graph = self.output = self.key = None
         self.deltas, self.records = {}, {}
 
-    def __call__(self, *values) -> torch.Tensor:
+    @property
+    def bytes(self) -> int:
+        """What the cache's budget counts for it: its graph's pool and its
+        static inputs, on a card."""
+        return self.pool_bytes + self.input_bytes
+
+    def __call__(self, *values):
         self.load(*values)
         return self.run()
 
@@ -150,13 +226,21 @@ class Program:
         """The inputs into the static buffers, in order."""
         if len(values) != len(self.inputs):
             raise ValueError(f"{len(values)} inputs for {len(self.inputs)} static buffers")
-        with torch.inference_mode():
-            for buf, value in zip(self.inputs, values):
-                _load(buf, value)
+        for i, value in enumerate(values):
+            self.load_at(i, value)
 
-    def run(self) -> torch.Tensor:
-        """One decode over the static buffers; a clone of the static output."""
+    def load_at(self, index: int, value) -> None:
+        """One input into its static buffer."""
         with torch.inference_mode():
+            _load(self.inputs[index], value)
+
+    def run(self, clone: bool = True):
+        """One decode over the static buffers: a clone of the static output
+        (each of a tuple or dict), or with ``clone=False`` the static output
+        itself, which the program's next call overwrites."""
+        if self.forward is None:
+            raise RuntimeError("the program was released (evicted or cleared)")
+        with torch.inference_mode(), _current(self.device):
             if self.device.type != "cuda" or self.calls == 0:
                 self.run_eager()
             elif self.graph is None:
@@ -164,7 +248,7 @@ class Program:
             else:
                 self.replay()
             self.calls += 1
-            return self.output.clone()
+            return _each(torch.clone, self.output) if clone else self.output
 
     def run_eager(self) -> None:
         """The forward, run eagerly, into the static output."""
@@ -172,17 +256,23 @@ class Program:
         if self.output is None:
             self.output = out
         else:
-            self.output.copy_(out)
+            for dst, src in zip(_leaves(self.output), _leaves(out)):
+                dst.copy_(src)
 
     def capture(self) -> None:
         """Capture the forward as a CUDA graph (its kernels' counts and
-        launch records with it), then replay it once.  Raises if the capture
-        fails, with the counts as they were."""
+        launch records with it), then replay it once; its pool's bytes are
+        read and the cache's bound enforced.  Raises if the capture fails,
+        with the counts as they were."""
         before = _read_counts()
         stream = torch.cuda.current_stream(self.device)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            # thread-local: another thread's CUDA calls (the pipeline's stager
+            # pinning and uploading the next batch on its own stream) neither
+            # join nor invalidate this capture
+            with torch.cuda.graph(graph, stream=self.capture_stream,
+                                  capture_error_mode="thread_local"):
                 out = self.forward(*self.inputs)
         except BaseException:
             torch.cuda.set_stream(stream)  # a failed capture leaves its own stream current
@@ -193,7 +283,9 @@ class Program:
         self.deltas = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         self.records = _launch_records(self.deltas)
         self.graph, self.output = graph, out
+        self.pool_bytes = _pool_bytes(graph)
         graph.replay()
+        _evict(keep=self)
 
     def replay(self) -> None:
         """The captured graph once, its kernels' counts added."""
@@ -206,22 +298,81 @@ class Program:
             self.graph.reset()
         self.graph = self.output = self.module = self.forward = None
         self.inputs = ()
+        self.pool_bytes = self.input_bytes = 0
 
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 
 
+def pool_budget(device: torch.device) -> int | None:
+    """The bytes the cached programs on `device` may hold (their graphs'
+    pools and static inputs): a ``POOL_SHARE``-th of a card's memory; no
+    bound on the CPU (no pools)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory // POOL_SHARE
+
+
+def _kind(key):
+    """A key's kind, its first item (``"fused"``, ``"segment"``, ...)."""
+    return key[0] if isinstance(key, tuple) else key
+
+
+def _evict(keep: Program | None = None) -> None:
+    """Evict and release the least recently used programs until the cache
+    holds at most ``MAX_PROGRAMS`` of each kind and each device's programs
+    at most its ``pool_budget``; never `keep` nor a pinned program."""
+    def drop(which) -> bool:
+        key = next((k for k, p in _cache.items()
+                    if p is not keep and not p.pins and which(k, p)), None)
+        if key is not None:
+            _cache.pop(key).release()
+        return key is not None
+
+    for kind in {_kind(k) for k in _cache}:
+        while (sum(_kind(k) == kind for k in _cache) > MAX_PROGRAMS
+               and drop(lambda k, p: _kind(k) == kind)):
+            pass
+    for device in {p.device for p in _cache.values()}:
+        budget = pool_budget(device)
+        while (budget is not None and held_bytes(device) > budget
+               and drop(lambda k, p: p.device == device and p.bytes)):
+            pass
+
+
 def cached(key, build) -> Program:
     """The program of `key`, made by ``build()`` on a miss; the least
-    recently used program beyond ``MAX_PROGRAMS`` is evicted and released."""
+    recently used programs beyond the cache's bounds are evicted and
+    released."""
     program = _cache.get(key)
-    if program is not None:
-        _cache.move_to_end(key)
-        return program
-    program = _cache[key] = build()
-    while len(_cache) > MAX_PROGRAMS:
-        _cache.popitem(last=False)[1].release()
+    if program is None:
+        program = _cache[key] = build()
+        program.key = key
+    _cache.move_to_end(key)
+    _evict(keep=program)
     return program
+
+
+def pin(*held: Program) -> None:
+    """`held` are not evicted until :func:`unpin` (pins count)."""
+    for p in held:
+        p.pins += 1
+
+
+def unpin(*held: Program) -> None:
+    for p in held:
+        p.pins -= 1
+
+
+@contextlib.contextmanager
+def pinned(*held: Program):
+    """While the block runs, `held` (the programs of one decode) are not
+    evicted, whatever another's capture adds to the cache."""
+    pin(*held)
+    try:
+        yield
+    finally:
+        unpin(*held)
 
 
 def programs() -> list:
@@ -229,10 +380,26 @@ def programs() -> list:
     return list(_cache.values())
 
 
+def held_bytes(device=None) -> int:
+    """The bytes the cached programs hold, graph pools and static inputs
+    (on `device`)."""
+    return sum(p.bytes for p in _cache.values()
+               if device is None or p.device == torch.device(device))
+
+
 def clear() -> None:
-    """Evict and release every cached program."""
+    """Evict and release every cached program, pinned ones too."""
     while _cache:
         _cache.popitem(last=False)[1].release()
+
+
+def device_key(device) -> torch.device:
+    """`device` as a key holds it: a GPU with its index (the current one
+    where none is given)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def table_key(tables: dict) -> tuple:

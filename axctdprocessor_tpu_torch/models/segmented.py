@@ -11,13 +11,20 @@ the same int32 vector as the JAX engine's.
 
 * :class:`SegmentedDecoder` — the module: the constant tables
   (``engine.engine_tables``) are its buffers; ``segment`` decodes one
-  haloed segment or a group of them in one pass, ``segment_groups`` the
-  groups of a drop (one pass a group), ``assemble`` finishes, and
-  ``forward`` is the whole resident decode over a staged stack (every
-  segment in one pass).
+  haloed segment or a group of them in one pass, ``assemble`` finishes
+  (``assemble_bucket``: over a bucket's stacked rows, those from a segment
+  count on the zero segment), and ``forward`` is the whole resident decode
+  over a staged stack (every segment in one pass).
+* :func:`segment_program` / :func:`assemble_program` — the cached programs
+  (``models.programs``) of a group shape and of an assemble bucket, the JAX
+  package's ``_segment_program`` / ``_segment_program_grouped`` and
+  ``_assemble_program`` / ``_assemble_program_chunked``: every per-decode
+  value (extensions, body offsets, ``dc``, ``peak``, valid lengths, the
+  segment count) is a static input.
 * :func:`decode_waveform_segmented` — the streamed decode: segments are
   uploaded a group at a time, each group's copy on a side stream under the
-  previous group's compute, with no host sync until the one fetch.
+  previous group's compute, then through the group program and into the
+  assemble program's inputs, with no host sync until the one fetch.
 * :func:`prestage_waveform` / :class:`PrestagedDrop` — every group staged
   on the device first; ``decode()`` is then compute and one fetch.
 
@@ -30,7 +37,9 @@ bit for bit alike in a group of any size and alone (the stream decoder's
 one segment per push): the FFT filters a row of a batch as the row alone
 (``engine.apply_response``), the crossings are integer, and the raw tone powers
 and the probes are kernels with a fixed order of sums per window and per
-probe (``tonepower.tone_powers``, ``goertzel.probe_at``).
+probe (``tonepower.tone_powers``, ``goertzel.probe_at``).  Every group of a
+path has the same G rows (a drop's last group is padded, as the JAX
+package's chunks are), so a path takes one group shape.
 
 Tone powers on this path are raw and smoothed globally in the assemble, as
 the JAX engine's; on the card they come from the tone kernel's powers-only
@@ -109,18 +118,19 @@ class SegmentedDecoder(nn.Module):
     @classmethod
     def from_config(cls, cfg: DecoderConfig, fs: float, decim2: bool,
                     device) -> "SegmentedDecoder":
-        m = cls(fs, eng.probe_window(cfg, fs), cfg.bitrate, cfg.bit_inset, 100, decim2)
-        dims = eng.EngineDims.for_waveform(m.seg_len, m.fs, cfg.bitrate, m.npcm)
-        eng.register_tables(m, eng.engine_tables(cfg, m.fs, dims, decim2),
-                            decim2, torch.device(device))
+        npcm, tables, _ = _module_tables(cfg, fs, decim2)
+        m = cls(fs, npcm, cfg.bitrate, cfg.bit_inset, eng.EDGE_PAD, decim2)
+        eng.register_tables(m, tables, decim2, torch.device(device))
         return m
 
     def segment(self, ext: torch.Tensor, k_off, dc: torch.Tensor,
-                peak: torch.Tensor, n_valid: int):
+                peak: torch.Tensor, n_valid):
         """Stage 1 of one haloed segment extension (in_len,) or of a group
         (G, in_len) in one pass (raw rate; packed int4 bytes, integer or float
         PCM), whose bodies start at decode-rate samples `k_off` (an int, or
-        a (G,) tensor), with `n_valid` the raw valid length of the file.
+        a (G,) tensor), with `n_valid` the raw valid length of the file (an
+        int, or a 0-d int64 tensor: the programs' static input; the masks
+        are integer comparisons either way).
         Returns (powers (strides, 3), global crossing positions int64[c_seg]
         then BIG, probe ratios, the true crossing count, the row-overflow
         flag), each with a leading G for a group."""
@@ -134,7 +144,7 @@ class SegmentedDecoder(nn.Module):
         return k_off[:, None] if isinstance(k_off, torch.Tensor) and lead else k_off
 
     def filter_segment(self, ext: torch.Tensor, k_off, dc: torch.Tensor,
-                       peak: torch.Tensor, n_valid: int):
+                       peak: torch.Tensor, n_valid):
         """Conditioning ``(x - dc) / peak`` (a true division: `dc` and `peak`
         are device tensors) masked to the valid samples, the optional
         decimation, and the FFT filter, over one extension or a group's rows.
@@ -154,8 +164,7 @@ class SegmentedDecoder(nn.Module):
             x = torch.where((gpos >= 0) & (gpos < nv_dec), x, 0.0)
         return x, eng.fft_filter(x, self.sos, self.nfft)[..., : self.ext_len]
 
-    def probe_segment(self, x: torch.Tensor, filt: torch.Tensor, k_off,
-                      n_valid: int):
+    def probe_segment(self, x: torch.Tensor, filt: torch.Tensor, k_off, n_valid):
         """Raw tone powers on the global grid (smoothing is global, in the
         assemble), crossings and their probe ratios, from ``filter_segment``'s
         outputs (one extension or a group's rows)."""
@@ -176,17 +185,6 @@ class SegmentedDecoder(nn.Module):
         made on the device (no host copy)."""
         return (torch.arange(rows, device=dev) + first) * self.seg_len
 
-    def segment_groups(self, groups, dc, peak, n_valid: int) -> list:
-        """Stage 1 of every segment of a drop, given as groups (device
-        tensors (G, in_len) of consecutive segment extensions, in order):
-        one pass a group.  Returns each group's outputs (leading G)."""
-        outs, first = [], 0
-        for ext in groups:
-            outs.append(self.segment(ext, self._offsets(first, ext.shape[0], ext.device),
-                                     dc, peak, n_valid))
-            first += ext.shape[0]
-        return outs
-
     def zero_segment(self):
         """The shared padding segment: nothing valid, so zero powers, no
         crossings, zero probe ratios."""
@@ -202,13 +200,31 @@ class SegmentedDecoder(nn.Module):
         """Stage-1 outputs in time order -> the packed int32 vector: each
         item one segment's (``segment`` of one extension) or a group's
         (leading G).  Pads with the zero segment up to the bucket ``dims.n
-        // seg_len``, smooths the concatenated powers globally, merges the
-        crossings, runs the bit-edge chain and the back half.  `n_valid` is
-        the decode-rate length."""
+        // seg_len`` and hands the stacked rows to :meth:`assemble_stacked`.
+        `n_valid` is the decode-rate length."""
         outs = [o if o[0].dim() == 3 else tuple(t[None] for t in o) for o in outs]
         pad = dims.n // self.seg_len - sum(o[0].shape[0] for o in outs)
         outs += [tuple(t[None] for t in self.zero_segment())] * pad
-        powers, gpos, c0, cnt, rovf = (torch.cat([o[i] for o in outs]) for i in range(5))
+        return self.assemble_stacked(*(torch.cat([o[i] for o in outs]) for i in range(5)),
+                                     n_valid, dims)
+
+    def assemble_bucket(self, powers, gpos, c0, cnt, rovf, n_seg: torch.Tensor,
+                        n_valid: torch.Tensor, dims: eng.EngineDims) -> torch.Tensor:
+        """The assemble program's forward: the bucket's stacked segment
+        outputs, of which the rows from `n_seg` (a device count) on are
+        replaced by the zero segment, whatever they hold (a longer drop's
+        segments from the program's previous call, a group's padding
+        rows), then :meth:`assemble_stacked`."""
+        live = torch.arange(powers.shape[0], device=powers.device) < n_seg
+        rows = [torch.where(live.reshape((-1,) + (1,) * (t.dim() - 1)), t, z)
+                for t, z in zip((powers, gpos, c0, cnt, rovf), self.zero_segment())]
+        return self.assemble_stacked(*rows, n_valid, dims)
+
+    def assemble_stacked(self, powers, gpos, c0, cnt, rovf, n_valid: torch.Tensor,
+                         dims: eng.EngineDims) -> torch.Tensor:
+        """The bucket's stacked segment outputs (``dims.n // seg_len`` rows)
+        -> the packed int32 vector: smooths the powers globally, merges the
+        crossings, runs the bit-edge chain and the back half."""
         r400, r7500 = tonepower.ratios_from_powers(powers.reshape(-1, powers.shape[-1]))
 
         # Ragged merge, written as a gather: the JAX engine writes each
@@ -249,11 +265,100 @@ class SegmentedDecoder(nn.Module):
                                            peak, nv_raw)], nv_dec, dims)
 
 
+_TABLES: dict = {}  # (repr(cfg), fs, decim2) -> (npcm, tables, their program key)
+_TABLES_KEPT = 16
+
+
+def _module_tables(cfg: DecoderConfig, fs: float, decim2: bool) -> tuple:
+    """The probe window, the numpy tables of a segmented module and their
+    ``programs.table_key``, made once per configuration, rate and
+    decimation (the JAX package's ``_engine_tables_cached``): a program
+    lookup, at every decode and every streamed segment, then hashes no
+    table."""
+    fs = float(fs)
+    key = (repr(cfg), fs, bool(decim2))
+    hit = _TABLES.get(key)
+    if hit is None:
+        npcm = eng.probe_window(cfg, fs)
+        dims = eng.EngineDims.for_waveform(_seg_geometry(fs)[2], fs, cfg.bitrate, npcm)
+        tables = eng.engine_tables(cfg, fs, dims, decim2)
+        if len(_TABLES) >= _TABLES_KEPT:
+            _TABLES.pop(next(iter(_TABLES)))
+        hit = _TABLES[key] = (npcm, tables, programs.table_key(tables))
+    return hit
+
+
+def segment_program(cfg: DecoderConfig, fs: float, decim2: bool, rows: int, dtype,
+                    device) -> programs.Program:
+    """The cached program of stage 1 over `rows` haloed segment extensions
+    of wire dtype `dtype` at decode rate `fs` (the JAX package's
+    ``_segment_program`` for one row, the stream's, and
+    ``_segment_program_grouped`` for a group): a ``SegmentedDecoder`` with
+    its tables on the device, built once.  Static inputs: the (rows,
+    buf_len) extensions, their (rows,) body offsets ``k_off``, ``dc``,
+    ``peak`` and the raw valid length ``n_valid``; the outputs are
+    ``segment``'s five, each with a leading row axis.  ``offsets`` (on the
+    program) is ``arange(rows) * seg_len`` on the device: a group's
+    ``k_off`` is it plus the first body's offset."""
+    dev = programs.device_key(device)
+    fs = float(fs)
+    npcm, _, tables_key = _module_tables(cfg, fs, decim2)
+    dtype = np.dtype(dtype)
+    key = ("segment", fs, npcm, int(cfg.bit_inset), eng.EDGE_PAD, bool(decim2), int(rows),
+           dtype.str, str(dev), tables_key)
+
+    def build():
+        model = SegmentedDecoder.from_config(cfg, fs, decim2, dev)
+        pk = 2 if dtype == np.uint8 else 1
+        ext = torch.empty((rows, model.in_len // pk), dtype=torch.from_numpy(
+            np.empty(0, dtype)).dtype, device=dev)
+        k_off = torch.zeros(rows, dtype=torch.int64, device=dev)
+        dc, peak = torch.zeros((), device=dev), torch.ones((), device=dev)
+        n_valid = torch.zeros((), dtype=torch.int64, device=dev)
+        program = programs.Program(model.segment, (ext, k_off, dc, peak, n_valid), dev,
+                                   module=model)
+        program.offsets = model._offsets(0, rows, dev)
+        return program
+
+    return programs.cached(key, build)
+
+
+def assemble_program(cfg: DecoderConfig, fs: float, decim2: bool, k_seg: int,
+                     device) -> programs.Program:
+    """The cached program of the assemble over a bucket of `k_seg` segments
+    (``_bucket_count``, which fixes ``dims``): the JAX package's
+    ``_assemble_program`` / ``_assemble_program_chunked``.  Static inputs:
+    the stacked segment outputs (powers (k_seg, strides, 3), crossing
+    positions and probe ratios (k_seg, c_seg), counts and row-overflow
+    flags (k_seg,)), the count of live rows ``n_seg`` and the decode-rate
+    valid length; the rows from ``n_seg`` on are the zero segment inside the
+    forward (``SegmentedDecoder.assemble_bucket``), whatever a caller left
+    there.  The ragged merge, the bit-edge chain and the back half run
+    inside the graph."""
+    dev = programs.device_key(device)
+    fs = float(fs)
+    npcm, _, tables_key = _module_tables(cfg, fs, decim2)
+    dims = eng.EngineDims.for_waveform(k_seg * _seg_geometry(fs)[2], fs, cfg.bitrate, npcm)
+    key = ("assemble", int(k_seg), dims, fs, float(cfg.bitrate), bool(decim2), str(dev),
+           tables_key)
+
+    def build():
+        model = SegmentedDecoder.from_config(cfg, fs, decim2, dev)
+        with torch.inference_mode():
+            rows = tuple(torch.zeros((k_seg,) + z.shape, dtype=z.dtype, device=dev)
+                         for z in model.zero_segment())
+        counts = tuple(torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2))
+        return programs.Program(functools.partial(model.assemble_bucket, dims=dims),
+                                rows + counts, dev, module=model)
+
+    return programs.cached(key, build)
+
+
 @dataclasses.dataclass
 class DropPlan:
     """Host-side plan of one segmented decode: the wire-encoded PCM and its
     conditioning statistics, the segment/group geometry, and the module
-    with its tables on the device."""
+    with its tables on the device (the group program's)."""
 
     cfg: DecoderConfig
     fs: float
@@ -273,6 +378,7 @@ class DropPlan:
     nv_dec: torch.Tensor
     pk: int                # samples per byte (2 for int4)
     buf_len: int
+    decim2: bool
 
     @property
     def n_chunk(self) -> int:
@@ -282,11 +388,21 @@ class DropPlan:
     def fill(self):
         return np.uint8(0x88) if self.pk == 2 else self.pcm.dtype.type(0)
 
+    def group_programs(self) -> tuple:
+        """The cached group and assemble programs of this drop's shapes
+        (looked up at each decode: an evicted program is built again)."""
+        dev = self.nv_dec.device
+        seg = segment_program(self.cfg, self.fs, self.decim2, self.group, self.pcm.dtype, dev)
+        with programs.pinned(seg):  # the second lookup may evict
+            return seg, assemble_program(self.cfg, self.fs, self.decim2,
+                                         _bucket_count(self.n_seg), dev)
+
 
 def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
     """Resolve the wire and encode on the host, take the conditioning
     statistics (host float64, as the WAV reader's), fix the geometry, and
-    build the module on the device."""
+    take the module from the cached group program (tables uploaded once
+    per shape)."""
     dev = eng.resolve_device(device)
     cfg = config or DecoderConfig()
     pcm = np.asarray(pcm)
@@ -346,17 +462,19 @@ def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
     return DropPlan(
         cfg=cfg, fs=fs, fs_report=fs_report, raw_mult=raw_mult, n_raw=n_raw,
         n=n, wire=w, pcm=pcm, enc=enc, n_seg=n_seg, group=int(group), dims=dims,
-        model=SegmentedDecoder.from_config(cfg, fs, decim2, dev),
+        model=segment_program(cfg, fs, decim2, int(group), pcm.dtype, dev).module,
         dc=scalar(float(np.float32(dc)), torch.float32),
         peak=scalar(float(np.float32(peak)), torch.float32),
-        nv_dec=scalar(n, torch.int64), pk=pk, buf_len=ext_len * raw_mult // pk)
+        nv_dec=scalar(n, torch.int64), pk=pk, buf_len=ext_len * raw_mult // pk,
+        decim2=decim2)
 
 
 def _chunk_host(p: DropPlan, j: int) -> np.ndarray:
-    """Group j's stacked haloed segment extensions (rows past the last
-    segment are not built; the assemble pads with the zero segment)."""
+    """Group j's stacked haloed segment extensions, G rows: a row past the
+    last segment holds the wire's zero (the assemble takes the zero
+    segment in its place)."""
     rows = min(p.group, p.n_seg - j * p.group)
-    exts = np.full((rows, p.buf_len), p.fill, dtype=p.pcm.dtype)
+    exts = np.full((p.group, p.buf_len), p.fill, dtype=p.pcm.dtype)
     seg_len, rm, pk = p.model.seg_len, p.raw_mult, p.pk
     for r in range(rows):
         k = j * p.group + r
@@ -384,13 +502,38 @@ def _upload(host: np.ndarray, dev: torch.device, copy_stream) -> torch.Tensor:
     return ext
 
 
+def _queue_drop(p: DropPlan, seg: programs.Program, asm: programs.Program, exts) -> None:
+    """The drop's per-decode values into the programs' static inputs, then,
+    on the current stream, each group of `exts` (in order; device tensors
+    the stream may read, or host arrays) into the group program's static
+    input with its body offsets, the group program's call, and the rows of
+    its outputs that fall inside the bucket copied into the assemble
+    program's static inputs before its next call overwrites them."""
+    seg.load_at(2, p.dc)
+    seg.load_at(3, p.peak)
+    seg.load_at(4, p.n_raw)
+    asm.load_at(5, p.n_seg)
+    asm.load_at(6, p.nv_dec)
+    k_seg, seg_len = asm.inputs[0].shape[0], p.model.seg_len
+    for j, ext in enumerate(exts):
+        first = j * p.group
+        seg.load_at(0, ext)
+        with torch.inference_mode():
+            torch.add(seg.offsets, first * seg_len, out=seg.inputs[1])
+            outs = seg.run(clone=False)
+            keep = min(p.group, k_seg - first)
+            if keep > 0:
+                for buf, t in zip(asm.inputs, outs):
+                    buf[first: first + keep].copy_(t[:keep])
+
+
 def decode_waveform_segmented(pcm, fs, *, device="cuda",
                               config: DecoderConfig | None = None,
                               wire: str = "auto", timer=None,
                               lossy_retry: bool = True,
                               group: int = GROUP) -> DecodeResult:
     """Decode with per-segment stage 1 and a streamed upload, `group`
-    segments per upload.
+    segments per upload, through the cached group and assemble programs.
 
     Same result contract as ``engine.decode_waveform``; integer input is
     conditioned on the device with host float64 DC/peak statistics.
@@ -411,16 +554,19 @@ def decode_waveform_segmented(pcm, fs, *, device="cuda",
                     p.enc.ensure((last * p.model.seg_len + p.model.seg_len
                                   + p.model.right) * p.raw_mult)
             with timer.stage("  build_upload"):
+                # the copy into the program's input is queued after the
+                # compute stream's wait for this upload
                 ext = _upload(_chunk_host(p, j), dev, copy_stream)
             yield ext
 
-    with torch.inference_mode():
+    seg, asm = p.group_programs()
+    with programs.pinned(seg, asm):
         with timer.stage("dispatch_loop"):
-            outs = p.model.segment_groups(uploads(), p.dc, p.peak, p.n_raw)
+            _queue_drop(p, seg, asm, uploads())
         with timer.stage("assemble_dispatch"):
-            out = p.model.assemble(outs, p.nv_dec, p.dims)
-        with timer.stage("fetch"):
-            host = out.cpu().numpy()  # the decode's one device-to-host copy
+            out = asm.run()
+    with timer.stage("fetch"):
+        host = out.cpu().numpy()  # the decode's one device-to-host copy
     with timer.stage("host_finish"):
         res = eng.finish_result(host, p.fs_report, p.n, p.fs, p.cfg, wire_used=p.wire)
     if lossy_retry and eng.lossy_retry_worthy(res, p.n, p.fs, p.cfg):
@@ -437,17 +583,15 @@ class PrestagedDrop:
     (``SegmentedDecoder.forward``) through the drop's own program
     (``models.programs``, the JAX package's ``_resident_program``: a CUDA
     graph on a GPU from the second ``dispatch()`` on); otherwise a list of
-    groups decoded group by group, eagerly.  Both run the same computation
-    and give equal results."""
+    groups decoded group by group through the cached group and assemble
+    programs, as the streamed decode runs them.  Both run the same
+    computation and give equal results."""
 
     def __init__(self, plan: DropPlan, exts: list, fused: bool = False):
         self.plan = plan
         self.fused = fused
-        if fused:  # pad the last group to G rows (never read)
-            g = plan.group
-            self.ext_all = torch.stack([
-                torch.cat([e, e.new_full((g - e.shape[0], e.shape[1]),
-                                         int(plan.fill))]) for e in exts])
+        if fused:
+            self.ext_all = torch.stack(exts)
             # the forward takes the segment count and the valid length as
             # Python ints, which a capture freezes: they are this drop's, so
             # the program (and its graph) is the drop's, not a shared cache's
@@ -464,10 +608,10 @@ class PrestagedDrop:
         each its own tensor)."""
         if self.fused:
             return self.program()
-        p = self.plan
-        with torch.inference_mode():
-            outs = p.model.segment_groups(self.exts, p.dc, p.peak, p.n_raw)
-            return p.model.assemble(outs, p.nv_dec, p.dims)
+        seg, asm = self.plan.group_programs()
+        with programs.pinned(seg, asm):
+            _queue_drop(self.plan, seg, asm, self.exts)
+            return asm.run()
 
     def finish(self, out: torch.Tensor) -> DecodeResult:
         """Fetch and host-finish a ``dispatch()`` output."""

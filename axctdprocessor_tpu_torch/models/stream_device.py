@@ -19,15 +19,30 @@ masks cannot bind and its outputs equal the offline decode's, which passes
 the file length.  Input is float PCM from a receiver front end
 (conditioning is the receiver's), fed as ``dc = 0``, ``peak = 1``; >50 kHz
 feeds decimate by 2 on the device inside each segment, as offline.
+
+Both steps run through cached programs (``models/programs.py``), the JAX
+package's ``_segment_program`` and ``_assemble_program``: each segment
+through the one-row segment program, whose static inputs take its
+extension, body offset and valid length (``stream_tpu.py`` passes them as
+device arrays too), its outputs copied into the stream's own lists; each
+snapshot through the assemble program of its bucket, its rows filled from
+those lists.  A stream holds the one-row program, and with ``max_duration``
+its bucket's assemble program, from its constructor to its ``finalize()``
+(``programs.pin``): other decodes in the process never evict them, so a
+live drop never builds or captures one again.  Their bytes count against
+the cache's budget like any other program's.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
 
 from ..utils.config import DecoderConfig
 from . import engine as eng
+from . import programs
 from . import segmented as seg
 from .result import DecodeResult
 
@@ -42,39 +57,63 @@ class DeviceStreamDecoder:
                  max_duration: float | None = None, *, device="cuda"):
         """``max_duration`` (seconds) pins every ``results()`` snapshot to
         one assemble size, the bucket of a stream that long, and runs that
-        assemble once here.  On a GPU nothing compiles, but the first run
-        of a shape pays for what a live receiver should not wait on
-        mid-drop: the cuFFT plan of the segment FFT, the first launch of
-        each kernel (lazy module loading) and the growth of the caching
-        allocator to the largest snapshot's working set.  Streams may run
-        past ``max_duration``; only then do snapshots grow."""
+        assemble's program and the segment program here twice each: the
+        first call (the cuFFT plan of the segment FFT, the first launch of
+        each kernel, the growth of the caching allocator) and the second,
+        the capture of their CUDA graphs (a device sync and an emptied
+        cache), are what a live receiver should not wait on mid-drop.
+        Streams may run past ``max_duration``; only then do snapshots
+        grow.  The programs the stream runs at every segment and snapshot
+        are pinned in the cache until ``finalize()`` (or until the stream
+        is collected)."""
         self.cfg = config or DecoderConfig()
-        dev = eng.resolve_device(device)
-        decim2 = float(fs) > 50000.0
-        self.fs = float(fs) / 2.0 if decim2 else float(fs)
-        self._fs_report = (self.fs if decim2
+        self._dev = programs.device_key(eng.resolve_device(device))
+        self._decim2 = float(fs) > 50000.0
+        self.fs = float(fs) / 2.0 if self._decim2 else float(fs)
+        self._fs_report = (self.fs if self._decim2
                            else (float(fs) if isinstance(fs, float) else int(fs)))
-        self._model = seg.SegmentedDecoder.from_config(self.cfg, self.fs, decim2, dev)
+        self._one = seg.segment_program(self.cfg, self.fs, self._decim2, 1, np.float32,
+                                        self._dev)
+        held = [self._one]
+        programs.pin(self._one)  # before the assemble's lookup may evict
+        self._model = self._one.module
         self._seg_len, self._right = self._model.seg_len, self._model.right
         self._raw_mult = self._model.raw_mult
-        self._zero_dc = torch.zeros((), device=dev)
-        self._unit = torch.ones((), device=dev)
 
         # rolling raw buffer: samples [self._pend_at, self._fed)
         self._pend = np.zeros(0, np.float32)
         self._pend_at = 0
         self._fed = 0
-        self._outs: list = []     # per-segment device outputs, in order
+        self._outs: list = [[] for _ in range(5)]  # per-segment device outputs, by output
         self._next_k = 0          # first segment not yet queued
         self._finalized = False
         self._final = None
         self._consumed_rows = 0
 
         self._pin_bucket = 0
+        self._asm = None
         if max_duration is not None:
             n_seg_max = max(int(np.ceil(max_duration * self.fs / self._seg_len)), 1)
             self._pin_bucket = seg._bucket_count(n_seg_max)
-            self._assemble(0, 0)
+            self._asm = seg.assemble_program(self.cfg, self.fs, self._decim2,
+                                             self._pin_bucket, self._dev)
+            programs.pin(self._asm)
+            held.append(self._asm)
+        self._unpin = weakref.finalize(self, programs.unpin, *held)
+        if self._asm is not None:
+            one, asm = self._one, self._asm
+            for _ in range(max(0, 2 - one.calls)):
+                one.load(0.0, 0, 0.0, 1.0, 0)  # the zero segment
+                one.run(clone=False)
+            for _ in range(max(0, 2 - asm.calls)):
+                asm.load_at(5, 0)
+                asm.load_at(6, 0)
+                asm.run()
+
+    def _assemble_program(self, k_seg: int) -> programs.Program:
+        if k_seg == self._pin_bucket:
+            return self._asm
+        return seg.assemble_program(self.cfg, self.fs, self._decim2, k_seg, self._dev)
 
     # -- feeding -----------------------------------------------------------
 
@@ -100,31 +139,35 @@ class DeviceStreamDecoder:
         return self._next_k
 
     def _dispatch(self, k: int, n_valid: int) -> None:
+        """Segment k through the one-row segment program; its outputs are
+        copied out (the program's next call overwrites them)."""
         rm = self._raw_mult
         lo = (k * self._seg_len - seg.LEFT_HALO) * rm
-        ext = np.zeros(self._model.in_len, np.float32)
+        ext = np.zeros((1, self._model.in_len), np.float32)
         src_lo, src_hi = max(lo, 0), min(lo + self._model.in_len, self._fed)
         if src_hi > src_lo:
-            ext[src_lo - lo: src_hi - lo] = \
+            ext[0, src_lo - lo: src_hi - lo] = \
                 self._pend[src_lo - self._pend_at: src_hi - self._pend_at]
+        self._one.load(ext, k * self._seg_len, 0.0, 1.0, n_valid)
         with torch.inference_mode():
-            self._outs.append(self._model.segment(
-                eng.to_device(ext, self._unit.device), k * self._seg_len,
-                self._zero_dc, self._unit, n_valid))
+            for outs, t in zip(self._outs, self._one.run()):
+                outs.append(t)
 
     # -- reading -----------------------------------------------------------
 
     def _assemble(self, n_seg: int, nv_dec: int) -> DecodeResult:
-        n_seg = max(n_seg, 1)
-        n_seg_pad = max(seg._bucket_count(n_seg), self._pin_bucket)
-        dims = eng.EngineDims.for_waveform(n_seg_pad * self._seg_len, self.fs,
-                                           self.cfg.bitrate, self._model.npcm)
-        dev = self._unit.device
-        with torch.inference_mode():
-            out = self._model.assemble(
-                self._outs[:n_seg],
-                torch.full((), nv_dec, dtype=torch.int64, device=dev), dims)
-            host = out.cpu().numpy()
+        """The first `n_seg` segments (those queued) through the assemble
+        program of their bucket, or of the pinned one."""
+        n_seg = min(n_seg, self._next_k)
+        k_seg = max(seg._bucket_count(max(n_seg, 1)), self._pin_bucket)
+        asm = self._assemble_program(k_seg)
+        with programs.pinned(asm), torch.inference_mode():
+            if n_seg:
+                for buf, outs in zip(asm.inputs, self._outs):
+                    torch.cat(outs[:n_seg], out=buf[:n_seg])
+            asm.load_at(5, n_seg)
+            asm.load_at(6, nv_dec)
+            host = asm.run().cpu().numpy()
         return eng.finish_result(host, self._fs_report, nv_dec, self.fs, self.cfg,
                                  wire_used="float32")
 
@@ -163,4 +206,5 @@ class DeviceStreamDecoder:
             self._dispatch(self._next_k, n_raw)
             self._next_k += 1
         self._final = self._assemble(n_seg, n_dec)
+        self._unpin()
         return self._final

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models import engine as eng
+from ..models import programs
 from ..models.result import DecodeResult
 from ..ops import wire as wire_ops
 from ..utils.config import DecoderConfig
@@ -105,8 +106,10 @@ class BatchPlan:
     format and the tables; the cached program of a batch's shape
     (:meth:`program`, ``models.programs``: the module with its tables on the
     device, captured as a CUDA graph on a GPU, with a fetch stream of its
-    own), or the module alone for callers that run its two halves apart
-    (``model``, ``parallel.pipeline``)."""
+    own), and the cached programs of its two halves for callers that run
+    them apart (:meth:`stage1_program`, :meth:`back_half_program`: the JAX
+    package's ``_batched_stage1`` and ``_batched_back_half``,
+    ``parallel.pipeline``), which share one module, ``model``."""
 
     def __init__(self, dtype, n: int, fs, config: DecoderConfig | None, wire: str,
                  device):
@@ -129,10 +132,16 @@ class BatchPlan:
 
     @functools.cached_property
     def model(self) -> eng.FusedDecoder:
-        """The decoder module alone, its tables on the device, run eagerly."""
+        """The decoder module, its tables on the device: the halves'
+        programs are built over it."""
         return eng.FusedDecoder.from_numpy_tables(
             self.tables, self.dims, self.fs, bitrate=float(self.cfg.bitrate),
-            bit_inset=self.cfg.bit_inset, edge_pad=eng.EDGE_PAD, device=self.dev)
+            bit_inset=self.cfg.bit_inset, edge_pad=eng.EDGE_PAD,
+            device=programs.device_key(self.dev))
+
+    @functools.cached_property
+    def _tables_key(self) -> tuple:
+        return programs.table_key(self.tables)
 
     @functools.cached_property
     def fetch_stream(self):
@@ -142,6 +151,43 @@ class BatchPlan:
     def program(self, rows: np.ndarray):
         """The cached program of a batch of these encoded rows' shape."""
         return eng.fused_program(self.tables, self.dims, self.fs, self.cfg, rows, self.dev)
+
+    def _half_program(self, half: str, shapes: tuple, build):
+        cfg, dev = self.cfg, programs.device_key(self.dev)
+        key = (half, self.dims, self.fs, shapes, str(dev), float(cfg.bitrate),
+               int(cfg.bit_inset), eng.EDGE_PAD, self._tables_key)
+        return programs.cached(key, lambda: build(self.model, dev))
+
+    def stage1_program(self, x: torch.Tensor):
+        """The cached program of stage 1 (``FusedDecoder.stage1``) over a
+        batch of encoded rows of `x`'s dtype and shape: static inputs the
+        rows and their (B,) true lengths; the output the dict of stage-1
+        tensors."""
+        def build(model, dev):
+            return programs.Program(model.stage1, (
+                torch.empty(x.shape, dtype=x.dtype, device=dev),
+                torch.empty(x.shape[:-1], dtype=torch.int64, device=dev)), dev, module=model)
+
+        return self._half_program("stage1", (str(x.dtype), tuple(x.shape)), build)
+
+    def back_half_program(self, s1: dict):
+        """The cached program of the back half (``FusedDecoder.back_half``)
+        of stage-1 outputs shaped as `s1`, on this plan's device: static
+        inputs a tensor for each of them and the (B,) true lengths; the
+        output the (B, L) packed matrix."""
+        names = tuple(s1)
+
+        def build(model, dev):
+            def forward(*ts):
+                return model.back_half(dict(zip(names, ts[:-1])), ts[-1])
+
+            rows = next(iter(s1.values())).shape[:1]
+            return programs.Program(forward, tuple(
+                torch.empty(t.shape, dtype=t.dtype, device=dev) for t in s1.values()) + (
+                torch.empty(rows, dtype=torch.int64, device=dev),), dev, module=model)
+
+        return self._half_program("back_half", tuple(
+            (k, str(t.dtype), tuple(t.shape)) for k, t in s1.items()), build)
 
     def encode(self, pcms: np.ndarray) -> np.ndarray:
         """The rows as they go to the device: the wire format of integer

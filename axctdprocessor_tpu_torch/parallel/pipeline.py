@@ -22,6 +22,15 @@ overlaps is host work and card work:
   waits for that copy's event only (``out.cpu()`` on the compute stream
   would wait for batch k too).
 
+Each half runs as the cached program of its batch shape (``BatchPlan``'s
+``stage1_program`` and ``back_half_program``: the JAX package's
+``_batched_stage1`` and ``_batched_back_half``; CUDA graphs on a GPU from a
+shape's second batch on).  A batch's upload lands in a tensor of the
+stager's; the compute stream waits for it and only then copies it into the
+stage-1 program's static input, and the stage-1 outputs are copied into the
+back-half program's static inputs (on ``back``, across devices when there
+are two) before the next batch's stage 1 overwrites them.
+
 Nothing in the loop reads the device besides that one event wait per batch.
 """
 
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 
 from ..models import engine as eng
+from ..models import programs
 from ..models.result import DecodeResult
 from ..utils.config import DecoderConfig
 from .batch import BatchPlan, redo_at_int8, row_lengths
@@ -63,9 +73,8 @@ def decode_batches_pipelined(batches, fs, config: DecoderConfig | None = None, *
         return []
     first = batches[0][0]
     plan = BatchPlan(first.dtype, first.shape[1], fs, config, wire, dev)
-    model = plan.model
-    # the back half's tables, and the stream that fetches its packed matrix,
-    # belong to the device that runs it
+    # the back half's program, and the stream that fetches its packed
+    # matrix, belong to the device that runs it
     back = plan if devices is None else BatchPlan(first.dtype, first.shape[1], fs,
                                                   config, wire, d_back)
     upload_stream = torch.cuda.Stream(dev) if plan.on_card else None
@@ -98,12 +107,13 @@ def decode_batches_pipelined(batches, fs, config: DecoderConfig | None = None, *
                 compute.wait_event(ready)
                 x.record_stream(compute)
                 nv.record_stream(compute)
-            s1 = model.stage1(x, nv)
-            if back is not plan:
-                # ordered against both devices' current streams by PyTorch
-                s1 = {k: v.to(d_back, non_blocking=True) for k, v in s1.items()}
-                nv = nv.to(d_back, non_blocking=True)
-            out = back.model.back_half(s1, nv)
+            front = plan.stage1_program(x)
+            with programs.pinned(front):
+                front.load(x, nv)
+                s1 = front.run(clone=False)
+                half = back.back_half_program(s1)
+                half.load(*s1.values(), nv)
+                out = half.run()
             inflight.append(back.start_fetch(out) + (batches[bi][1],))
             # keep one batch in flight: fetch k-1 while k computes
             if len(inflight) > 1:

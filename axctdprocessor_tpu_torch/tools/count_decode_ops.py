@@ -1,5 +1,12 @@
-"""Count what one monolithic decode dispatches: PyTorch operations, and on a
-GPU the host's launch calls and the device's kernels.
+"""Count what one decode dispatches: PyTorch operations, and on a GPU the
+host's launch calls and the device's kernels.
+
+``--path`` picks the decode: ``monolithic`` (the default), ``segmented``
+(``decode_waveform_segmented``), ``prestaged`` (``prestage_waveform`` once,
+group by group, then ``decode()``), ``stream`` (one ``results()`` snapshot
+of a ``DeviceStreamDecoder`` pinned to the drop's length and fed all of it
+in 1 s float blocks) or ``pipeline`` (8 batches of 8 rows of the drop
+through ``decode_batches_pipelined``; the counts are per run of 8 batches).
 
 The decode runs on the card (``--device cuda``, the default, as every entry
 point of the port; it raises without a GPU) or, with ``--device cpu``, on
@@ -26,7 +33,7 @@ of this one's; run one tree per process, as a file (not with ``-m``, which
 would import this checkout's port first).  One JSON line:
 
     python axctdprocessor_tpu_torch/tools/count_decode_ops.py [--tree DIR] [--seconds 60]
-        [--device cpu]
+        [--device cpu] [--path segmented]
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ def main() -> None:
     ap.add_argument("--seconds", type=float, default=60.0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--plain-tone-ratios", action="store_true")
+    ap.add_argument("--path", default="monolithic",
+                    choices=("monolithic", "segmented", "prestaged", "stream", "pipeline"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
 
@@ -89,6 +98,30 @@ def main() -> None:
         return engine.decode_waveform(raw, 44100, device=args.device, mode="monolithic",
                                       use_kernel=not args.plain_tone_ratios)
 
+    if args.path != "monolithic":
+        from axctdprocessor_tpu_torch.models import segmented
+
+        decode = {"segmented": lambda: segmented.decode_waveform_segmented(
+            raw, 44100, device=args.device)}.get(args.path)
+        if args.path == "prestaged":
+            decode = segmented.prestage_waveform(raw, 44100, device=args.device).decode
+        elif args.path == "stream":
+            from axctdprocessor_tpu_torch.models.stream_device import DeviceStreamDecoder
+
+            pcm32 = raw.astype(np.float32) / 32768.0
+            stream = DeviceStreamDecoder(44100, max_duration=args.seconds, device=args.device)
+            for i in range(0, len(pcm32), 44100):
+                stream.feed(pcm32[i: i + 44100])
+            decode = stream.results
+        elif args.path == "pipeline":
+            from axctdprocessor_tpu_torch.parallel import pipeline
+
+            rows = np.stack([raw] * 8)
+
+            def decode():
+                return pipeline.decode_batches_pipelined([(rows, None)] * 8, 44100,
+                                                         device=args.device)[0][0]
+
     try:
         from axctdprocessor_tpu_torch.models import programs
     except ImportError:  # a tree from before the cached programs: eager only
@@ -110,7 +143,8 @@ def main() -> None:
     decode()  # warm-up
     with eager(), Count():
         res = decode()
-    out = dict(tree=os.path.abspath(args.tree), seconds=args.seconds, device=args.device,
+    out = dict(tree=os.path.abspath(args.tree), path=args.path, seconds=args.seconds,
+               device=args.device,
                status=res.status, frames=len(res.hexframes), ops=inside,
                top=names.most_common(8))
     if args.device == "cuda":

@@ -16,16 +16,22 @@ profile_start=33, seed=11)``) and 8 rows of 60 s at 88.2 kHz (as
 * ``segmented``: ``segmented.decode_waveform_segmented`` of the drop;
 * ``prestaged``: ``prestage_waveform(wire="int8")`` once, then ``decode()``;
 * ``batch 8 x 8``: the 64 rows through ``decode_batch`` as 8 batches of 8;
+* ``pipeline 8 x 8``: the same 8 batches through ``decode_batches_pipelined``;
+* ``stream snapshot``: one ``results()`` of a ``DeviceStreamDecoder`` pinned
+  to the drop's length and fed all of it in 1 s float blocks;
 * ``batch 8 x 60 s at 88.2 kHz``: the 8 rows through ``decode_batch`` at
   their native rate (the streamed tone table, the probe's high-rate geometry);
 * ``corpus``: the 64 rows as int16 WAVs through ``reprocess_corpus(batch_size=8)``,
   into a new output directory each time (drops per second is 64 / wall).
 
 The paths run as a user calls them: in a tree with cached programs
-(``models/programs.py``) the monolithic decodes and the batches go through
-the program of their shape, whose first call runs eagerly and whose second
-captures a CUDA graph, so that the timed decodes replay it; the segmented
-decode and the prestaged one (group by group) are eager in every tree.
+(``models/programs.py``) each path goes through the programs of its
+shapes, whose first call runs eagerly and whose second captures a CUDA
+graph, so that the timed decodes replay them (before that tree's cached
+programs, the segmented, prestaged, stream and pipeline paths are eager).
+``--eager`` runs every program's module eagerly over its static buffers
+instead (the form ``chip_smoke._eager_programs`` times), so that both forms
+of one tree can be timed in turns, one process each.
 
 ``--paths`` picks some of them (comma-separated names; all by default).
 Each path is decoded twice to warm up, then ``--repeats`` times; the script
@@ -37,7 +43,7 @@ first), and alternate the trees (earlier, this, this, earlier).  Needs one
 NVIDIA GPU:
 
     python axctdprocessor_tpu_torch/tools/decode_walls.py [--tree DIR] [--repeats 5]
-        [--paths monolithic,segmented]
+        [--paths monolithic,segmented] [--eager]
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ import time
 
 HIGH = "batch 8 x 60 s at 88.2 kHz"
 PATHS = ("monolithic", "monolithic 60 s", "monolithic 300 s", "segmented", "prestaged",
-         "batch 8 x 8", "corpus", HIGH)
+         "batch 8 x 8", "pipeline 8 x 8", "stream snapshot", "corpus", HIGH)
 
 
 def main() -> int:
@@ -63,6 +69,7 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--eager", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -77,8 +84,13 @@ def main() -> int:
 
     import chip_smoke
     from axctdprocessor_tpu_torch.models import engine, segmented, simulator
-    from axctdprocessor_tpu_torch.parallel import batch
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
     from axctdprocessor_tpu_torch.parallel.archive import reprocess_corpus
+
+    if args.eager:
+        from axctdprocessor_tpu_torch.models import programs
+
+        programs.Program.capture = programs.Program.replay = programs.Program.run_eager
 
     def drop(duration: float, profile_start: float, seed: int, fs: float = 44100.0):
         pcm, _ = simulator.synthesize(simulator.SimSpec(duration=duration, fs=fs,
@@ -98,6 +110,14 @@ def main() -> int:
     drops = chip_smoke.archive_batch()
     rows, fs_b = drops["batch"], drops["batch_fs"]
     staged = segmented.prestage_waveform(raw, 44100, device="cuda", wire="int8")
+    stream = None
+    if "stream snapshot" in names:
+        from axctdprocessor_tpu_torch.models.stream_device import DeviceStreamDecoder
+
+        pcm = raw.astype(np.float32) / 32768.0
+        stream = DeviceStreamDecoder(44100, max_duration=600.0, device="cuda")
+        for i in range(0, len(pcm), 44100):
+            stream.feed(pcm[i: i + 44100])
     with tempfile.TemporaryDirectory(prefix=".decode_walls_", dir=tree) as tmp:
         paths = []
         for i, row in enumerate(rows):
@@ -119,6 +139,9 @@ def main() -> int:
             "prestaged": staged.decode,
             "batch 8 x 8": lambda: [batch.decode_batch(sub, fs_b, device="cuda")
                                     for sub in np.split(rows, 8)],
+            "pipeline 8 x 8": lambda: pipeline.decode_batches_pipelined(
+                [(sub, None) for sub in np.split(rows, 8)], fs_b, device="cuda"),
+            "stream snapshot": lambda: stream.results(),
             "corpus": corpus,
             HIGH: lambda: batch.decode_batch(high, 88200, device="cuda"),
         }
@@ -137,6 +160,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"card": card, "tree": os.path.relpath(tree, os.getcwd()),
+                      "form": "eager" if args.eager else "as called",
                       "median_s": {k: statistics.median(v) for k, v in walls.items()},
                       "walls_s": walls,
                       **({"corpus_drops_per_s": 64 / statistics.median(walls["corpus"])}

@@ -216,7 +216,22 @@ Phases, one line each or more (any failure raises and exits non-zero):
    replayed decode (at most one); warm walls eager (``_eager_programs``)
    against program in turns, medians of 5, on the six shapes; the cuFFT
    plan cache's size against its bound; the memory the program cache holds
-   (also after phases 9 and 9g).  ``--only-programs`` runs the build, this
+   (also after phases 9 and 9g), which must be within its bound.  The
+   segmented engine's programs: the 600 s drop through
+   ``decode_waveform_segmented``, then a longer (655 s) and a shorter (575
+   s) drop of its 28-segment bucket, each packed vector bit for bit the
+   group program's module's eager forward (the shorter one's assemble
+   replays over rows that held the longer one's segments); the drop
+   prestaged group by group (int8: three dispatches, then 8 queued); a
+   stream pinned to the drop's bucket fed in 1 s blocks with a
+   ``results()`` snapshot at each new segment: its constructor captures both
+   programs and nothing is captured after it, every snapshot and
+   ``finalize()`` bit for bit the module's eager assemble of the segments
+   each decoded alone; the pipeline's stage-1 and back-half programs on the
+   64 rows as batches of 8 and of 64 in three row orders, every matrix bit
+   for bit the modules' eager ``stage1`` and ``back_half``.  Warm walls in
+   turns also for the segmented decode, the group-by-group prestaged
+   decode, a stream snapshot, the pipeline 8 x 8 and ``decode_batch`` 8 x 8.  ``--only-programs`` runs the build, this
    phase and phase 10's part of it and exits 3 without result lines (a
    development run);
 10. ``torch.profiler`` last, after every wall (a process that has run the
@@ -244,7 +259,10 @@ Phases, one line each or more (any failure raises and exits non-zero):
    and through its program: the host's launch calls (kernel launches, graph
    launches, copies, fills) beside the device's kernels (the same in both;
    at most 10 host launch calls through the program for the first two),
-   device busy time and idle share.  Every profile of a decode counts the
+   device busy time and idle share; the same for the segmented decode of
+   the 600 s drop (at most 150 host launch calls through its programs), its
+   group-by-group prestaged decode, a stream snapshot and the pipeline of 8
+   batches of 8 (at most 30 host launch calls a batch).  Every profile of a decode counts the
    host's launch calls and the device's kernels, those under a graph
    launch's correlation id apart.
 
@@ -269,6 +287,7 @@ the end.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -1930,36 +1949,56 @@ def _profile_counts(fn) -> dict:
     return out
 
 
-def _profile_programs(seg: dict, drops: dict) -> None:
+def _profile_programs(seg: dict, drops: dict) -> dict:
     """A warm decode of each path the programs serve (the 600 s drop
     monolithic, ``decode_batch`` of 8 x 60 s, the 600 s drop prestaged
-    ``fused``), eager and through its program: the host's launch calls and
-    the device's kernels, device busy time and idle share.  The device's
-    kernels are the same in both; through the program the monolithic decode
-    and the batch queue at most 10 host launch calls."""
+    ``fused``; the 600 s drop segmented and prestaged group by group, a
+    snapshot of a stream of it, the pipeline of 8 batches of 8), eager and
+    through its program: the host's launch calls and the device's kernels,
+    device busy time and idle share.  The device's kernels are the same in
+    both for the first three; through the program the monolithic decode and
+    the batch queue at most 10 host launch calls, the segmented decode at
+    most 150 and the pipeline at most 30 a batch.  Returns the counts."""
     from axctdprocessor_tpu_torch.models import engine, segmented
-    from axctdprocessor_tpu_torch.parallel import batch
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
+    from axctdprocessor_tpu_torch.utils.wavio import read_wav
 
     raw, fs = seg["raw"], seg["fs"]
     staged = segmented.prestage_waveform(raw, fs, device="cuda", fused=True)
+    groups = segmented.prestage_waveform(raw, fs, device="cuda")
+    stream, _ = _stream_fed(read_wav(drops["wav"])[0], fs, snapshots=False)
+    batches8 = [(sub, None) for sub in np.split(drops["batch"], 8)]
     fns = {"600 s monolithic": lambda: engine.decode_waveform(raw, fs, device="cuda",
                                                                mode="monolithic"),
            "decode_batch of 8 x 60 s": lambda: batch.decode_batch(
                drops["batch"][:8], drops["batch_fs"], device="cuda"),
-           "600 s prestaged fused": staged.decode}
+           "600 s prestaged fused": staged.decode,
+           "600 s segmented": lambda: segmented.decode_waveform_segmented(raw, fs,
+                                                                          device="cuda"),
+           "600 s prestaged groups": groups.decode,
+           "stream snapshot, 600 s": stream.results,
+           "pipeline 8 x 8 x 60 s": lambda: pipeline.decode_batches_pipelined(
+               batches8, drops["batch_fs"], device="cuda")}
+    same_work = ("600 s monolithic", "decode_batch of 8 x 60 s", "600 s prestaged fused")
+    bounds = {"600 s monolithic": 10, "decode_batch of 8 x 60 s": 10, "600 s segmented": 150,
+              "pipeline 8 x 8 x 60 s": 30 * 8}
+    out = {}
     for name, fn in fns.items():
         fn()
         fn()  # the program of this shape captured
         with _eager_programs():
             eager = _profile_counts(fn)
         prog = _profile_counts(fn)
+        out[name] = dict(eager=eager, program=prog)
         for form, c in (("eager", eager), ("program", prog)):
             log(f"[10] {name}, {form}: {launches_text(c)}; device copies and fills "
                 f"{c['device copies and fills']}; profiled wall {c['wall_ms']:.1f} ms, device busy "
                 f"{c['busy_ms']:.2f} ms, idle share {c['idle_share']:.3f}"
                 + ("" if c["complete"] else "; some device events not recorded"))
-        if name != "600 s prestaged fused":
-            assert prog["host launch calls"] <= 10, (name, prog)
+        if name in bounds:
+            assert prog["host launch calls"] <= bounds[name], (name, prog)
+        if name not in same_work:
+            continue
         # the same device work: the graph runs some of the forward's copies and
         # fills as kernels, and the eager form copies its result into the static
         # output once more
@@ -1972,7 +2011,8 @@ def _profile_programs(seg: dict, drops: dict) -> None:
             f"{work['program']} through the program (the eager form copies its result into "
             "the static output once more): "
             + ("the same work" if compared else "not compared (a profile missed some events)"))
-    del staged
+    del staged, groups, stream
+    return out
 
 
 def phase10_profiles(drops: dict, seg: dict, k: dict, ck: dict, fk: dict,
@@ -3416,8 +3456,11 @@ def phase9g_corpus(tmp: str) -> dict:
 def _cache_held() -> dict:
     """What the program cache holds on the card: its programs, how many are
     captured, the bytes of their graphs' private memory pools (the segments
-    of ``torch.cuda.memory_snapshot()`` under the pools' ids) and of their
-    static inputs and tables."""
+    of ``torch.cuda.memory_snapshot()`` under the pools' ids, and the sum of
+    the ``pool_bytes`` each program read at its capture and its static
+    inputs, which the cache's bound counts) against the bound, and the bytes
+    of their static inputs and tables.  Fails if the programs hold more than
+    the bound."""
     from axctdprocessor_tpu_torch.models import programs
 
     progs = programs.programs()
@@ -3428,20 +3471,27 @@ def _cache_held() -> dict:
         by_pool[tuple(seg["segment_pool_id"])] += seg["total_size"]
     static = [t for p in progs
               for t in (*p.inputs, *(p.module.buffers() if p.module is not None else ()))]
-    each = [f"{str(p.inputs[0].dtype).replace('torch.', '')} {tuple(p.inputs[0].shape)} "
-            f"{by_pool[tuple(p.graph.pool())] / 2 ** 30:.3f}" for p in progs if p.graph is not None]
+    each = [f"{p.key[0]} {str(p.inputs[0].dtype).replace('torch.', '')} "
+            f"{tuple(p.inputs[0].shape)} {by_pool[tuple(p.graph.pool())] / 2 ** 30:.3f}"
+            for p in progs if p.graph is not None]
+    held = programs.held_bytes("cuda:0")
+    budget = programs.pool_budget(torch.device("cuda", 0))
+    assert held <= budget, f"the cached programs hold {held} bytes, over the bound {budget}"
     return dict(programs=len(progs), captured=len(by_pool), pool_segments=len(segs),
                 pool_gib=sum(by_pool.values()) / 2 ** 30, each=each,
+                held_gib=held / 2 ** 30, budget_gib=budget / 2 ** 30,
                 static_gib=sum(t.numel() * t.element_size() for t in static) / 2 ** 30)
 
 
 def cache_text() -> str:
     h = _cache_held()
     pools = (f"{h['pool_gib']:.3f} GiB in their graphs' private pools ({h['pool_segments']} "
-             f"segments; by input, GiB: {'; '.join(h['each'])})"
+             f"segments; by kind and first input, GiB: {'; '.join(h['each'])})"
              if h["pool_segments"] or not h["captured"] else
              "their graphs' pools not measured (no segment under their ids)")
-    return (f"{h['programs']} programs ({h['captured']} captured): {pools}, "
+    return (f"{h['programs']} programs ({h['captured']} captured): {pools}; the pools as read "
+            f"at capture and the static inputs (what the bound counts) {h['held_gib']:.3f} GiB "
+            f"of the bound {h['budget_gib']:.3f} GiB, "
             f"{h['static_gib']:.3f} GiB of static inputs and tables; the card's reserved memory "
             f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB")
 
@@ -3610,6 +3660,185 @@ def _program_prestaged(raws: list, fs) -> dict:
     return dict(walls=walls, counts=counts)
 
 
+# the 600 s drop's bucket (28 segments) holds drops of 25-28 segments: a
+# longer one (655 s: 28) and then a shorter one (575 s: 25), whose assemble
+# replays over rows 25-27 that still hold the longer drop's segments
+SEGMENTED_DROPS = ((655.0, 14), (575.0, 15))
+
+
+def _eager_drop(raw, fs, wire: str = "auto", group: int = 4):
+    """The group program's own module, its whole eager forward
+    (``SegmentedDecoder.forward``: every segment in one pass, then the
+    assemble) over a drop's extensions as the plan encodes them."""
+    from axctdprocessor_tpu_torch.models import segmented
+    from axctdprocessor_tpu_torch.utils.profiling import StageTimer
+
+    p = segmented._plan_waveform(raw, fs, None, wire, StageTimer(), "cuda", group)
+    exts = np.concatenate([segmented._chunk_host(p, j) for j in range(p.n_chunk)])
+    with torch.inference_mode():
+        return p.model(torch.from_numpy(exts).cuda()[None], p.n_seg, p.dc, p.peak, p.n_raw,
+                       p.nv_dec, p.dims).cpu().numpy()
+
+
+def _segment_programs_captured(raw, fs, wire: str = "auto", group: int = 4) -> None:
+    from axctdprocessor_tpu_torch.models import segmented
+    from axctdprocessor_tpu_torch.utils.profiling import StageTimer
+
+    p = segmented._plan_waveform(raw, fs, None, wire, StageTimer(), "cuda", group)
+    assert all(prog.graph is not None for prog in p.group_programs()), "not captured"
+
+
+def _program_segmented(raw600, fs) -> dict:
+    """The 600 s drop, then a longer and a shorter drop of its bucket, through
+    ``decode_waveform_segmented`` (the group program: eager at its first
+    group, captured at its second, replayed after; the bucket's assemble
+    program: eager, captured, replayed): every packed vector bit for bit the
+    module's eager forward on the same extensions."""
+    from axctdprocessor_tpu_torch.models import engine, segmented
+
+    raws = [raw600] + [_int16_drop(d, s) for d, s in SEGMENTED_DROPS]
+    with _packed_results() as packed:
+        # the first decode builds the bucket's assemble program, whose module
+        # makes its zero segment once
+        walls, counts = _program_steps("segmented 600 s bucket", [
+            lambda raw=raw: segmented.decode_waveform_segmented(raw, fs, device="cuda",
+                                                                lossy_retry=False)
+            for raw in raws], first_differs=True)
+    _segment_programs_captured(raw600, fs)
+    for raw, got in zip(raws, packed):
+        assert np.array_equal(got, _eager_drop(raw, fs)), len(raw)
+        assert engine.unpack_result(got)["scal_i"][1] >= 0, len(raw)  # a profile found
+    return dict(walls=walls, counts=counts)
+
+
+def _program_prestaged_groups(raw, fs) -> dict:
+    """The 600 s drop prestaged group by group (int8): three ``dispatch()``
+    calls in a row, then 8 queued: every output bit for bit the module's
+    eager forward, 8 distinct tensors."""
+    from axctdprocessor_tpu_torch.models import segmented
+
+    st = segmented.prestage_waveform(raw, fs, device="cuda")
+    outs = []
+    walls, counts = _program_steps("prestaged 600 s groups int8", [
+        lambda: outs.append(st.dispatch()) or st.finish(outs[-1]) for _ in range(3)],
+        first_differs=True)
+    queued = [st.dispatch() for _ in range(8)]
+    assert len({o.data_ptr() for o in queued}) == 8
+    _segment_programs_captured(raw, fs, wire="int8")
+    want = _eager_drop(raw, fs, wire="int8")
+    assert all(np.array_equal(o.cpu().numpy(), want) for o in outs + queued)
+    assert st.finish(queued[-1]).status == 2
+    return dict(walls=walls, counts=counts)
+
+
+def _stream_fed(pcm, fs, snapshots: bool) -> tuple:
+    """A stream pinned to the drop's bucket (``max_duration``), fed in 1 s
+    blocks, with a ``results()`` snapshot each time a segment lands if
+    `snapshots`: (the decoder, the segment count at each snapshot)."""
+    from axctdprocessor_tpu_torch.models.stream_device import DeviceStreamDecoder
+
+    dec = DeviceStreamDecoder(fs, max_duration=len(pcm) / fs, device="cuda")
+    snaps = []
+    for i in range(0, len(pcm), int(fs)):
+        before = dec._next_k
+        if dec.feed(pcm[i: i + int(fs)]) > before and snapshots:
+            dec.results()
+            snaps.append(dec._next_k)
+    return dec, snaps
+
+
+def _program_stream(pcm, fs) -> dict:
+    """A stream of the 600 s drop pinned to its bucket: its constructor
+    captures the one-row segment program and the bucket's assemble program;
+    then no capture while it is fed in 1 s blocks with a snapshot at each new
+    segment and finalized; every snapshot and ``finalize()`` bit for bit the
+    module's eager assemble of the same segments, each decoded alone by the
+    module as the stream queues it."""
+    from axctdprocessor_tpu_torch.models import engine, programs, segmented
+    from axctdprocessor_tpu_torch.models.stream_device import BIG_N
+
+    captures = []
+    real = programs.Program.capture
+
+    def capture(self):
+        captures.append(self.key[0])
+        return real(self)
+
+    programs.Program.capture = capture
+    try:
+        t0 = time.perf_counter()
+        with _packed_results() as packed:
+            dec, snaps = _stream_fed(pcm, fs, snapshots=True)
+            ctor = captures[:]
+            del captures[:]
+            final = dec.finalize()
+        wall = time.perf_counter() - t0
+    finally:
+        programs.Program.capture = real
+    assert not captures, f"captures after the constructor: {captures}"
+    assert final.status == 2 and len(snaps) == dec._next_k - 1, (final.status, snaps)
+    model = dec._model
+    seg_len, n = model.seg_len, len(pcm)
+    dims = engine.EngineDims.for_waveform(dec._pin_bucket * seg_len, float(fs), model.bitrate,
+                                          model.npcm)
+    outs = []
+    with torch.inference_mode():
+        for k in range(dec._next_k):
+            lo = k * seg_len - segmented.LEFT_HALO
+            ext = np.zeros((1, model.in_len), np.float32)
+            src = pcm[max(lo, 0): lo + model.in_len]
+            ext[0, max(-lo, 0): max(-lo, 0) + len(src)] = src
+            last = k == dec._next_k - 1
+            outs.append(model.segment(torch.from_numpy(ext).cuda(),
+                                      torch.full((1,), k * seg_len, device="cuda"),
+                                      torch.zeros((), device="cuda"),
+                                      torch.ones((), device="cuda"), n if last else BIG_N))
+        for got, (k, nv) in zip(packed, [(k, k * seg_len) for k in snaps] + [(len(outs), n)]):
+            want = model.assemble(outs[:k], torch.tensor(nv, device="cuda"), dims)
+            assert np.array_equal(got, want.cpu().numpy()), k
+    return dict(snapshots=len(snaps), constructor_captures=ctor, wall=wall)
+
+
+def _program_pipeline(rows: np.ndarray, fs) -> dict:
+    """The 64 rows through ``decode_batches_pipelined`` as batches of 8 and
+    as one batch of 64, each in three row orders (the rows, two
+    permutations): every batch's packed matrix bit for bit the stage-1 and
+    back-half modules' eager forward on the same rows; one tone-ratio launch
+    and three bit-edge walk launches per batch."""
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
+
+    orders = [np.arange(len(rows))] + [np.random.default_rng(seed).permutation(len(rows))
+                                       for seed in (1, 2)]
+    out = {}
+    for size in (8, 64):
+        batches = [(rows[o][i: i + size], None) for o in orders
+                   for i in range(0, len(rows), size)]
+        zero_counts()
+        t0 = time.perf_counter()
+        with _packed_results() as packed:
+            res = pipeline.decode_batches_pipelined(batches, fs, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = read_counts(f"pipeline programs {len(batches)} x {size}")
+        assert counts["tone_ratios"] == len(batches), counts
+        assert counts["chain_walk_segments"] == 3 * len(batches), counts
+        assert all(r.status == 2 for b in res for r in b)
+        plan = batch.BatchPlan(rows.dtype, rows.shape[1], fs, None, "auto", "cuda")
+        x = torch.from_numpy(rows[:size]).cuda()
+        front = plan.stage1_program(x)
+        with torch.inference_mode():
+            back = plan.back_half_program(front.output)
+        assert front.graph is not None and back.graph is not None
+        model = front.module
+        for b, (sub, _) in enumerate(batches):
+            xb = torch.from_numpy(sub).cuda()
+            nv = torch.full((size,), sub.shape[1], dtype=torch.int64, device="cuda")
+            with torch.inference_mode():
+                want = model.back_half(model.stage1(xb, nv), nv).cpu().numpy()
+            assert np.array_equal(np.stack(packed[b * size: (b + 1) * size]), want), (size, b)
+        out[f"{size} rows"] = dict(batches=len(batches), wall=wall, counts=counts)
+    return out
+
+
 def _turns(fns: dict, runs: int = 5) -> dict:
     """Warm walls of each path eager (``_eager_programs``: the module's
     forward over the program's static buffers) and through its program, in
@@ -3629,12 +3858,17 @@ def phase9h_programs(drops: dict, seg: dict) -> dict:
     s, one of 300 s and the 600 s drop forced monolithic (at int16 and int8:
     three drops of one bucket with different seeds, then the first again),
     8 and 64 rows of 60 s (three batches, then two interleaved), the 600 s
-    drop prestaged with ``fused=True`` (three drops, each its own program).
-    Then host syncs of a replayed decode, warm walls eager against program in
-    turns (medians of 5), the capture decode's wall, the cuFFT plan cache and
-    the memory the program cache holds."""
+    drop prestaged with ``fused=True`` (three drops, each its own program);
+    the segmented engine's group and assemble programs (the 600 s drop
+    streamed, then a longer and a shorter drop of its bucket; prestaged group
+    by group; a pinned stream with a snapshot at each segment) and the
+    pipeline's stage-1 and back-half programs (batches of 8 and of 64 rows,
+    three row orders).  Then host syncs of a replayed decode, warm walls
+    eager against program in turns (medians of 5), the capture decode's
+    wall, the cuFFT plan cache and the memory the program cache holds."""
     from axctdprocessor_tpu_torch.models import engine, programs, segmented
-    from axctdprocessor_tpu_torch.parallel import batch
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
+    from axctdprocessor_tpu_torch.utils.wavio import read_wav
 
     t_phase = time.perf_counter()
     programs.clear()
@@ -3653,13 +3887,29 @@ def phase9h_programs(drops: dict, seg: dict) -> dict:
             steps[f"{label} {wire}"] = _program_batches(label, _variant_batches(sub, bfs), bfs,
                                                         wire)
     steps["prestaged 600 s fused"] = _program_prestaged(raws["600 s"], fs)
+    steps["segmented 600 s bucket"] = _program_segmented(seg["raw"], fs)
+    steps["prestaged 600 s groups int8"] = _program_prestaged_groups(seg["raw"], fs)
     for name, st in steps.items():
         walls = st["walls"] if name != "prestaged 600 s fused" else st["walls"][0]
         log(f"[9h] {name}: every output bit for bit the eager module's forward; walls of the "
             f"calls in order (eager, capture, replays) {[round(w, 4) for w in walls]} s; "
             f"launches a call {counts_text(st['counts'])}")
+    pcm600 = read_wav(drops["wav"])[0]
+    st = _program_stream(pcm600, fs)
+    log(f"[9h] stream of the 600 s drop pinned to its bucket: its constructor captured "
+        f"{st['constructor_captures']}, nothing captured after it; {st['snapshots']} "
+        f"snapshots and finalize() bit for bit the module's eager assemble of the same "
+        f"segments; {st['wall']:.3f} s in all")
+    for label, pp in _program_pipeline(rows, bfs).items():
+        log(f"[9h] pipeline, batches of {label}: {pp['batches']} batches (three row orders) "
+            f"through the stage-1 and back-half programs, every packed matrix bit for bit "
+            f"the modules' eager forward; {pp['wall']:.3f} s; launches "
+            f"{counts_text(pp['counts'])}")
     raw600 = seg["raw"]
     staged = segmented.prestage_waveform(raw600, fs, device="cuda", fused=True)
+    groups = segmented.prestage_waveform(raw600, fs, device="cuda")
+    stream, _ = _stream_fed(pcm600, fs, snapshots=False)
+    batches8 = [(sub, None) for sub in np.split(rows, 8)]
     fns = {
         "monolithic 60 s": lambda: engine.decode_waveform(raws["60 s"][2], fs, device="cuda"),
         "monolithic 300 s": lambda: engine.decode_waveform(raws["300 s"][2], fs, device="cuda"),
@@ -3668,6 +3918,14 @@ def phase9h_programs(drops: dict, seg: dict) -> dict:
         "decode_batch 8 x 60 s": lambda: batch.decode_batch(rows[:8], bfs, device="cuda"),
         "decode_batch 64 x 60 s": lambda: batch.decode_batch(rows, bfs, device="cuda"),
         "prestaged 600 s fused": staged.decode,
+        "segmented 600 s": lambda: segmented.decode_waveform_segmented(raw600, fs,
+                                                                       device="cuda"),
+        "prestaged 600 s groups": groups.decode,
+        "stream snapshot, 600 s (25 segments)": stream.results,
+        "pipeline 8 x 8 x 60 s": lambda: pipeline.decode_batches_pipelined(batches8, bfs,
+                                                                           device="cuda"),
+        "decode_batch 8 x 8 x 60 s": lambda: [batch.decode_batch(sub, bfs, device="cuda")
+                                              for sub, _ in batches8],
     }
     syncs = {}
     for name, fn in fns.items():
@@ -3676,8 +3934,20 @@ def phase9h_programs(drops: dict, seg: dict) -> dict:
         with count_syncs() as box:
             fn()
         syncs[name] = box["n"]
-        assert box["n"] <= 1, (name, box["n"])
-    turns = _turns(fns)
+        # a batch's fetch waits on a CUDA event, which the sync debug mode
+        # does not see; one fetch per batch
+        assert box["n"] <= (1 if "8 x 8" not in name else 8), (name, box["n"])
+    captures = []
+    real_capture = programs.Program.capture
+    programs.Program.capture = lambda self: captures.append(self.key) or real_capture(self)
+    try:
+        turns = _turns(fns)
+    finally:
+        programs.Program.capture = real_capture
+    kinds = collections.Counter(p.key[0] for p in programs.programs() if p.key)
+    assert not captures, f"programs captured again in the turns (evicted in use): {captures}"
+    log(f"[9h] the turns ran through {sum(kinds.values())} cached programs at once "
+        f"({dict(kinds)}; at most {programs.MAX_PROGRAMS} of a kind) and captured none again")
     med = {name: (statistics.median(e), statistics.median(p)) for name, (e, p) in turns.items()}
     for name, (e, p) in med.items():
         log(f"[9h] {name}: warm wall (median of 5, in turns) eager {e:.4f} s, program "
@@ -3706,7 +3976,7 @@ def phase9h_programs(drops: dict, seg: dict) -> dict:
     log(f"[9h] cuFFT plan cache: {plans.size} plans of at most {plans.max_size}; program "
         f"cache {cache_text()}; phase time {time.perf_counter() - t_phase:.0f} s")
     assert plans.size < plans.max_size, "the cuFFT plan cache is full: a cached graph's plan may go"
-    del staged
+    del staged, groups, stream
     return dict(walls={k: v for k, v in med.items()}, syncs=syncs, steps=steps)
 
 

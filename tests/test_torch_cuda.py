@@ -1161,6 +1161,60 @@ def test_program_whose_capture_fails_raises():
 
 
 @pytest.mark.cuda
+def test_program_captures_on_a_stream_of_its_own_device():
+    """A program on the last card, called while card 0 is current (the
+    pipeline's back half on a second card): it captures on a stream of its
+    own device, and each replay gives the forward of the input just
+    loaded, not the capture's (on one card both devices are card 0)."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.models import programs
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    program = programs.Program(lambda x: x * 2 + 1, (torch.zeros(4, device=last),), last)
+    with torch.cuda.device(0):
+        outs = [program(np.full(4, k, np.float32)) for k in (1, 2, 3, 4)]
+    assert program.graph is not None and program.calls == 4
+    assert program.capture_stream.device == program.device == last
+    for k, out in zip((1, 2, 3, 4), outs):
+        assert out.device == last and torch.equal(out.cpu(), torch.full((4,), 2.0 * k + 1))
+
+
+@pytest.mark.cuda
+def test_pipeline_on_two_cards_equals_decode_batch():
+    """Three batches through ``decode_batches_pipelined(devices=[cuda:0,
+    cuda:1])``: the back half's programs live and are captured on card 1
+    while card 0 is current, and every batch's packed matrix equals
+    ``decode_batch``'s on card 0 bit for bit.  Needs two cards."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from axctdprocessor_tpu_torch.models import programs
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
+
+    programs.clear()
+    rows = np.stack([_int16_drop(40.0, s) for s in (3, 8, 17)])
+    batches = [(rows[[0, 1]], None), (rows[[1, 2]], None), (rows[[2, 0]], None)]
+    packed = []
+    real = engine.finish_result
+    engine.finish_result = lambda out, *a, **k: packed.append(np.array(out)) or real(out, *a, **k)
+    try:
+        with torch.cuda.device(0):
+            out = pipeline.decode_batches_pipelined(batches, 44100,
+                                                    devices=["cuda:0", "cuda:1"])
+    finally:
+        engine.finish_result = real
+    front, back = programs.programs()
+    assert front.device == torch.device("cuda", 0) and back.device == torch.device("cuda", 1)
+    assert front.graph is not None and back.graph is not None and back.calls == 3
+    assert back.capture_stream.device == back.device
+    for b, (sub, _) in enumerate(batches):
+        want, _ = batch.dispatch_batch(sub, 44100, device="cuda:0")
+        np.testing.assert_array_equal(np.stack(packed[2 * b: 2 * b + 2]), want.cpu().numpy())
+        assert all(r.status == 2 for r in out[b])
+    programs.clear()
+
+
+@pytest.mark.cuda
 def test_program_replay_adds_the_counts_of_its_capture():
     """A batch program's replays: the kernels' counts rise by the capture's
     deltas on every replay, as the eager forward raises them; interleaved
@@ -1188,4 +1242,206 @@ def test_program_replay_adds_the_counts_of_its_capture():
                               torch.full((2,), sub.shape[1], device="cuda"))
         assert torch.equal(out, want), k
         assert all(r.status == 2 for r in batch.finish_dispatched(out, ctx))
+    programs.clear()
+
+
+@pytest.mark.cuda
+def test_program_cache_over_its_byte_budget_releases_pools(monkeypatch):
+    """Two captured programs, one of whose graphs holds a 256 MiB
+    intermediate in its pool: under a budget of 300 MiB both stay; at 100
+    MiB the next lookup evicts the large one (the least recently used with
+    a pool), and after ``empty_cache`` the card's reserved memory falls by
+    at least its pool."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.models import programs
+
+    programs.clear()
+    torch.cuda.empty_cache()
+    budget = {"bytes": 300 * 2 ** 20}
+    monkeypatch.setattr(programs, "pool_budget", lambda device: budget["bytes"])
+    x = torch.ones(16384, device="cuda")
+
+    def build(width):
+        return lambda: programs.Program(
+            lambda v: (v[:, None] * torch.ones(width, device="cuda")).sum(1), (x.clone(),),
+            "cuda")
+
+    large = programs.cached("large", build(4096))
+    small = programs.cached("small", build(4))
+    for p, width in ((large, 4096), (small, 4)) * 2:
+        assert torch.equal(p(x).cpu(), torch.full((16384,), float(width)))
+    assert large.graph is not None and small.graph is not None
+    assert large.pool_bytes >= 256 * 2 ** 20 > small.pool_bytes
+    assert programs.programs() == [large, small]
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    budget["bytes"] = 100 * 2 ** 20
+    programs.cached("small", build(4))
+    assert programs.programs() == [small] and large.graph is None
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= before - 256 * 2 ** 20
+    programs.clear()
+
+
+def _segmented_fresh(raw, group: int, fs=44100):
+    """The eager module's forward over a drop's extensions on the card."""
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+    from axctdprocessor_tpu_torch.utils.profiling import StageTimer
+
+    p = segmented._plan_waveform(raw, fs, None, "auto", StageTimer(), "cuda", group)
+    exts = np.concatenate([segmented._chunk_host(p, j) for j in range(p.n_chunk)])
+    fresh = segmented.SegmentedDecoder.from_config(DecoderConfig(), float(fs), False, "cuda")
+    with torch.inference_mode():
+        return fresh(torch.from_numpy(exts).cuda()[None], p.n_seg, p.dc, p.peak, p.n_raw,
+                     p.nv_dec, p.dims).cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_segment_and_assemble_programs_replay_the_eager_module(monkeypatch):
+    """Three drops of one 3-segment bucket through the streamed segmented
+    decode (each program: eager, captured, replayed), then three prestaged
+    group-by-group dispatches, then a longer and a shorter drop in one
+    pinned bucket: every packed vector bit for bit the eager module's
+    forward on the card; every decode adds the eager launches."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.models import programs
+
+    packed = []
+    real = engine.finish_result
+    monkeypatch.setattr(engine, "finish_result",
+                        lambda out, *a, **k: packed.append(np.array(out)) or real(out, *a, **k))
+    programs.clear()
+    drops = [_int16_drop(d, s) for d, s in ((52.0, 3), (66.0, 8), (59.0, 17))]
+    steps = []
+    for raw in drops:
+        before = _counts()
+        assert segmented.decode_waveform_segmented(raw, 44100, device="cuda").status == 2
+        steps.append({k: v - before[k] for k, v in _counts().items()})
+    seg, asm = programs.programs()
+    assert seg.graph is not None and asm.graph is not None and seg.calls == asm.calls == 3
+    # the first decode also builds the assemble program, whose module makes
+    # its zero segment once
+    assert steps[1] == steps[2] and all(steps[0][k] >= v for k, v in steps[1].items()), steps
+    for raw, got in zip(drops, packed):
+        np.testing.assert_array_equal(got, _segmented_fresh(raw, segmented.GROUP))
+    staged = segmented.prestage_waveform(drops[0], 44100, device="cuda", wire="int16",
+                                         group=2)
+    outs = [staged.dispatch() for _ in range(3)]
+    want = _segmented_fresh(drops[0], 2)
+    assert all(np.array_equal(o.cpu().numpy(), want) for o in outs)
+    monkeypatch.setattr(segmented, "_bucket_count", lambda k: 4)
+    packed.clear()
+    pair = [_int16_drop(90.0, 5), _int16_drop(40.0, 7)]
+    for _ in range(2):  # the second time through captured programs
+        for raw in pair:
+            segmented.decode_waveform_segmented(raw, 44100, device="cuda", group=2)
+    for raw, got in zip(pair * 2, packed):
+        np.testing.assert_array_equal(got, _segmented_fresh(raw, 2))
+    programs.clear()
+
+
+@pytest.mark.cuda
+def test_pinned_stream_captures_nothing_after_its_constructor(monkeypatch):
+    """A stream pinned to a 3-segment bucket: its constructor captures the
+    one-row segment program and the bucket's assemble program; feeding a
+    62 s drop in 1 s blocks with a snapshot at each new segment and
+    finalizing captures nothing more, and every snapshot is bit for bit
+    the eager module's assemble of the same segments."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.models import programs
+    from axctdprocessor_tpu_torch.models.stream_device import BIG_N, DeviceStreamDecoder
+
+    programs.clear()
+    pcm, _ = simulator.synthesize(simulator.SimSpec(duration=62.0, profile_start=20.0, seed=12))
+    x = ((pcm - np.mean(pcm)) / np.max(np.abs(pcm))).astype(np.float32)
+    dec = DeviceStreamDecoder(44100, max_duration=70.0, device="cuda")
+    assert [p.graph is not None for p in programs.programs()] == [True, True]
+    captures = []
+    real_capture = programs.Program.capture
+    monkeypatch.setattr(programs.Program, "capture",
+                        lambda self: captures.append(self) or real_capture(self))
+    packed = []
+    real = engine.finish_result
+    monkeypatch.setattr(engine, "finish_result",
+                        lambda out, *a, **k: packed.append(np.array(out)) or real(out, *a, **k))
+    snaps = []
+    for i in range(0, len(x), 44100):
+        before = dec._next_k
+        if dec.feed(x[i: i + 44100]) > before:
+            dec.results()
+            snaps.append(dec._next_k)
+    final = dec.finalize()
+    assert captures == [] and snaps == [1, 2] and final.status == 2
+    model = segmented.SegmentedDecoder.from_config(dec.cfg, 44100.0, False, "cuda")
+    dims = engine.EngineDims.for_waveform(3 * model.seg_len, 44100.0, model.bitrate, model.npcm)
+    for n_seg, got, last in ((1, packed[0], False), (2, packed[1], False),
+                             (3, packed[2], True)):
+        outs = []
+        with torch.inference_mode():
+            for k in range(n_seg):
+                lo = k * model.seg_len - segmented.LEFT_HALO
+                ext = np.zeros(model.in_len, np.float32)
+                src = x[max(lo, 0): lo + model.in_len]
+                ext[max(-lo, 0): max(-lo, 0) + len(src)] = src
+                outs.append(model.segment(torch.from_numpy(ext).cuda(), k * model.seg_len,
+                                          torch.zeros((), device="cuda"),
+                                          torch.ones((), device="cuda"),
+                                          len(x) if last else BIG_N))
+            n_valid = len(x) if last else n_seg * model.seg_len
+            want = model.assemble(outs, torch.tensor(n_valid, device="cuda"), dims)
+        np.testing.assert_array_equal(got, want.cpu().numpy())
+    programs.clear()
+
+
+@pytest.mark.cuda
+def test_pipeline_programs_replay_the_eager_module():
+    """Three batches of one shape through ``decode_batches_pipelined``: the
+    stage-1 and back-half programs each eager, captured, replayed; every
+    batch's rows bit for bit the eager module's forward on the card."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.models import programs
+    from axctdprocessor_tpu_torch.parallel import batch, pipeline
+
+    programs.clear()
+    rows = np.stack([_int16_drop(40.0, s) for s in (3, 8, 17)])
+    batches = [(rows[[0, 1]], None), (rows[[1, 2]], None), (rows[[2, 0]], None)]
+    packed = []
+    real = engine.finish_result
+    engine.finish_result = lambda out, *a, **k: packed.append(np.array(out)) or real(out, *a, **k)
+    try:
+        out = pipeline.decode_batches_pipelined(batches, 44100, device="cuda")
+    finally:
+        engine.finish_result = real
+    front, back = programs.programs()
+    assert front.graph is not None and back.graph is not None
+    assert front.calls == back.calls == 3
+    plan = batch.BatchPlan(rows.dtype, rows.shape[1], 44100, None, "auto", "cuda")
+    for b, (sub, _) in enumerate(batches):
+        with torch.inference_mode():
+            want = plan.model(torch.from_numpy(sub).cuda(),
+                              torch.full((2,), sub.shape[1], device="cuda")).cpu().numpy()
+        np.testing.assert_array_equal(np.stack(packed[2 * b: 2 * b + 2]), want)
+        assert all(r.status == 2 for r in out[b])
+    programs.clear()
+
+
+@pytest.mark.cuda
+def test_segment_program_whose_capture_fails_raises():
+    """The group program's forward made to read a device value on the host:
+    the first decode runs its first group eagerly and raises at the second
+    group's capture, as does the next decode; nothing decodes eagerly in
+    the program's place."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.models import programs
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+
+    programs.clear()
+    raw = _int16_drop(52.0, 3)
+    seg = segmented.segment_program(DecoderConfig(), 44100.0, False, 1, np.int16, "cuda")
+    real = seg.forward
+    seg.forward = lambda *a: real(*a) if a[3].item() else None
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            segmented.decode_waveform_segmented(raw, 44100, device="cuda", group=1)
+        assert seg.graph is None and seg.calls == 1
     programs.clear()

@@ -8,7 +8,10 @@ stale static input and a static output overwritten before it is read.
 * the cache: two decodes of one bucket take one entry; another wire, rate,
   configuration of the device tables or bucket takes another, a host-only
   setting the same; a ninth key evicts the least recently used and
-  releases it;
+  releases it; on stand-in programs whose pools' bytes are set by hand,
+  the byte budget evicts the least recently used until the pools fit,
+  never the program just used nor a pinned one, and the count bound holds
+  beside it;
 * three drops of one bucket decoded in a row through the cached path: each
   packed vector equals a fresh ``FusedDecoder``'s forward bit for bit, and
   the JAX engine's (``torch_packed.assert_packed_close``, hexframes);
@@ -112,6 +115,61 @@ def test_ninth_key_evicts_the_least_recently_used(empty_cache):
     assert programs.programs() == [made[k] for k in (2, 3, 4, 5, 6, 7, 0, 8)]
     assert made[1].forward is None and made[1].inputs == ()  # released
     assert torch.equal(made[0](np.ones(3, np.float32)), torch.full((3,), 2.0))
+
+
+def _stand_in(pool_bytes: int) -> programs.Program:
+    program = programs.Program(lambda x: x * 2, (torch.zeros(3),), "cpu")
+    program.pool_bytes = pool_bytes
+    return program
+
+
+def test_pools_past_the_byte_budget_evict_the_least_recently_used(empty_cache, monkeypatch):
+    """A budget of 100 bytes: stand-ins of 40, 30 and 20 bytes fit; one of
+    60 more evicts the oldest two (40 + 30 + 20 + 60 = 150, then 110, then
+    80); a hit moves a program to the newest end; a program larger than
+    the budget alone stays, the one just used, with the rest evicted."""
+    monkeypatch.setattr(programs, "pool_budget", lambda device: 100)
+    made = {k: _stand_in(b) for k, b in (("a", 40), ("b", 30), ("c", 20), ("d", 60),
+                                         ("e", 150))}
+    for k in "abc":
+        assert programs.cached(k, lambda k=k: made[k]) is made[k]
+    assert programs.programs() == [made[k] for k in "abc"] and programs.held_bytes() == 90
+    programs.cached("d", lambda: made["d"])
+    assert programs.programs() == [made["c"], made["d"]] and programs.held_bytes() == 80
+    assert made["a"].forward is None and made["b"].forward is None  # released
+    assert programs.cached("c", lambda: _stand_in(0)) is made["c"]  # a hit
+    assert programs.programs() == [made["d"], made["c"]]
+    programs.cached("e", lambda: made["e"])
+    assert programs.programs() == [made["e"]] and programs.held_bytes() == 150
+    assert torch.equal(made["e"](np.ones(3, np.float32)), torch.full((3,), 2.0))
+
+
+def test_a_capture_past_the_budget_keeps_the_program_just_used_and_the_pinned(
+        empty_cache, monkeypatch):
+    """The bound enforced after a capture (here a program's bytes set as a
+    capture sets them): the LRU programs go, not the one that captured nor
+    one a running decode holds; beside the bytes, at most ``MAX_PROGRAMS``
+    of one kind, whatever the other kinds hold."""
+    monkeypatch.setattr(programs, "pool_budget", lambda device: 100)
+    old, held, new = _stand_in(60), _stand_in(30), _stand_in(0)
+    other = programs.cached(("other", 0), lambda: _stand_in(0))
+    programs.cached(("t", "old"), lambda: old)
+    programs.cached(("t", "held"), lambda: held)
+    programs.cached(("t", "new"), lambda: new)
+    with programs.pinned(held):
+        new.pool_bytes = 50  # its capture's pool
+        programs._evict(keep=new)
+        assert programs.programs() == [other, held, new] and old.forward is None
+        new.pool_bytes = 200
+        programs._evict(keep=new)
+        assert programs.programs() == [other, held, new]  # nothing else to evict
+    assert held.pins == 0
+    programs._evict(keep=new)
+    assert programs.programs() == [other, new]
+    for k in range(programs.MAX_PROGRAMS):
+        programs.cached(("t", k), lambda: _stand_in(0))
+    assert len(programs.programs()) == programs.MAX_PROGRAMS + 1
+    assert new.forward is None and programs.programs()[0] is other
 
 
 def test_three_drops_of_one_bucket_equal_a_fresh_module_and_jax(empty_cache, packed_of):
