@@ -58,9 +58,9 @@ from ..ops import crc as crc_ops
 from ..ops import goertzel, iir, tonepower
 from ..ops import header_device as hdr_ops
 from ..ops import wire as wire_ops
+from ..utils import profiling
 from ..utils.config import DecoderConfig, resolve_settings
 from ..utils.lut import load_temp_lut
-from ..utils.profiling import StageTimer
 from . import frames as frames_host
 from . import metadata as md
 from . import programs
@@ -876,9 +876,10 @@ def attach_profile(result: DecodeResult, out: dict, cfg: DecoderConfig,
     tint = (hexpack >> 6) & 0xFFF    # frame bits 14:26
     cint = (hexpack >> 18) & 0xFFF   # frame bits 2:14
     times_raw = (edges - profstart) / fs
-    temps, conds, psals, depths = convert.ints_to_observations(
-        tint, cint, times_raw, load_temp_lut(),
-        live["tcoeff"], live["ccoeff"], live["zcoeff"])
+    with profiling.span("convert"):
+        temps, conds, psals, depths = convert.ints_to_observations(
+            tint, cint, times_raw, load_temp_lut(),
+            live["tcoeff"], live["ccoeff"], live["zcoeff"])
 
     times = np.round(times_raw + profstart / fs, 2)
     depths = np.round(depths, 2)
@@ -1028,6 +1029,14 @@ def resolve_device(device) -> torch.device:
 resolve_wire = wire_ops.resolve_wire  # the rule lives in ops.wire
 
 
+def wait_for(out: torch.Tensor) -> None:
+    """Block the host until the work queued on `out`'s device's current
+    stream is done (nothing on the CPU): a fetch's wait, apart from its copy."""
+    if out.is_cuda:
+        torch.cuda.current_stream(out.device).synchronize()
+
+
+@profiling.entry_point
 def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = None,
                     wire: str = "auto", mode: str = "auto",
                     lossy_retry: bool = True,
@@ -1050,12 +1059,14 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
     decode that comes back degenerate is retried once at int8
     (``lossy_retry``).  ``use_kernel=False`` takes the plain tone-ratio
     version on a GPU (comparison runs only; the segmented engine has no
-    kernel).  ``timer`` (a ``StageTimer``) takes the host's wire encode
-    (``host_encode_stats``) and the padding, pinning and queueing of the
-    upload (``build_upload``), under the segmented engine's stage names.
+    kernel).  ``timer`` (a ``StageTimer``; ``utils.profiling.entry_point``)
+    takes the host's wire encode (``host_encode_stats``), the padding, the
+    program's lookup and the pinning and queueing of the upload
+    (``build_upload``), the copy down (``fetch``, its wait ``device_wait``
+    first) and ``finish_result`` (``host_finish``), under the segmented
+    engine's stage names.
     """
     dev = resolve_device(device)
-    timer = timer if timer is not None else StageTimer()
     cfg = config or DecoderConfig()
     pcm = np.asarray(pcm)
     pcm0, fs0 = pcm, fs  # pre-encode originals (the lossless retry's input)
@@ -1101,15 +1112,21 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
             pcm = np.concatenate([pcm, np.zeros(n_padded - n_raw, pcm.dtype)])
         if not np.issubdtype(pcm.dtype, np.integer):
             pcm = pcm.astype(np.float32)
-        dims = EngineDims.for_waveform(n_padded // rate_mult, fs, cfg.bitrate,
-                                       probe_window(cfg, fs))
-        # the shape's cached program; the upload goes into its static input
-        program = fused_program(engine_tables(cfg, fs, dims, decimate2), dims, fs, cfg, pcm,
-                                dev, decimate2=decimate2, use_kernel=use_kernel)
+        with timer.stage("program_lookup"):
+            dims = EngineDims.for_waveform(n_padded // rate_mult, fs, cfg.bitrate,
+                                           probe_window(cfg, fs))
+            # the shape's cached program; the upload goes into its static input
+            program = fused_program(engine_tables(cfg, fs, dims, decimate2), dims, fs, cfg,
+                                    pcm, dev, decimate2=decimate2, use_kernel=use_kernel)
         program.load(pcm, n_raw)
     n = (n_raw + 1) // 2 if decimate2 else n_raw
-    host = program.run().cpu().numpy()  # the decode's one device-to-host transfer
-    res = finish_result(host, fs_report, n, fs, cfg, wire_used=wire_used)
+    out = program.run()
+    with timer.stage("fetch"):
+        with timer.stage("device_wait"):
+            wait_for(out)
+        host = out.cpu().numpy()  # the decode's one device-to-host transfer
+    with timer.stage("host_finish"):
+        res = finish_result(host, fs_report, n, fs, cfg, wire_used=wire_used)
     if lossy_retry and lossy_retry_worthy(res, n, fs, cfg):
         return decode_waveform(pcm0, fs0, device=dev, config=cfg,
                                mode="monolithic", wire="int8",
@@ -1117,23 +1134,22 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
     return res
 
 
+@profiling.entry_point
 def decode_wav(path: str, timerange=(0, -1), settings: dict | None = None,
                compat: str = "strict", wire: str = "auto", *, device="cuda",
                mode: str = "auto", use_kernel: bool = True,
                timer=None) -> DecodeResult:
     """Read and decode a WAV on `device` (``mode`` and ``timer`` as in
-    ``decode_waveform``).  int16 mono WAVs ship raw and are conditioned
-    (and, above 50 kHz, decimated) on the device; other encodings take the
-    host conditioning path."""
+    ``decode_waveform``; the read is the stage ``read_wav``).  int16 mono
+    WAVs ship raw and are conditioned (and, above 50 kHz, decimated) on the
+    device; other encodings take the host conditioning path (float PCM,
+    which ignores `wire`)."""
     from ..utils.wavio import read_wav, read_wav_raw16
 
     device = resolve_device(device)
     cfg = resolve_settings(settings, compat=compat)
-    raw = read_wav_raw16(path, timerange, allow_highrate=True)
-    if raw is not None:
-        return decode_waveform(raw[0], raw[1], device=device, config=cfg,
-                               wire=wire, mode=mode, use_kernel=use_kernel,
-                               timer=timer)
-    pcm, fs = read_wav(path, timerange)
-    return decode_waveform(pcm, fs, device=device, config=cfg, mode=mode,
+    with timer.stage("read_wav"):
+        raw = read_wav_raw16(path, timerange, allow_highrate=True)
+        pcm, fs = raw if raw is not None else read_wav(path, timerange)
+    return decode_waveform(pcm, fs, device=device, config=cfg, wire=wire, mode=mode,
                            use_kernel=use_kernel, timer=timer)

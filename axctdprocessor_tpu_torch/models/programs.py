@@ -68,6 +68,11 @@ the ~1,200 kernels that the eager forward queues one Python op at a time.
   on the same stream before the program's next call (the segment programs'
   outputs into the assemble program's static inputs).  :meth:`Program.load_at`
   writes one input: the assemble's are filled from several segment calls.
+* **Spans** (``utils.profiling.span``, on the timer of the decode's entry
+  point): ``program.build`` (a miss's build), ``program.eager`` (a
+  program's first call), ``program.capture``, ``program.evict`` (each
+  release by the cache) and ``pin_upload`` (a host array into a static
+  input); a warm call's replay opens none.
 * **The cache** (:func:`cached`) holds at most ``MAX_PROGRAMS`` programs of
   one kind (the first item of a key: the JAX package keeps an
   ``lru_cache(maxsize=8)`` for each of its program kinds; one count over
@@ -101,6 +106,7 @@ import numpy as np
 import torch
 
 from ..ops import chain, goertzel, tonepower
+from ..utils import profiling
 
 MAX_PROGRAMS = 8  # of one kind: the JAX package's lru_cache(maxsize=8) over each program kind
 POOL_SHARE = 4    # the cached graphs' pools and inputs hold at most a quarter of the card's memory
@@ -149,7 +155,7 @@ def _launch_records(deltas: dict) -> dict:
 def _load(buf: torch.Tensor, value) -> None:
     """One input into its static buffer on the current stream: a Python
     number as a fill, an array or tensor as a copy (host arrays through
-    pinned memory, without a host sync)."""
+    pinned memory, without a host sync: the span ``pin_upload``)."""
     if isinstance(value, (int, float)):
         buf.fill_(value)
         return
@@ -157,8 +163,10 @@ def _load(buf: torch.Tensor, value) -> None:
     if t.shape != buf.shape or t.dtype != buf.dtype:
         raise ValueError(f"input {t.dtype} {tuple(t.shape)} for a static buffer "
                          f"{buf.dtype} {tuple(buf.shape)}")
-    if buf.is_cuda and t.device.type == "cpu":
-        t = t.pin_memory()
+    if t.device.type == "cpu" and (buf.is_cuda or t is not value):  # a host array
+        with profiling.span("pin_upload"):
+            buf.copy_(t.pin_memory() if buf.is_cuda else t, non_blocking=True)
+        return
     buf.copy_(t, non_blocking=True)
 
 
@@ -241,7 +249,10 @@ class Program:
         if self.forward is None:
             raise RuntimeError("the program was released (evicted or cleared)")
         with torch.inference_mode(), _current(self.device):
-            if self.device.type != "cuda" or self.calls == 0:
+            if self.calls == 0:
+                with profiling.span("program.eager"):
+                    self.run_eager()
+            elif self.device.type != "cuda":
                 self.run_eager()
             elif self.graph is None:
                 self.capture()
@@ -263,28 +274,30 @@ class Program:
         """Capture the forward as a CUDA graph (its kernels' counts and
         launch records with it), then replay it once; its pool's bytes are
         read and the cache's bound enforced.  Raises if the capture fails,
-        with the counts as they were."""
-        before = _read_counts()
-        stream = torch.cuda.current_stream(self.device)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            # thread-local: another thread's CUDA calls (the pipeline's stager
-            # pinning and uploading the next batch on its own stream) neither
-            # join nor invalidate this capture
-            with torch.cuda.graph(graph, stream=self.capture_stream,
-                                  capture_error_mode="thread_local"):
-                out = self.forward(*self.inputs)
-        except BaseException:
-            torch.cuda.set_stream(stream)  # a failed capture leaves its own stream current
-            now = _read_counts()
-            _add_counts({k: before[k] - now[k] for k in before})
-            raise
-        after = _read_counts()
-        self.deltas = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        self.records = _launch_records(self.deltas)
-        self.graph, self.output = graph, out
-        self.pool_bytes = _pool_bytes(graph)
-        graph.replay()
+        with the counts as they were.  The span ``program.capture`` holds
+        all but the eviction (``program.evict``)."""
+        with profiling.span("program.capture"):
+            before = _read_counts()
+            stream = torch.cuda.current_stream(self.device)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                # thread-local: another thread's CUDA calls (the pipeline's stager
+                # pinning and uploading the next batch on its own stream) neither
+                # join nor invalidate this capture
+                with torch.cuda.graph(graph, stream=self.capture_stream,
+                                      capture_error_mode="thread_local"):
+                    out = self.forward(*self.inputs)
+            except BaseException:
+                torch.cuda.set_stream(stream)  # a failed capture leaves its own stream current
+                now = _read_counts()
+                _add_counts({k: before[k] - now[k] for k in before})
+                raise
+            after = _read_counts()
+            self.deltas = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            self.records = _launch_records(self.deltas)
+            self.graph, self.output = graph, out
+            self.pool_bytes = _pool_bytes(graph)
+            graph.replay()
         _evict(keep=self)
 
     def replay(self) -> None:
@@ -326,7 +339,8 @@ def _evict(keep: Program | None = None) -> None:
         key = next((k for k, p in _cache.items()
                     if p is not keep and not p.pins and which(k, p)), None)
         if key is not None:
-            _cache.pop(key).release()
+            with profiling.span("program.evict"):
+                _cache.pop(key).release()
         return key is not None
 
     for kind in {_kind(k) for k in _cache}:
@@ -341,12 +355,13 @@ def _evict(keep: Program | None = None) -> None:
 
 
 def cached(key, build) -> Program:
-    """The program of `key`, made by ``build()`` on a miss; the least
-    recently used programs beyond the cache's bounds are evicted and
-    released."""
+    """The program of `key`, made by ``build()`` on a miss (the span
+    ``program.build``); the least recently used programs beyond the cache's
+    bounds are evicted and released (``program.evict``, each)."""
     program = _cache.get(key)
     if program is None:
-        program = _cache[key] = build()
+        with profiling.span("program.build"):
+            program = _cache[key] = build()
         program.key = key
     _cache.move_to_end(key)
     _evict(keep=program)

@@ -58,8 +58,8 @@ from torch import nn
 from ..ops import chain as chain_ops
 from ..ops import iir, tonepower
 from ..ops import wire as wire_ops
+from ..utils import profiling
 from ..utils.config import DecoderConfig
-from ..utils.profiling import StageTimer
 from . import engine as eng
 from . import programs
 from .result import DecodeResult
@@ -392,10 +392,12 @@ class DropPlan:
         """The cached group and assemble programs of this drop's shapes
         (looked up at each decode: an evicted program is built again)."""
         dev = self.nv_dec.device
-        seg = segment_program(self.cfg, self.fs, self.decim2, self.group, self.pcm.dtype, dev)
-        with programs.pinned(seg):  # the second lookup may evict
-            return seg, assemble_program(self.cfg, self.fs, self.decim2,
-                                         _bucket_count(self.n_seg), dev)
+        with profiling.span("program_lookup"):
+            seg = segment_program(self.cfg, self.fs, self.decim2, self.group, self.pcm.dtype,
+                                  dev)
+            with programs.pinned(seg):  # the second lookup may evict
+                return seg, assemble_program(self.cfg, self.fs, self.decim2,
+                                             _bucket_count(self.n_seg), dev)
 
 
 def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
@@ -459,10 +461,12 @@ def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
     def scalar(v, dtype):
         return torch.full((), v, dtype=dtype, device=dev)
 
+    with timer.stage("program_lookup"):
+        model = segment_program(cfg, fs, decim2, int(group), pcm.dtype, dev).module
     return DropPlan(
         cfg=cfg, fs=fs, fs_report=fs_report, raw_mult=raw_mult, n_raw=n_raw,
         n=n, wire=w, pcm=pcm, enc=enc, n_seg=n_seg, group=int(group), dims=dims,
-        model=segment_program(cfg, fs, decim2, int(group), pcm.dtype, dev).module,
+        model=model,
         dc=scalar(float(np.float32(dc)), torch.float32),
         peak=scalar(float(np.float32(peak)), torch.float32),
         nv_dec=scalar(n, torch.int64), pk=pk, buf_len=ext_len * raw_mult // pk,
@@ -490,16 +494,18 @@ def _chunk_host(p: DropPlan, j: int) -> np.ndarray:
 def _upload(host: np.ndarray, dev: torch.device, copy_stream) -> torch.Tensor:
     """One group to the device.  On a GPU the copy leaves pinned memory on
     `copy_stream`, so group j+1's upload runs under group j's compute, and
-    the compute stream waits for it before using it."""
-    if copy_stream is None:
-        return torch.from_numpy(host).to(dev)
-    pinned = torch.from_numpy(host).pin_memory()
-    with torch.cuda.stream(copy_stream):
-        ext = pinned.to(dev, non_blocking=True)
-    compute = torch.cuda.current_stream(dev)
-    compute.wait_stream(copy_stream)
-    ext.record_stream(compute)
-    return ext
+    the compute stream waits for it before using it.  The span
+    ``pin_upload``: pinning and queueing."""
+    with profiling.span("pin_upload"):
+        if copy_stream is None:
+            return torch.from_numpy(host).to(dev)
+        pinned = torch.from_numpy(host).pin_memory()
+        with torch.cuda.stream(copy_stream):
+            ext = pinned.to(dev, non_blocking=True)
+        compute = torch.cuda.current_stream(dev)
+        compute.wait_stream(copy_stream)
+        ext.record_stream(compute)
+        return ext
 
 
 def _queue_drop(p: DropPlan, seg: programs.Program, asm: programs.Program, exts) -> None:
@@ -527,6 +533,7 @@ def _queue_drop(p: DropPlan, seg: programs.Program, asm: programs.Program, exts)
                     buf[first: first + keep].copy_(t[:keep])
 
 
+@profiling.entry_point
 def decode_waveform_segmented(pcm, fs, *, device="cuda",
                               config: DecoderConfig | None = None,
                               wire: str = "auto", timer=None,
@@ -537,11 +544,12 @@ def decode_waveform_segmented(pcm, fs, *, device="cuda",
 
     Same result contract as ``engine.decode_waveform``; integer input is
     conditioned on the device with host float64 DC/peak statistics.
-    ``timer`` (a ``StageTimer``) splits the wall into encode, dispatch
-    loop, assemble, fetch and host-finish stages.  Nothing reads the
-    device until the fetch.  A degenerate int4-wire decode is retried once
-    at int8 (``lossy_retry``)."""
-    timer = timer if timer is not None else StageTimer()
+    ``timer`` (a ``StageTimer``; ``utils.profiling.entry_point``) splits
+    the wall into encode, dispatch loop (each group's ``encode_chunks`` and
+    ``build_upload`` inside it), assemble, fetch (its wait ``device_wait``
+    first) and host-finish stages.  Nothing reads the device until the
+    fetch.  A degenerate int4-wire decode is retried once at int8
+    (``lossy_retry``)."""
     p = _plan_waveform(pcm, fs, config, wire, timer, device, group)
     dev = p.nv_dec.device
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -549,11 +557,11 @@ def decode_waveform_segmented(pcm, fs, *, device="cuda",
     def uploads():
         for j in range(p.n_chunk):
             if p.enc is not None:
-                with timer.stage("  encode_chunks"):
+                with timer.stage("encode_chunks"):
                     last = min(j * p.group + p.group, p.n_seg) - 1
                     p.enc.ensure((last * p.model.seg_len + p.model.seg_len
                                   + p.model.right) * p.raw_mult)
-            with timer.stage("  build_upload"):
+            with timer.stage("build_upload"):
                 # the copy into the program's input is queued after the
                 # compute stream's wait for this upload
                 ext = _upload(_chunk_host(p, j), dev, copy_stream)
@@ -566,6 +574,8 @@ def decode_waveform_segmented(pcm, fs, *, device="cuda",
         with timer.stage("assemble_dispatch"):
             out = asm.run()
     with timer.stage("fetch"):
+        with timer.stage("device_wait"):
+            eng.wait_for(out)
         host = out.cpu().numpy()  # the decode's one device-to-host copy
     with timer.stage("host_finish"):
         res = eng.finish_result(host, p.fs_report, p.n, p.fs, p.cfg, wire_used=p.wire)
@@ -629,7 +639,7 @@ def prestage_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = 
     """Encode and upload every group of ``pcm`` to the device and wait
     until staged.  The default wire is int8: a resident decode uploads
     nothing per decode, so a smaller wire buys nothing once staged."""
-    p = _plan_waveform(pcm, fs, config, wire, StageTimer(), device, group)
+    p = _plan_waveform(pcm, fs, config, wire, profiling.current(), device, group)
     if p.enc is not None:
         p.enc.ensure(p.n_raw)
     dev = p.nv_dec.device

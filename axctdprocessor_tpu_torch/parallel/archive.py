@@ -31,6 +31,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from ..models.engine import resolve_device
+from ..utils import profiling
 from ..utils.config import resolve_settings
 from ..utils.profiling import StageTimer
 from ..utils.report import write_report
@@ -38,6 +39,10 @@ from ..utils.wavio import read_wav
 from .batch import dispatch_batch, finish_dispatched, retry_lossy_rows
 
 BUCKET_SECONDS = 60  # pad each drop up to a whole minute bucket
+# the stages the manifest's stage_times keeps (the JAX package's); the timer
+# holds the finer spans too
+MANIFEST_STAGES = ("io.read_wavs", "io.write_reports", "device.dispatch_batch",
+                   "device.fetch_batch")
 
 
 def _manifest_path(out_dir: str) -> str:
@@ -53,10 +58,11 @@ def _load_manifest(out_dir: str) -> dict:
 
 
 def _save_manifest(out_dir: str, manifest: dict) -> None:
-    tmp = _manifest_path(out_dir) + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(manifest, f, indent=1)
-    os.replace(tmp, _manifest_path(out_dir))
+    with profiling.span("io.save_manifest"):
+        tmp = _manifest_path(out_dir) + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(manifest, f, indent=1)
+        os.replace(tmp, _manifest_path(out_dir))
 
 
 def _read_and_condition(path: str):
@@ -69,6 +75,7 @@ def _read_and_condition(path: str):
     return np.asarray(pcm, dtype=np.float32), fs
 
 
+@profiling.entry_point(default=StageTimer)
 def reprocess_corpus(wav_paths: list[str], out_dir: str,
                      settings: dict | None = None, compat: str = "strict",
                      *, device="cuda", mesh=None, batch_size: int = 8,
@@ -77,12 +84,17 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
     """Decode every WAV on `device` into `out_dir`/<name>.txt; returns the
     manifest.  Asking for a GPU that is not there raises before any work.
     With a `mesh` (``parallel.mesh.make_mesh``) each batch runs data-parallel
-    over its ``dp`` axis (``batch.dispatch_batch``) and `device` is not read."""
+    over its ``dp`` axis (``batch.dispatch_batch``) and `device` is not read.
+    ``timer`` (a ``StageTimer`` by default; ``utils.profiling.entry_point``)
+    takes the runner's stages, the spans below them and, on the main thread,
+    the wait for the readers (``io.wait_reader``), the batch array
+    (``pad_batch``), the plan (``plan_batches``) and each manifest write
+    (``io.save_manifest``); the manifest's ``stage_times`` keeps
+    ``MANIFEST_STAGES``."""
     if mesh is None:
         device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     cfg = resolve_settings(settings, compat=compat)
-    timer = timer or StageTimer()
     manifest = _load_manifest(out_dir) if resume else {"files": {}}
 
     todo = [p for p in wav_paths
@@ -120,19 +132,20 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
         seconds = nbytes / (2 * (fs if fs > 0 else 44100))
         return int(np.ceil(max(seconds, 1) / BUCKET_SECONDS))
 
-    todo.sort(key=lambda p: (fs_of(p), bucket_of(p)))
-    batches = []
-    current: list[str] = []
-    current_fs = None
-    for p in todo:
-        f = fs_of(p)
-        if current and (f != current_fs or len(current) >= batch_size):
+    with timer.stage("plan_batches"):
+        todo.sort(key=lambda p: (fs_of(p), bucket_of(p)))
+        batches = []
+        current: list[str] = []
+        current_fs = None
+        for p in todo:
+            f = fs_of(p)
+            if current and (f != current_fs or len(current) >= batch_size):
+                batches.append(current)
+                current = []
+            current_fs = f
+            current.append(p)
+        if current:
             batches.append(current)
-            current = []
-        current_fs = f
-        current.append(p)
-    if current:
-        batches.append(current)
 
     executor = ThreadPoolExecutor(max_workers=2)
 
@@ -199,7 +212,8 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
     inflight = None  # (out_tree, ctx, loaded)
     pending = executor.submit(load_batch, batches[0]) if batches else None
     for bi, paths in enumerate(batches):
-        loaded = pending.result()
+        with timer.stage("io.wait_reader"):
+            loaded = pending.result()
         pending = (executor.submit(load_batch, batches[bi + 1])
                    if bi + 1 < len(batches) else None)
 
@@ -216,12 +230,13 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
             _save_manifest(out_dir, manifest)
             continue
 
-        fs = loaded[0][0][1]
-        bucket_n = int(np.ceil(max(len(x[0][0]) for x in loaded)
-                               / (BUCKET_SECONDS * fs))) * BUCKET_SECONDS * int(fs)
-        pcms = np.zeros((len(loaded), bucket_n), dtype=loaded[0][0][0].dtype)
-        for i, ((pcm, _), _) in enumerate(loaded):
-            pcms[i, : len(pcm)] = pcm[:bucket_n]
+        with timer.stage("pad_batch"):
+            fs = loaded[0][0][1]
+            bucket_n = int(np.ceil(max(len(x[0][0]) for x in loaded)
+                                   / (BUCKET_SECONDS * fs))) * BUCKET_SECONDS * int(fs)
+            pcms = np.zeros((len(loaded), bucket_n), dtype=loaded[0][0][0].dtype)
+            for i, ((pcm, _), _) in enumerate(loaded):
+                pcms[i, : len(pcm)] = pcm[:bucket_n]
 
         with timer.stage("device.dispatch_batch"):
             lengths = [min(len(x[0][0]), bucket_n) for x in loaded]
@@ -246,6 +261,7 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
         write_results(p_loaded, results)
 
     executor.shutdown(wait=False)
-    manifest["stage_times"] = timer.as_dict()
+    manifest["stage_times"] = {k: v for k, v in timer.as_dict().items()
+                               if k in MANIFEST_STAGES}
     _save_manifest(out_dir, manifest)
     return manifest

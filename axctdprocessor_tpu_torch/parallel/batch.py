@@ -33,6 +33,7 @@ from ..models import engine as eng
 from ..models import programs
 from ..models.result import DecodeResult
 from ..ops import wire as wire_ops
+from ..utils import profiling
 from ..utils.config import DecoderConfig
 
 
@@ -217,12 +218,14 @@ class BatchPlan:
         return host, copied
 
     def finish(self, host: torch.Tensor, copied, lengths) -> list[DecodeResult]:
-        """Wait for one batch's fetch (its one host wait) and host-finish
-        its rows."""
-        if copied is not None:
-            copied.synchronize()
-        return finish_batch(host.numpy(), self.cfg, self.fs, self.fs_report,
-                            lengths, wire_used=self.wire_used)
+        """Wait for one batch's fetch (its one host wait: the span
+        ``device_wait``) and host-finish its rows (``host_finish``)."""
+        with profiling.span("device_wait"):
+            if copied is not None:
+                copied.synchronize()
+        with profiling.span("host_finish"):
+            return finish_batch(host.numpy(), self.cfg, self.fs, self.fs_report,
+                                lengths, wire_used=self.wire_used)
 
 
 def row_lengths(pcms: np.ndarray, lengths) -> np.ndarray:
@@ -268,7 +271,8 @@ def _dispatch_run(pcms: np.ndarray, lengths: np.ndarray, fs, config, wire: str, 
     the next batch's replay does not touch; (plan, fetch, lengths))."""
     plan = BatchPlan(pcms.dtype, pcms.shape[1], fs, config, wire, device)
     rows = plan.encode(pcms)
-    program = plan.program(rows)
+    with profiling.span("program_lookup"):
+        program = plan.program(rows)
     out = program(rows, lengths.astype(np.int64))
     fetch = plan.start_fetch(out, program.fetch_stream)
     return out, (plan, fetch, lengths)
@@ -286,14 +290,17 @@ def finish_dispatched(out, ctx) -> list[DecodeResult]:
     return results[:b_orig]
 
 
+@profiling.entry_point
 def decode_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cuda",
                  mesh=None, lengths=None, wire: str = "auto",
-                 lossy_retry: bool = True) -> list[DecodeResult]:
+                 lossy_retry: bool = True, timer=None) -> list[DecodeResult]:
     """Decode a (B, N) batch of waveforms on `device`, or data-parallel over
     `mesh` (see :func:`dispatch_batch`); returns B results.
 
     Rows whose int4-wire decode comes back degenerate are decoded again at
-    int8 in one batch (``lossy_retry``)."""
+    int8 in one batch (``lossy_retry``).  ``timer`` (a ``StageTimer``;
+    ``utils.profiling.entry_point``) takes the spans below: the program's
+    lookup and upload, the wait for the fetch and the host finish."""
     results = finish_dispatched(*dispatch_batch(
         pcms, fs, config=config, device=device, mesh=mesh, lengths=lengths, wire=wire))
     if lossy_retry:

@@ -2977,10 +2977,9 @@ def _wire_long_drop(drops: dict, raw: np.ndarray, fs) -> dict:
         for w in WIRES:
             in_truth, agree, peak, launches = first[w]
             nbytes = int((len(raw) if mode == "monolithic" else seg_bytes) * item[w])
-            enc = [1e3 * (s.get("host_encode_stats", 0.0) + s.get("  encode_chunks", 0.0))
+            enc = [1e3 * (s.get("host_encode_stats", 0.0) + s.get("encode_chunks", 0.0))
                    for s in stages[w]]
-            up = [1e3 * (s.get("build_upload", 0.0) + s.get("  build_upload", 0.0))
-                  for s in stages[w]]
+            up = [1e3 * s.get("build_upload", 0.0) for s in stages[w]]
             log(f"[9e] 600 s {mode} at wire {w}: status 2, serial, probe and max depth = truth, "
                 f"overflow {kept[mode, w].overflow}, rows {len(kept[mode, w].time)}, frames "
                 f"{len(kept[mode, w].hexframes)}, in truth {in_truth:.4f}, agreement with the "

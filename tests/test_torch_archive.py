@@ -68,6 +68,26 @@ def test_corpus_reports_and_manifest(ours, corpus):
     assert not os.path.exists(os.path.join(out, "manifest.json.tmp"))
 
 
+def test_runner_spans_nest_under_its_stages(ours):
+    """The runner's main-thread work (the wait for the readers, the batch
+    array, the plan, each manifest write) and the spans below its stages, in
+    the caller's timer; the manifest's stage_times keeps the runner's stages."""
+    _, manifest, timer = ours
+    parents = {"io.wait_reader": None, "pad_batch": None, "plan_batches": None,
+               "io.save_manifest": None, "io.read_wavs": None,
+               "program_lookup": "device.dispatch_batch",
+               "pin_upload": "device.dispatch_batch", "device_wait": "device.fetch_batch",
+               "host_finish": "device.fetch_batch", "convert": "host_finish"}
+    assert {k: timer.parents[k] for k in parents} == parents
+    assert timer.counts["io.wait_reader"] == timer.counts["pad_batch"] == 2
+    assert timer.counts["plan_batches"] == 1
+    assert timer.counts["io.save_manifest"] == 3  # after each batch's reports, at the end
+    assert timer.counts["device_wait"] == timer.counts["host_finish"] == 2
+    assert timer.counts["convert"] == 3  # one a row
+    assert set(manifest["stage_times"]) == STAGES
+    assert manifest["stage_times"]["device.fetch_batch"] > 0
+
+
 def test_corpus_reports_equal_jax(ours, corpus, tmp_path):
     """Default report bytes equal; the manifests equal but for the clock,
     the stage times, the output paths and the wire name."""

@@ -1161,6 +1161,26 @@ def test_program_whose_capture_fails_raises():
 
 
 @pytest.mark.cuda
+def test_program_capture_opens_its_span_once():
+    """On a card a program's first call opens ``program.eager``, its second
+    ``program.capture``, and a replay opens no ``program.*`` span."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.models import programs
+    from axctdprocessor_tpu_torch.utils import profiling
+
+    timer = profiling.StageTimer()
+    program = programs.Program(lambda x: x * 3, (torch.zeros(4, device="cuda"),), "cuda")
+    with profiling.installed(timer):
+        outs = [program(np.full(4, k, np.float32)) for k in (1, 2, 3)]
+    assert program.graph is not None
+    assert {k: v for k, v in timer.counts.items() if k.startswith("program.")} == {
+        "program.eager": 1, "program.capture": 1}
+    assert timer.counts["pin_upload"] == 3
+    for k, out in zip((1, 2, 3), outs):
+        assert torch.equal(out.cpu(), torch.full((4,), 3.0 * k))
+
+
+@pytest.mark.cuda
 def test_program_captures_on_a_stream_of_its_own_device():
     """A program on the last card, called while card 0 is current (the
     pipeline's back half on a second card): it captures on a stream of its

@@ -302,8 +302,7 @@ def test_int4_retry_keeps_the_mode_and_fills_the_timer(collapsing_drop, mode):
                                  timer=timer)
     assert res.wire == "int8" and res.status == 2 and len(res.hexframes) > 400
     assert timer.counts["host_encode_stats"] == 2  # the int4 decode and its int8 retry
-    upload = "build_upload" if mode == "monolithic" else "  build_upload"
-    assert timer.counts[upload] >= 2
+    assert timer.counts["build_upload"] >= 2
     assert ("dispatch_loop" in timer.counts) == (mode == "segmented")
 
 
