@@ -230,14 +230,18 @@ def decimate2_on_device(x: torch.Tensor, n_valid, decim_sos: torch.Tensor):
 BIG = torch.iinfo(torch.int32).max // 2  # fill of empty crossing slots
 
 
-# Whether the FFT filter transforms a batch one row per call, by device
-# type: a row of a batch must be the row alone bit for bit.  cuFFT filters
-# every row of a (B, nfft) call bit for bit as the row alone (measured on an
-# H100 at the decodes' sizes: chip_smoke.py phase 2c, PERF.md), so the card
-# transforms a batch in one call.  pocketfft (the CPU) vectorises across the
-# rows of a call and rounds a row of a batch otherwise: the CPU goes row by
-# row.
-FFT_ROW_BY_ROW = {"cpu": True, "cuda": False}
+# Rows of a batch per FFT call, by device type: a row of a batch must be the
+# row alone bit for bit.  cuFFT filters every row of a (B, nfft) call bit
+# for bit as the row alone (measured on an H100 at the decodes' sizes:
+# chip_smoke.py phase 2c, PERF.md), so the card transforms up to 8 rows in
+# one call and a larger batch in chunks of 8 (measured bit-equal to the whole
+# batch in one call): a captured program keeps its forward's peak as its
+# graph pool, and the 64 x 120 s batch program's pool fell from 15.60 to
+# 12.12 GiB (PERF.md, PR 20).  Every batch of 8 rows or fewer (a segment
+# group, a stream row, the batches of 8) is one call, as before.  pocketfft
+# (the CPU) vectorises across the rows of a call and rounds a row of a batch
+# otherwise: the CPU goes row by row.
+FFT_ROWS_PER_CALL = {"cpu": 1, "cuda": 8}
 
 
 def _response_rows(x: torch.Tensor, response: torch.Tensor, nfft: int) -> torch.Tensor:
@@ -247,12 +251,16 @@ def _response_rows(x: torch.Tensor, response: torch.Tensor, nfft: int) -> torch.
 def apply_response(x: torch.Tensor, response: torch.Tensor, nfft: int) -> torch.Tensor:
     """`x` filtered in the FFT domain over `nfft` points by a response at
     the rfft bins (``sos_response_on_device``), along the last dimension:
-    (..., nfft) from (..., n).  Leading dimensions are rows of a batch, in
-    one FFT call or row by row (``FFT_ROW_BY_ROW``)."""
-    if x.dim() < 2 or not FFT_ROW_BY_ROW.get(x.device.type, False):
+    (..., nfft) from (..., n).  Leading dimensions are rows of a batch,
+    transformed ``FFT_ROWS_PER_CALL`` of the device at a time (1: each row
+    as a 1-D call) into one output."""
+    w = FFT_ROWS_PER_CALL.get(x.device.type)
+    if x.dim() < 2 or w is None or (w > 1 and x.shape[:-1].numel() <= w):
         return _response_rows(x, response, nfft)
     rows = x.reshape(-1, x.shape[-1])
-    out = torch.stack([_response_rows(row, response, nfft) for row in rows])
+    out = rows.new_empty((rows.shape[0], nfft))
+    for i in range(0, rows.shape[0], w):
+        out[i: i + w] = _response_rows(rows[i] if w == 1 else rows[i: i + w], response, nfft)
     return out.reshape(x.shape[:-1] + (nfft,))
 
 
@@ -308,7 +316,7 @@ def demod_core(x: torch.Tensor, sos: torch.Tensor, bit_trig: torch.Tensor,
     `x` is one waveform (n,) or a batch (B, n) with (B,) ``n_valid``: the
     B = 1 case and the batch are one pass over (B, n) rows, with no loop
     over rows (the JAX package's ``jax.vmap`` of stage 1).  The filter goes
-    through :func:`apply_response` (one FFT call for the batch on the card,
+    through :func:`apply_response` (calls of up to 8 rows on the card,
     where cuFFT filters a row of a batch bit for bit as the row alone), the
     crossings' compaction is integer, and the probes are
     ``goertzel.probe_at`` (a fixed order of sums per probe): each row of a

@@ -79,11 +79,11 @@ the ~1,200 kernels that the eager forward queues one Python op at a time.
   all kinds would thrash a process that serves the monolithic, batch,
   segmented, stream and pipeline paths, whose warm shapes number 11 in
   ``chip_smoke.py``'s phase 9h), and what their graphs hold on a card at
-  most ``1 / POOL_SHARE`` of its memory (:attr:`Program.bytes`: the
+  most ``1 / POOL_SHARE`` (a third) of its memory (:attr:`Program.bytes`: the
   private pool, ``pool_bytes``, read once after the capture from
   ``torch.cuda.memory_snapshot()``, and the static inputs).  A cached XLA
   executable holds no activations, but a captured graph keeps its whole
-  pool (7.8 GiB for 64 rows of 60 s), so the JAX package's count alone
+  pool (12.1 GiB for 64 rows of 120 s), so the JAX package's count alone
   does not bound the card's memory.  The least recently used programs are
   evicted first, never the one just used nor a pinned one (:func:`pin`:
   the programs of a running decode, :func:`pinned`, and those a live
@@ -95,6 +95,10 @@ the ~1,200 kernels that the eager forward queues one Python op at a time.
   builds it again (no eager decode in its place).  The graphs hold the
   cuFFT plans their warm-up made: PyTorch's plan cache (4,096 plans a
   device by default) must keep them, two or four plans a program.
+* **Counters** (:func:`cache_stats`, per device, since the process
+  started): the builds (misses), the captures, the evictions (the bounds'
+  releases; :func:`clear` counts none), the bytes held and the most held,
+  read after each build and after each capture, before its evictions.
 """
 
 from __future__ import annotations
@@ -109,7 +113,13 @@ from ..ops import chain, goertzel, tonepower
 from ..utils import profiling
 
 MAX_PROGRAMS = 8  # of one kind: the JAX package's lru_cache(maxsize=8) over each program kind
-POOL_SHARE = 4    # the cached graphs' pools and inputs hold at most a quarter of the card's memory
+# The cached graphs' pools and static inputs hold at most a third of the card's memory
+# (26.39 GiB of an H100 80GB).  The archive at the JAX package's 64-drop batch unit keeps
+# three batch programs a pass, measured at 12.75 GiB (64 rows of 120 s), 11.37 GiB (57 rows
+# of 120 s) and 0.79 GiB (7 float rows of 60 s): 24.91 GiB, over a quarter (19.79 GiB), so
+# at a quarter every warm pass built, captured and evicted one of them again.  The eager
+# first call of a 64 x 120 s program takes 10.1 GiB more beside them (PERF.md, PR 20).
+POOL_SHARE = 3
 
 # the wrappers that count their kernel launches, by module and name (looked
 # up when read, so that a stand-in for a wrapper counts as the wrapper does)
@@ -298,6 +308,7 @@ class Program:
             self.graph, self.output = graph, out
             self.pool_bytes = _pool_bytes(graph)
             graph.replay()
+            _note(self.device, "captures")
         _evict(keep=self)
 
     def replay(self) -> None:
@@ -315,6 +326,26 @@ class Program:
 
 
 _cache: collections.OrderedDict = collections.OrderedDict()
+# by device (``device_key``): builds, captures, evictions, peak_held_bytes
+_stats: collections.defaultdict = collections.defaultdict(collections.Counter)
+
+
+def _note(device, count: str) -> None:
+    """One more of `count` on `device`, and the bytes held there now
+    against the most held."""
+    st = _stats[device_key(device)]
+    st[count] += 1
+    st["peak_held_bytes"] = max(st["peak_held_bytes"], held_bytes(device))
+
+
+def cache_stats(device) -> dict:
+    """What the cache did on `device` since the process started: its
+    ``builds``, ``captures`` and ``evictions``; the bytes its programs hold
+    now (``held_bytes``) and the most they held (``peak_held_bytes``)."""
+    st = _stats[device_key(device)]
+    held = held_bytes(device)
+    return {"builds": st["builds"], "captures": st["captures"], "evictions": st["evictions"],
+            "held_bytes": held, "peak_held_bytes": max(st["peak_held_bytes"], held)}
 
 
 def pool_budget(device: torch.device) -> int | None:
@@ -340,7 +371,9 @@ def _evict(keep: Program | None = None) -> None:
                     if p is not keep and not p.pins and which(k, p)), None)
         if key is not None:
             with profiling.span("program.evict"):
-                _cache.pop(key).release()
+                evicted = _cache.pop(key)
+                evicted.release()
+                _note(evicted.device, "evictions")
         return key is not None
 
     for kind in {_kind(k) for k in _cache}:
@@ -363,6 +396,7 @@ def cached(key, build) -> Program:
         with profiling.span("program.build"):
             program = _cache[key] = build()
         program.key = key
+        _note(program.device, "builds")
     _cache.move_to_end(key)
     _evict(keep=program)
     return program
@@ -398,12 +432,13 @@ def programs() -> list:
 def held_bytes(device=None) -> int:
     """The bytes the cached programs hold, graph pools and static inputs
     (on `device`)."""
-    return sum(p.bytes for p in _cache.values()
-               if device is None or p.device == torch.device(device))
+    dev = None if device is None else device_key(device)
+    return sum(p.bytes for p in _cache.values() if dev is None or device_key(p.device) == dev)
 
 
 def clear() -> None:
-    """Evict and release every cached program, pinned ones too."""
+    """Evict and release every cached program, pinned ones too (no
+    eviction in :func:`cache_stats`)."""
     while _cache:
         _cache.popitem(last=False)[1].release()
 

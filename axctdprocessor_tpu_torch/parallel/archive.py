@@ -30,6 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from ..models import programs
 from ..models.engine import resolve_device
 from ..utils import profiling
 from ..utils.config import resolve_settings
@@ -43,6 +44,14 @@ BUCKET_SECONDS = 60  # pad each drop up to a whole minute bucket
 # holds the finer spans too
 MANIFEST_STAGES = ("io.read_wavs", "io.write_reports", "device.dispatch_batch",
                    "device.fetch_batch")
+CACHE_COUNTS = ("builds", "captures", "evictions")  # the manifest's program_cache
+
+
+def _cache_counts(devices) -> dict:
+    """The program cache's counts (``programs.cache_stats``) and the bytes it
+    holds, summed over `devices`."""
+    stats = [programs.cache_stats(d) for d in devices]
+    return {k: sum(st[k] for st in stats) for k in CACHE_COUNTS + ("held_bytes",)}
 
 
 def _manifest_path(out_dir: str) -> str:
@@ -90,9 +99,14 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
     the wait for the readers (``io.wait_reader``), the batch array
     (``pad_batch``), the plan (``plan_batches``) and each manifest write
     (``io.save_manifest``); the manifest's ``stage_times`` keeps
-    ``MANIFEST_STAGES``."""
+    ``MANIFEST_STAGES``, and its ``program_cache`` the program cache's
+    builds, captures and evictions that this call made on its devices, and
+    the bytes the cache holds there at its end."""
     if mesh is None:
         device = resolve_device(device)
+    devices = {programs.device_key(d)
+               for d in (mesh.devices_along("dp") if mesh is not None else [device])}
+    cache_before = _cache_counts(devices)
     os.makedirs(out_dir, exist_ok=True)
     cfg = resolve_settings(settings, compat=compat)
     manifest = _load_manifest(out_dir) if resume else {"files": {}}
@@ -263,5 +277,9 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
     executor.shutdown(wait=False)
     manifest["stage_times"] = {k: v for k, v in timer.as_dict().items()
                                if k in MANIFEST_STAGES}
+    cache_after = _cache_counts(devices)
+    manifest["program_cache"] = dict(
+        {k: cache_after[k] - cache_before[k] for k in CACHE_COUNTS},
+        held_bytes=cache_after["held_bytes"])
     _save_manifest(out_dir, manifest)
     return manifest

@@ -76,8 +76,8 @@ Phases, one line each or more (any failure raises and exits non-zero):
    4, 8, 26 and at the 60 s row's nfft (the conditioned archive rows) for
    B = 8, 64; the ``rfft`` alone; in fixed chunks of 2, 4 and 8 rows against
    the row alone in a padded chunk; one call against row by row, timed; then
-   the port's rule (``engine.FFT_ROW_BY_ROW["cuda"]``) must hold: every row of
-   ``engine.apply_response`` over a batch equal to the 1-D call;
+   the port's rule (``engine.FFT_ROWS_PER_CALL["cuda"]`` rows a call) must hold:
+   every row of ``engine.apply_response`` over a batch equal to the 1-D call;
 2d. the demod front end's kernels (``tone_powers``, the tone kernel's raw
    powers, and ``probe_at``, the per-bit probe) against their plain versions
    (rtol = atol = 2e-4) at every call that the 600 s drop's monolithic,
@@ -1397,7 +1397,7 @@ def phase2c_fft(drops: dict) -> list:
     own, and the ``rfft`` alone; then in chunks of a fixed width W against the
     row alone in a chunk of W padded with zero rows; the time of one call
     against row by row.  Last, the rule the port runs
-    (``engine.FFT_ROW_BY_ROW["cuda"]``) is held to it: every row of
+    (``engine.FFT_ROWS_PER_CALL["cuda"]`` rows a call) is held to it: every row of
     ``engine.apply_response`` over the batch equal to the 1-D call."""
     from axctdprocessor_tpu_torch.models import engine
 
@@ -1437,8 +1437,8 @@ def phase2c_fft(drops: dict) -> list:
             policy_rows.append((name, b, sum(torch.equal(got[r], engine.apply_response(
                 xb[r], resp, nfft)) for r in range(b))))
             del got
-    log(f"[2c] the port's rule, engine.FFT_ROW_BY_ROW['cuda'] = "
-        f"{engine.FFT_ROW_BY_ROW['cuda']}: rows of "
+    log(f"[2c] the port's rule, engine.FFT_ROWS_PER_CALL['cuda'] = "
+        f"{engine.FFT_ROWS_PER_CALL['cuda']}: rows of "
         f"engine.apply_response over a batch equal to the 1-D call: "
         + "; ".join(f"{name} B = {b}: {e}/{b}" for name, b, e in policy_rows))
     assert all(e == b for _, b, e in policy_rows), policy_rows

@@ -1465,3 +1465,123 @@ def test_segment_program_whose_capture_fails_raises():
             segmented.decode_waveform_segmented(raw, 44100, device="cuda", group=1)
         assert seg.graph is None and seg.calls == 1
     programs.clear()
+
+
+# archive.batch64's batches (portbench): reprocess_corpus(batch_size=64) over the corpus
+# mix sorts its 128 files into two int16 batches of 64 and 57 rows, each 120 s wide, and
+# one float32 batch of the 7 files at 88.2 kHz, decimated to 60 s rows at 44.1 kHz
+WIDE_BATCHES = ((64, 120, np.int16), (57, 120, np.int16), (7, 60, np.float32))
+
+
+def _wide_batch(rows: int, width_s: int, dtype, bases: list, seed: int):
+    """`rows` drops of the mix's lengths (45, 60, 90 and 120 s in turn, at
+    most `width_s`), each with noise of its own, zero-padded to `width_s`;
+    float rows conditioned as the runner's host reader conditions them."""
+    rng = np.random.default_rng(seed)
+    fits = [b for b in bases if len(b) <= width_s * 44100]
+    pcms = np.zeros((rows, width_s * 44100), dtype)
+    lengths = []
+    for r in range(rows):
+        base = fits[r % len(fits)]
+        pcm = np.clip(base.astype(np.int32) + rng.integers(-300, 300, len(base)), -32768, 32767)
+        if dtype == np.float32:
+            pcm = ((pcm - np.mean(pcm)) / max(np.max(np.abs(pcm)), 1)).astype(np.float32)
+        pcms[r, : len(pcm)] = pcm
+        lengths.append(len(pcm))
+    return pcms, lengths
+
+
+@pytest.fixture(scope="module")
+def wide_passes():
+    """Four passes of archive.batch64's three batch shapes through
+    ``dispatch_batch`` from an empty cache, in the runner's order (eager,
+    captured, replayed, replayed): the batches, each pass's packed
+    matrices, and the cache's counts after the first three passes and
+    after the fourth."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU or interpret mode")
+    from axctdprocessor_tpu_torch.models import programs
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    programs.clear()
+    bases = [_int16_drop(d, s) for d, s in ((45.0, 3), (60.0, 8), (90.0, 17), (120.0, 5))]
+    batches = [_wide_batch(rows, width, dtype, bases, seed)
+               for seed, (rows, width, dtype) in enumerate(WIDE_BATCHES)]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    start = programs.cache_stats(dev)
+    packed, stats = [], []
+    for k in range(4):
+        packed.append([batch.dispatch_batch(pcms, 44100, device="cuda", lengths=lengths)[0]
+                       .cpu().numpy() for pcms, lengths in batches])
+        if k >= 2:
+            now = programs.cache_stats(dev)
+            stats.append(dict(now, **{c: now[c] - start[c]
+                                      for c in ("builds", "captures", "evictions")}))
+    held = {p.key: (p.graph is not None, p.bytes) for p in programs.programs()}
+    yield batches, packed, stats, held, programs.pool_budget(dev)
+    programs.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 57])
+def test_batch_fft_in_chunks_equals_the_whole_batch_fft_at_120_s(rows):
+    """``apply_response`` over 64 (and 57) rows of the 120 s width, in calls of
+    8 rows (the last of 57 one row), bit for bit the whole batch in one call
+    and each row as a 1-D call."""
+    _need_cuda()
+    from axctdprocessor_tpu_torch.ops import iir
+    from axctdprocessor_tpu_torch.utils.config import DecoderConfig
+
+    cfg, fs, n = DecoderConfig(), 44100.0, 120 * 44100
+    dims = engine.EngineDims.for_waveform(n, fs, cfg.bitrate, engine.probe_window(cfg, fs))
+    nfft = iir.next_pow2(dims.n + 4096)
+    sos = torch.from_numpy(engine.engine_tables(cfg, fs, dims)["sos"]).cuda()
+    response = engine.sos_response_on_device(sos, nfft)
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x = torch.randn((rows, dims.n), generator=gen, device="cuda")
+    tails = torch.arange(dims.n, device="cuda") < torch.linspace(
+        45 * 44100, dims.n, rows, device="cuda")[:, None]
+    x = torch.where(tails, x, 0.0)
+    assert engine.FFT_ROWS_PER_CALL["cuda"] == 8
+    with torch.inference_mode():
+        got = engine.apply_response(x, response, nfft)
+        assert torch.equal(got, engine._response_rows(x, response, nfft))
+        for r in (0, 7, 8, rows - 1):
+            assert torch.equal(got[r], engine._response_rows(x[r], response, nfft)), r
+
+
+@pytest.mark.cuda
+def test_wide_batch_programs_replay_their_eager_modules(wide_passes):
+    """Every pass of each of archive.batch64's batch programs (eager,
+    captured, replayed twice) bit for bit a fresh ``FusedDecoder``'s eager
+    forward of the batch."""
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    batches, packed, _, _, _ = wide_passes
+    for b, (pcms, lengths) in enumerate(batches):
+        plan = batch.BatchPlan(pcms.dtype, pcms.shape[1], 44100, None, "auto", "cuda")
+        fresh = engine.FusedDecoder.from_numpy_tables(
+            plan.tables, plan.dims, plan.fs, bitrate=float(plan.cfg.bitrate),
+            bit_inset=plan.cfg.bit_inset, edge_pad=engine.EDGE_PAD, device="cuda")
+        with torch.inference_mode():
+            want = fresh(torch.from_numpy(plan.encode(pcms)).cuda(),
+                         torch.tensor(lengths, device="cuda")).cpu().numpy()
+        del fresh
+        for k in range(4):
+            np.testing.assert_array_equal(packed[k][b], want, err_msg=f"batch {b}, pass {k}")
+
+
+@pytest.mark.cuda
+def test_wide_batch_programs_fit_the_cache_budget(wide_passes):
+    """The three programs, captured, all held within the budget: three
+    builds and three captures, no eviction (the cache evicts at a lookup or
+    capture that finds it above the budget); the fourth pass builds,
+    captures and evicts nothing."""
+    _, _, stats, held, budget = wide_passes
+    after_three, after_four = stats
+    assert {c: after_three[c] for c in ("builds", "captures", "evictions")} == \
+        {"builds": 3, "captures": 3, "evictions": 0}
+    assert {c: after_four[c] for c in ("builds", "captures", "evictions")} == \
+        {"builds": 3, "captures": 3, "evictions": 0}
+    assert len(held) == 3 and all(captured for captured, _ in held.values())
+    assert sum(b for _, b in held.values()) == after_four["held_bytes"] <= budget
