@@ -21,10 +21,15 @@ the same int32 vector as the JAX engine's.
   ``_assemble_program`` / ``_assemble_program_chunked``: every per-decode
   value (extensions, body offsets, ``dc``, ``peak``, valid lengths, the
   segment count) is a static input.
-* :func:`decode_waveform_segmented` — the streamed decode: segments are
-  uploaded a group at a time, each group's copy on a side stream under the
-  previous group's compute, then through the group program and into the
-  assemble program's inputs, with no host sync until the one fetch.
+* :func:`decode_waveform_segmented` — the streamed decode: each group of
+  segments through the group program and into the assemble program's
+  inputs, with no host sync until the one fetch.  A verbatim wire (int16
+  samples, float input) is staged on the device whole: one upload
+  (:func:`_stage_device`), the conditioning statistics taken there
+  (:func:`_device_stats`), and each group a strided view of the staged drop
+  (``DropPlan.device_groups``).  The lossy wires (int8, int4) encode on the
+  host and upload a group at a time (:func:`_chunk_host`), each group's
+  copy on a side stream under the previous group's compute.
 * :func:`prestage_waveform` / :class:`PrestagedDrop` — every group staged
   on the device first; ``decode()`` is then compute and one fetch.
 
@@ -68,6 +73,7 @@ SEG_NFFT = 1 << 20          # per-segment FFT size (fixed pow2)
 LEFT_HALO = 4096            # raw ring-in for the filter (transient < ~1k)
 BIG = eng.BIG
 GROUP = 4                   # default segments per upload
+STAGE_CHUNK = 1 << 21       # samples per pinned copy of a drop staged on the device
 
 
 def _seg_geometry(fs: float):
@@ -356,9 +362,10 @@ def assemble_program(cfg: DecoderConfig, fs: float, decim2: bool, k_seg: int,
 
 @dataclasses.dataclass
 class DropPlan:
-    """Host-side plan of one segmented decode: the wire-encoded PCM and its
-    conditioning statistics, the segment/group geometry, and the module
-    with its tables on the device (the group program's)."""
+    """Plan of one segmented decode: the wire-encoded PCM (on the host, and
+    for a verbatim wire staged on the device too) and its conditioning
+    statistics, the segment/group geometry, and the module with its tables
+    on the device (the group program's)."""
 
     cfg: DecoderConfig
     fs: float
@@ -379,6 +386,7 @@ class DropPlan:
     pk: int                # samples per byte (2 for int4)
     buf_len: int
     decim2: bool
+    staged: torch.Tensor | None  # the verbatim wire's drop on the device, haloed
 
     @property
     def n_chunk(self) -> int:
@@ -387,6 +395,20 @@ class DropPlan:
     @property
     def fill(self):
         return np.uint8(0x88) if self.pk == 2 else self.pcm.dtype.type(0)
+
+    def device_groups(self) -> list:
+        """Each group's G rows of the staged drop, strided views of
+        ``staged``: row k is segment k's haloed extension, zeros past the
+        drop's ends, ``_chunk_host``'s row byte for byte.  The last group's
+        rows past the last segment are zeros (its tail would be their left
+        halo), as ``_chunk_host`` fills them."""
+        g = self.group
+        rows = self.staged.unfold(0, self.buf_len, self.model.seg_len * self.raw_mult)
+        groups = [rows[j * g: (j + 1) * g] for j in range(self.n_chunk)]
+        pad = self.n_chunk * g - self.n_seg
+        if pad:
+            groups[-1] = torch.cat([groups[-1], rows.new_zeros(pad, self.buf_len)])
+        return groups
 
     def group_programs(self) -> tuple:
         """The cached group and assemble programs of this drop's shapes
@@ -401,10 +423,13 @@ class DropPlan:
 
 
 def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
-    """Resolve the wire and encode on the host, take the conditioning
-    statistics (host float64, as the WAV reader's), fix the geometry, and
-    take the module from the cached group program (tables uploaded once
-    per shape)."""
+    """Resolve the wire, fix the geometry, stage the drop and take its
+    conditioning statistics, and take the module from the cached group
+    program (tables uploaded once per shape).  A verbatim wire (int16
+    samples, float input) is uploaded whole (``build_upload``) and its
+    statistics are taken on the device (``host_encode_stats``), both inside
+    the span ``stage_device``; the lossy wires are encoded on the host,
+    which takes their statistics (host float64, as the WAV reader's)."""
     dev = eng.resolve_device(device)
     cfg = config or DecoderConfig()
     pcm = np.asarray(pcm)
@@ -427,13 +452,32 @@ def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
     n = (n_raw + raw_mult - 1) // raw_mult
     _, _, seg_len, right, _ = _seg_geometry(fs)
     ext_len = LEFT_HALO + seg_len + right
+    n_seg = max(-(-n // seg_len), 1)
 
-    enc = None
-    with timer.stage("host_encode_stats"):
-        if np.issubdtype(pcm.dtype, np.integer):
-            w = eng.resolve_wire(wire, pcm.dtype, dev)
-            if w == "int4" and (seg_len % 2 or ext_len % 2):
-                w = "int8"  # packed slicing needs even segment boundaries
+    if np.issubdtype(pcm.dtype, np.integer):
+        w = eng.resolve_wire(wire, pcm.dtype, dev)
+        if w == "int4" and (seg_len % 2 or ext_len % 2):
+            w = "int8"  # packed slicing needs even segment boundaries
+    else:
+        w = "float32"  # conditioned float PCM ships verbatim
+        pcm = pcm.astype(np.float32, copy=False)
+
+    def scalar(v, dtype):
+        return torch.full((), v, dtype=dtype, device=dev)
+
+    enc = staged = None
+    if w == "float32" or (w == "int16" and pcm.dtype == np.int16):
+        with timer.stage("stage_device"):
+            with timer.stage("build_upload"):
+                staged = _stage_device(pcm, (LEFT_HALO + n_seg * seg_len + right) * raw_mult,
+                                       LEFT_HALO * raw_mult, dev)
+            with timer.stage("host_encode_stats"):
+                if w == "int16":
+                    dc, peak = _device_stats(staged, n_raw)
+                else:
+                    dc, peak = scalar(0.0, torch.float32), scalar(1.0, torch.float32)
+    else:
+        with timer.stage("host_encode_stats"):
             if w == "int4":
                 # quantize ahead of the upload cursor (closed-form dc/peak,
                 # see wire.ChunkedInt4Encoder); one-shot without the C library
@@ -448,29 +492,58 @@ def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
                 # min/max, not np.abs (wraps at the int16 minimum)
                 peak = (float(max(int(pcm.max()), -int(pcm.min()), 1))
                         if n_raw else 1.0)
-        else:
-            w = "float32"  # conditioned float PCM ships verbatim
-            dc, peak = 0.0, 1.0
-            pcm = pcm.astype(np.float32)
+            dc = scalar(float(np.float32(dc)), torch.float32)
+            peak = scalar(float(np.float32(peak)), torch.float32)
 
-    n_seg = max(-(-n // seg_len), 1)
     dims = eng.EngineDims.for_waveform(_bucket_count(n_seg) * seg_len, fs,
                                        cfg.bitrate, eng.probe_window(cfg, fs))
     pk = 2 if w == "int4" else 1
-
-    def scalar(v, dtype):
-        return torch.full((), v, dtype=dtype, device=dev)
 
     with timer.stage("program_lookup"):
         model = segment_program(cfg, fs, decim2, int(group), pcm.dtype, dev).module
     return DropPlan(
         cfg=cfg, fs=fs, fs_report=fs_report, raw_mult=raw_mult, n_raw=n_raw,
         n=n, wire=w, pcm=pcm, enc=enc, n_seg=n_seg, group=int(group), dims=dims,
-        model=model,
-        dc=scalar(float(np.float32(dc)), torch.float32),
-        peak=scalar(float(np.float32(peak)), torch.float32),
-        nv_dec=scalar(n, torch.int64), pk=pk, buf_len=ext_len * raw_mult // pk,
-        decim2=decim2)
+        model=model, dc=dc, peak=peak, nv_dec=scalar(n, torch.int64), pk=pk,
+        buf_len=ext_len * raw_mult // pk, decim2=decim2, staged=staged)
+
+
+def _stage_device(pcm: np.ndarray, length: int, at: int, dev: torch.device) -> torch.Tensor:
+    """The drop's samples, once, into a zero-filled device buffer of
+    `length` samples at offset `at` (the span ``pin_upload``).  On a GPU
+    they pass through one pinned buffer (the caching host allocator's,
+    reused from drop to drop once its copies are done) a chunk at a time:
+    each chunk's copy to the card is queued on the current stream, without
+    a host sync, while the host fills the next."""
+    dtype, n = torch.from_numpy(np.empty(0, pcm.dtype)).dtype, len(pcm)
+    buf = torch.zeros(length, dtype=dtype, device=dev)
+    with profiling.span("pin_upload"):
+        if dev.type != "cuda":
+            buf.numpy()[at: at + n] = pcm
+            return buf
+        pinned = torch.empty(n, dtype=dtype, pin_memory=True)
+        host = pinned.numpy()
+        for lo in range(0, n, STAGE_CHUNK):
+            hi = min(lo + STAGE_CHUNK, n)
+            host[lo:hi] = pcm[lo:hi]
+            buf[at + lo: at + hi].copy_(pinned[lo:hi], non_blocking=True)
+    return buf
+
+
+def _device_stats(staged: torch.Tensor, n_raw: int) -> tuple:
+    """``dc`` and ``peak`` of a staged int16 drop as 0-d float32 device
+    tensors, bit for bit the host's ``np.float32(np.mean(pcm))`` and
+    ``max(max, -min, 1)``: every partial sum of int16 samples is an integer
+    below 2**53, so the int64 sum is numpy's float64 sum exactly; the float64
+    division (by a device tensor: a CUDA division by a host scalar multiplies
+    by its reciprocal) rounds once and the float32 cast once more, as on the
+    host.  The peak is taken in int32 (-32768 does not wrap).  The zero halos
+    change neither, and nothing reads the device."""
+    total = staged.sum(dtype=torch.int64).to(torch.float64)
+    count = torch.full((), n_raw, dtype=torch.float64, device=staged.device)
+    lo, hi = torch.aminmax(staged)
+    peak = torch.maximum(hi.to(torch.int32), -lo.to(torch.int32)).clamp_(min=1)
+    return (total / count).to(torch.float32), peak.to(torch.float32)
 
 
 def _chunk_host(p: DropPlan, j: int) -> np.ndarray:
@@ -492,10 +565,10 @@ def _chunk_host(p: DropPlan, j: int) -> np.ndarray:
 
 
 def _upload(host: np.ndarray, dev: torch.device, copy_stream) -> torch.Tensor:
-    """One group to the device.  On a GPU the copy leaves pinned memory on
-    `copy_stream`, so group j+1's upload runs under group j's compute, and
-    the compute stream waits for it before using it.  The span
-    ``pin_upload``: pinning and queueing."""
+    """One group of a lossy wire to the device.  On a GPU the copy leaves
+    pinned memory on `copy_stream`, so group j+1's upload runs under group
+    j's compute, and the compute stream waits for it before using it.  The
+    span ``pin_upload``: pinning and queueing."""
     with profiling.span("pin_upload"):
         if copy_stream is None:
             return torch.from_numpy(host).to(dev)
@@ -533,44 +606,50 @@ def _queue_drop(p: DropPlan, seg: programs.Program, asm: programs.Program, exts)
                     buf[first: first + keep].copy_(t[:keep])
 
 
+def _host_groups(p: DropPlan, timer):
+    """The groups of a lossy wire, each cut on the host (``_chunk_host``),
+    encoded ahead of the upload cursor (int4) and uploaded in turn."""
+    dev = p.nv_dec.device
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    for j in range(p.n_chunk):
+        if p.enc is not None:
+            with timer.stage("encode_chunks"):
+                last = min(j * p.group + p.group, p.n_seg) - 1
+                p.enc.ensure((last * p.model.seg_len + p.model.seg_len
+                              + p.model.right) * p.raw_mult)
+        with timer.stage("build_upload"):
+            # the copy into the program's input is queued after the
+            # compute stream's wait for this upload
+            ext = _upload(_chunk_host(p, j), dev, copy_stream)
+        yield ext
+
+
 @profiling.entry_point
 def decode_waveform_segmented(pcm, fs, *, device="cuda",
                               config: DecoderConfig | None = None,
                               wire: str = "auto", timer=None,
                               lossy_retry: bool = True,
                               group: int = GROUP) -> DecodeResult:
-    """Decode with per-segment stage 1 and a streamed upload, `group`
-    segments per upload, through the cached group and assemble programs.
+    """Decode with per-segment stage 1, `group` segments a pass, through
+    the cached group and assemble programs.
 
     Same result contract as ``engine.decode_waveform``; integer input is
-    conditioned on the device with host float64 DC/peak statistics.
-    ``timer`` (a ``StageTimer``; ``utils.profiling.entry_point``) splits
-    the wall into encode, dispatch loop (each group's ``encode_chunks`` and
-    ``build_upload`` inside it), assemble, fetch (its wait ``device_wait``
-    first) and host-finish stages.  Nothing reads the device until the
-    fetch.  A degenerate int4-wire decode is retried once at int8
-    (``lossy_retry``)."""
+    conditioned on the device.  A verbatim wire is staged on the device
+    whole, its statistics taken there (``DropPlan.device_groups``); a lossy
+    wire's statistics are the host's and its groups are uploaded one at a
+    time.  ``timer`` (a ``StageTimer``; ``utils.profiling.entry_point``)
+    splits the wall into staging (``stage_device`` around ``build_upload``
+    and ``host_encode_stats``) or encode, dispatch loop (a lossy wire's
+    ``encode_chunks`` and ``build_upload`` inside it), assemble, fetch (its
+    wait ``device_wait`` first) and host-finish stages.  Nothing reads the
+    device until the fetch.  A degenerate int4-wire decode is retried once
+    at int8 (``lossy_retry``)."""
     p = _plan_waveform(pcm, fs, config, wire, timer, device, group)
-    dev = p.nv_dec.device
-    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-
-    def uploads():
-        for j in range(p.n_chunk):
-            if p.enc is not None:
-                with timer.stage("encode_chunks"):
-                    last = min(j * p.group + p.group, p.n_seg) - 1
-                    p.enc.ensure((last * p.model.seg_len + p.model.seg_len
-                                  + p.model.right) * p.raw_mult)
-            with timer.stage("build_upload"):
-                # the copy into the program's input is queued after the
-                # compute stream's wait for this upload
-                ext = _upload(_chunk_host(p, j), dev, copy_stream)
-            yield ext
-
+    groups = p.device_groups() if p.staged is not None else _host_groups(p, timer)
     seg, asm = p.group_programs()
     with programs.pinned(seg, asm):
         with timer.stage("dispatch_loop"):
-            _queue_drop(p, seg, asm, uploads())
+            _queue_drop(p, seg, asm, groups)
         with timer.stage("assemble_dispatch"):
             out = asm.run()
     with timer.stage("fetch"):
@@ -637,13 +716,17 @@ def prestage_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = 
                       wire: str = "int8", fused: bool = False,
                       group: int = GROUP) -> PrestagedDrop:
     """Encode and upload every group of ``pcm`` to the device and wait
-    until staged.  The default wire is int8: a resident decode uploads
-    nothing per decode, so a smaller wire buys nothing once staged."""
+    until staged (a verbatim wire: the drop staged whole, its groups views
+    of it).  The default wire is int8: a resident decode uploads nothing
+    per decode, so a smaller wire buys nothing once staged."""
     p = _plan_waveform(pcm, fs, config, wire, profiling.current(), device, group)
-    if p.enc is not None:
-        p.enc.ensure(p.n_raw)
     dev = p.nv_dec.device
-    exts = [eng.to_device(_chunk_host(p, j), dev) for j in range(p.n_chunk)]
+    if p.staged is not None:
+        exts = p.device_groups()
+    else:
+        if p.enc is not None:
+            p.enc.ensure(p.n_raw)
+        exts = [eng.to_device(_chunk_host(p, j), dev) for j in range(p.n_chunk)]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return PrestagedDrop(p, exts, fused=fused)

@@ -124,7 +124,11 @@ Phases, one line each or more (any failure raises and exits non-zero):
    same command with no card visible, which must fail;
 6. the segmented engine: the 600 s WAV through ``decode_wav`` (``"auto"``
    routes it there), the same gates, agreement with the monolithic decode,
-   warm walls and host syncs;
+   warm walls and host syncs; the drop staged on the card (int16, the
+   verbatim wire): every group byte for byte ``_chunk_host``'s, ``dc`` and
+   ``peak`` bit for bit the host's float64 statistics, and a warm decode
+   opens ``stage_device`` once and no ``program.*`` span (no build, eager
+   run or capture);
 7. prestaged: ``prestage_waveform(wire="int8")`` then ``decode()``, warm
    walls, sustained throughput of 8 queued decodes, ``fused=True`` equal;
 8. the stream decoder fed the 600 s drop in 1 s float blocks: ``finalize()``
@@ -2475,6 +2479,9 @@ def phase6_segmented(drops: dict, mono: dict) -> dict:
     with count_syncs() as syncs:
         again = segmented.decode_waveform_segmented(raw, fs, device="cuda", timer=timer)
     assert again.hexframes == res.hexframes
+    assert timer.counts["stage_device"] == 1, dict(timer.counts)
+    assert not [k for k in timer.counts if k.startswith("program.")], dict(timer.counts)
+    staged = _staged_equals_host(raw, fs)
     log(f"[6] 600 s segmented decode (decode_wav, \"auto\"): status {res.status}, serial "
         f"{res.metadata['serial_no']}, overflow {res.overflow}, rows {len(res.time)}, frames "
         f"{len(res.hexframes)}, in truth {in_truth:.4f}, agreement with the monolithic "
@@ -2484,7 +2491,30 @@ def phase6_segmented(drops: dict, mono: dict) -> dict:
         f"monolithic {mono['wall']:.4f} s, realtime "
         f"factor {600.0 / wall:.1f}x, host syncs per decode {syncs['n']}; stages "
         f"{ {k: round(v * 1e3, 2) for k, v in timer.totals.items()} } ms")
+    log(f"[6] staged on the card: {staged} groups byte for byte _chunk_host's, dc and peak "
+        f"bit for bit the host's; the warm decode opened stage_device once and no program.* "
+        f"span")
     return dict(raw=raw, fs=fs, res=res)
+
+
+def _staged_equals_host(raw, fs) -> int:
+    """The int16 drop staged on the card (``DropPlan.device_groups``) against
+    the host's cut (``_chunk_host``) group by group, byte for byte, and its
+    ``dc`` / ``peak`` against ``np.float32`` of the host's float64 mean and of
+    ``max(max, -min, 1)``, bit for bit; returns the number of groups."""
+    from axctdprocessor_tpu_torch.models import segmented
+    from axctdprocessor_tpu_torch.utils.profiling import NO_TIMER
+
+    p = segmented._plan_waveform(raw, fs, None, "auto", NO_TIMER, "cuda", segmented.GROUP)
+    assert p.staged is not None and p.wire == "int16"
+    groups = p.device_groups()
+    for j, group in enumerate(groups):
+        assert np.array_equal(group.cpu().numpy(), segmented._chunk_host(p, j)), j
+    dc = np.float32(np.mean(raw))
+    peak = np.float32(max(int(raw.max()), -int(raw.min()), 1))
+    assert p.dc.cpu().numpy().tobytes() == dc.tobytes(), (p.dc, dc)
+    assert p.peak.cpu().numpy().tobytes() == peak.tobytes(), (p.peak, peak)
+    return len(groups)
 
 
 def phase7_prestaged(drops: dict, seg: dict) -> None:

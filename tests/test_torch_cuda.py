@@ -1361,6 +1361,64 @@ def test_segment_and_assemble_programs_replay_the_eager_module(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_device_staged_600_s_drop_on_card_equals_host_staging(monkeypatch):
+    """A 600 s int16 drop staged on the card: every group byte for byte
+    ``_chunk_host``'s and ``dc`` / ``peak`` bit for bit the host's float64
+    statistics; the decode's packed vector bit for bit the same programs fed
+    the host-staged groups and statistics; a warm decode (the third: the
+    assemble program runs once a decode, so the second captures it) replays
+    the cached group and assemble programs (no build, eager run or capture)
+    and equals the first decode bit for bit and the CPU decode (agreement
+    >= 0.99)."""
+    _need_cuda()
+    import dataclasses
+
+    from axctdprocessor_tpu_torch.models import programs
+    from axctdprocessor_tpu_torch.utils import profiling
+
+    raw = _int16_drop(600.0, 11)
+    raw[len(raw) // 3] = -32768
+    p = segmented._plan_waveform(raw, 44100, None, "auto", profiling.NO_TIMER, "cuda",
+                                 segmented.GROUP)
+    assert p.wire == "int16" and p.staged is not None and p.n_chunk == 7
+    for j, group in enumerate(p.device_groups()):
+        assert np.array_equal(group.cpu().numpy(), segmented._chunk_host(p, j)), j
+    dc, peak = np.float32(np.mean(raw)), np.float32(32768.0)
+    assert p.dc.cpu().numpy().tobytes() == dc.tobytes()
+    assert p.peak.cpu().numpy().tobytes() == peak.tobytes()
+
+    packed = []
+    real = engine.finish_result
+    monkeypatch.setattr(engine, "finish_result",
+                        lambda out, *a, **k: packed.append(np.array(out)) or real(out, *a, **k))
+    programs.clear()
+    first = segmented.decode_waveform_segmented(raw, 44100, device="cuda")
+    segmented.decode_waveform_segmented(raw, 44100, device="cuda")
+    timer = profiling.StageTimer()
+    warm = segmented.decode_waveform_segmented(raw, 44100, device="cuda", timer=timer)
+    seg, asm = programs.programs()
+    assert seg.graph is not None and asm.graph is not None
+    assert seg.calls == 21 and asm.calls == 3
+    assert not [k for k in timer.counts if k.startswith("program.")], dict(timer.counts)
+    assert timer.counts["stage_device"] == 1
+    np.testing.assert_array_equal(packed[0], packed[1])
+    np.testing.assert_array_equal(packed[0], packed[2])
+    host = dataclasses.replace(p, staged=None, dc=torch.tensor(dc, device="cuda"),
+                               peak=torch.tensor(peak, device="cuda"))
+    with programs.pinned(seg, asm):
+        segmented._queue_drop(host, seg, asm, [torch.from_numpy(segmented._chunk_host(host, j))
+                                               .cuda() for j in range(host.n_chunk)])
+        np.testing.assert_array_equal(asm.run().cpu().numpy(), packed[2])
+    cpu = segmented.decode_waveform_segmented(raw, 44100, device="cpu")
+    assert first.status == warm.status == cpu.status == 2
+    assert first.metadata == warm.metadata == cpu.metadata
+    assert first.hexframes == warm.hexframes and first.time == warm.time
+    a, b = set(warm.hexframes), set(cpu.hexframes)
+    assert len(a & b) / max(len(a | b), 1) >= 0.99
+    programs.clear()
+
+
+@pytest.mark.cuda
 def test_pinned_stream_captures_nothing_after_its_constructor(monkeypatch):
     """A stream pinned to a 3-segment bucket: its constructor captures the
     one-row segment program and the bucket's assemble program; feeding a

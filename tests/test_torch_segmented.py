@@ -12,8 +12,14 @@
 * the port against itself: group sizes, zero-segment padding, prestaged
   (both forms), no pulse, the 88.2 kHz valid lengths, and ``"auto"``
   routing in ``engine.decode_waveform``;
+* a verbatim wire staged on the device: every group byte for byte
+  ``_chunk_host``'s, ``dc`` and ``peak`` bit for bit the host's statistics,
+  the span ``stage_device`` once a decode (never on the lossy wires), and
+  the decode's hexframes and report bytes those of the host-staged decode;
 * marked slow: the 88.2 kHz and int4-wire decodes against JAX.
 """
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -26,7 +32,7 @@ from axctdprocessor_tpu.models import tpu_engine as jeng
 from axctdprocessor_tpu.utils import report as jreport
 from axctdprocessor_tpu.utils.config import DecoderConfig, resolve_settings
 from axctdprocessor_tpu_torch.models import engine, segmented, simulator
-from axctdprocessor_tpu_torch.utils import report
+from axctdprocessor_tpu_torch.utils import profiling, report
 from torch_packed import assert_packed_close
 
 torch.set_num_threads(2)
@@ -336,6 +342,103 @@ def test_auto_mode_routes_long_drops_to_segmented(drop130, decoded, monkeypatch)
     assert engine.decode_waveform(raw, 44100, device="cpu").time == mono.time
     assert len(calls) == 1
     assert mono.status == 2 and mono.metadata == seg.metadata
+
+
+def _staging_drop(case: str, fs: int, dtype) -> np.ndarray:
+    """A drop of one staging case: a length (1 sample, fewer than the left
+    halo, a whole number of segments at the raw rate and one sample more,
+    600 s), or int16 values (holding -32768, constant)."""
+    rm = 2 if fs > 50000 else 1
+    seg_raw = segmented._seg_geometry(fs / rm)[2] * rm
+    n = {"1": 1, "halo": segmented.LEFT_HALO - 5, "whole": 2 * seg_raw,
+         "whole+1": 2 * seg_raw + 1, "600 s": 600 * fs}.get(case, 30 * fs)
+    rng = np.random.default_rng(7)
+    if dtype == np.float32:
+        return rng.standard_normal(n, dtype=np.float32)
+    if case == "constant":
+        return np.full(n, -3, np.int16)
+    x = rng.integers(-12000, 14000, n, dtype=np.int16)
+    if case == "-32768":
+        x[n // 3] = -32768
+    return x
+
+
+STAGING = ([(case, fs, dtype) for case in ("1", "halo", "whole", "whole+1", "600 s")
+            for fs in (44100, 88200) for dtype in (np.int16, np.float32)]
+           + [("-32768", 44100, np.int16), ("constant", 44100, np.int16)])
+
+
+@pytest.mark.parametrize("case,fs,dtype", STAGING,
+                         ids=[f"{c}-{fs}-{np.dtype(d).name}" for c, fs, d in STAGING])
+def test_device_staged_groups_and_statistics_equal_the_host(case, fs, dtype):
+    """The drop staged on the device: every group byte for byte
+    ``_chunk_host``'s (the rows past the last segment included), ``dc`` bit
+    for bit ``np.float32`` of the host's float64 mean and ``peak`` of
+    ``max(max, -min, 1)`` (0 and 1 for float input)."""
+    pcm = _staging_drop(case, fs, dtype)
+    p = segmented._plan_waveform(pcm, fs, None, "auto", profiling.NO_TIMER, "cpu",
+                                 segmented.GROUP)
+    assert p.staged is not None and p.wire == ("int16" if dtype == np.int16 else "float32")
+    groups = p.device_groups()
+    assert len(groups) == p.n_chunk
+    for j, group in enumerate(groups):
+        assert np.array_equal(group.numpy(), segmented._chunk_host(p, j)), j
+    if dtype == np.int16:
+        dc = np.float32(np.mean(pcm))
+        peak = np.float32(max(int(pcm.max()), -int(pcm.min()), 1))
+    else:
+        dc, peak = np.float32(0.0), np.float32(1.0)
+    assert p.dc.dtype == p.peak.dtype == torch.float32
+    assert p.dc.numpy().tobytes() == dc.tobytes()
+    assert p.peak.numpy().tobytes() == peak.tobytes()
+
+
+@pytest.mark.parametrize("wire,opened", [("int16", 1), ("int8", 0), ("int4", 0)])
+def test_stage_device_opens_once_per_verbatim_decode(wire, opened):
+    """``stage_device`` opens once a decode on the int16 wire, around the
+    one ``build_upload`` and ``host_encode_stats``; the lossy wires stage on
+    the host, group by group."""
+    spec = simulator.SimSpec(duration=30.0, profile_start=12.0, seed=5)
+    raw = _int16(simulator.synthesize(spec)[0])
+    timer = profiling.StageTimer()
+    res = segmented.decode_waveform_segmented(raw, 44100, device="cpu", wire=wire,
+                                              timer=timer, lossy_retry=False)
+    assert res.wire == wire
+    assert timer.counts["stage_device"] == opened
+    # 30 s: two segments, one group
+    assert timer.counts["host_encode_stats"] == timer.counts["build_upload"] == 1
+    if opened:
+        assert timer.parents["build_upload"] == timer.parents["host_encode_stats"] == \
+            "stage_device"
+
+
+def _host_staged_decode(pcm, fs):
+    """The int16 drop decoded as the host stages it: host float64 statistics
+    and each group cut by ``_chunk_host``, through the same programs."""
+    p = segmented._plan_waveform(pcm, fs, None, "int16", profiling.NO_TIMER, "cpu",
+                                 segmented.GROUP)
+    p = dataclasses.replace(
+        p, staged=None, dc=torch.tensor(np.float32(np.mean(pcm))),
+        peak=torch.tensor(np.float32(max(int(pcm.max()), -int(pcm.min()), 1))))
+    seg, asm = p.group_programs()
+    segmented._queue_drop(p, seg, asm, [torch.from_numpy(segmented._chunk_host(p, j))
+                                        for j in range(p.n_chunk)])
+    return engine.finish_result(asm.run().numpy(), p.fs_report, p.n, p.fs, p.cfg,
+                                wire_used=p.wire)
+
+
+def test_device_staged_decode_equals_the_host_staged_decode(drop130, decoded, tmp_path):
+    """The int16 drop staged on the device decodes to the hexframes,
+    metadata and ``write_report`` bytes of the host-staged decode."""
+    raw = _int16(drop130[0])
+    ours, host = decoded[0]["int16"][0], _host_staged_decode(raw, 44100)
+    assert ours.status == host.status == 2
+    assert ours.metadata == host.metadata and ours.hexframes == host.hexframes
+    cfg = resolve_settings(SETTINGS)
+    paths = tmp_path / "device.txt", tmp_path / "host.txt"
+    for path, res in zip(paths, (ours, host)):
+        report.write_report(str(path), res, "drop130.wav", [0, -1], SETTINGS, cfg)
+    assert paths[0].read_bytes() == paths[1].read_bytes()
 
 
 @pytest.mark.slow  # JAX compiles the decimating segment program

@@ -76,15 +76,17 @@ def _decode(wav, mode, timer):
         return engine.decode_wav(wav, device="cpu", mode=mode, timer=timer)
 
 
-COMMON = {("read_wav", "decode_wav"), ("host_encode_stats", "decode_wav"),
-          ("fetch", "decode_wav"), ("device_wait", "fetch"),
+COMMON = {("read_wav", "decode_wav"), ("fetch", "decode_wav"), ("device_wait", "fetch"),
           ("host_finish", "decode_wav"), ("convert", "host_finish"),
           ("pin_upload", "build_upload")}
 COLD = {  # a new shape's decode: the spans beside COMMON, with their parents
-    "monolithic": {("build_upload", "decode_wav"), ("program_lookup", "build_upload"),
-                   ("program.build", "program_lookup"), ("program.eager", "decode_wav")},
-    "segmented": {("program_lookup", "decode_wav"), ("program.build", "program_lookup"),
-                  ("dispatch_loop", "decode_wav"), ("build_upload", "dispatch_loop"),
+    "monolithic": {("host_encode_stats", "decode_wav"), ("build_upload", "decode_wav"),
+                   ("program_lookup", "build_upload"), ("program.build", "program_lookup"),
+                   ("program.eager", "decode_wav")},
+    # the int16 drop staged on the device whole, its statistics taken there
+    "segmented": {("stage_device", "decode_wav"), ("build_upload", "stage_device"),
+                  ("host_encode_stats", "stage_device"), ("program_lookup", "decode_wav"),
+                  ("program.build", "program_lookup"), ("dispatch_loop", "decode_wav"),
                   ("assemble_dispatch", "decode_wav"), ("program.eager", "dispatch_loop"),
                   ("program.eager", "assemble_dispatch")},
 }
