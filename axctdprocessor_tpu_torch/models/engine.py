@@ -643,13 +643,11 @@ def conditioned(pcm: torch.Tensor, n_valid) -> torch.Tensor:
 
 
 def stage1_core(pcm, n_valid, power_trig, sos, bit_trig, dims: EngineDims,
-                fs: float, bitrate: float, bit_inset: int, edge_pad: int,
-                use_kernel: bool = True) -> dict:
+                fs: float, bitrate: float, bit_inset: int, edge_pad: int) -> dict:
     """The front half of the decode at the decode rate: conditioning of
     integer PCM, smoothed tone ratios on the uniform whole-file grid (the
-    CUDA kernel on a GPU, the plain version on a CPU tensor;
-    ``use_kernel=False`` takes the plain version on a GPU too, for
-    comparison runs only) and the demod front end.
+    CUDA kernel on a GPU, the plain version on a CPU tensor) and the demod
+    front end.
 
     Returns ``r400``, ``r7500``, ``edge_samples``, ``n_edges``, the per-bit
     mark and space powers ``s1`` and ``s2``, and ``overflow``: what
@@ -659,9 +657,8 @@ def stage1_core(pcm, n_valid, power_trig, sos, bit_trig, dims: EngineDims,
     chains, probes) one pass over the rows, with no host sync; every
     output gains a leading batch dimension."""
     x = conditioned(pcm, n_valid)
-    ratios = tonepower.tone_ratios if use_kernel else tonepower.tone_ratios_reference
-    r400, r7500 = ratios(x.to(torch.float32).contiguous(), power_trig,
-                         dims.n_power, dims.d_pcm)
+    r400, r7500 = tonepower.tone_ratios(x.to(torch.float32).contiguous(), power_trig,
+                                        dims.n_power, dims.d_pcm)
     return dict(r400=r400, r7500=r7500, **demod_core(
         x, sos, bit_trig, dims, fs, bitrate, bit_inset, edge_pad, n_valid))
 
@@ -692,8 +689,7 @@ def back_half(s1: dict, n_valid, trig_i, trig_f, hdr_rel, calib_off,
 def fused_core(pcm, n_valid, power_trig, sos, bit_trig, trig_i, trig_f,
                hdr_rel, calib_off, dims: EngineDims, fs: float,
                bitrate: float, bit_inset: int, edge_pad: int,
-               use_kernel: bool = True, decimate2: bool = False,
-               decim_sos=None) -> torch.Tensor:
+               decimate2: bool = False, decim_sos=None) -> torch.Tensor:
     """The whole decode: :func:`stage1_core` followed by the back half ->
     packed int32 vector, or the (B, L) matrix of a (B, N) batch with (B,)
     ``n_valid`` (the batch path; one tone-ratio launch for the batch).
@@ -706,7 +702,7 @@ def fused_core(pcm, n_valid, power_trig, sos, bit_trig, trig_i, trig_f,
         pcm, n_valid = decimate2_on_device(conditioned(pcm, n_valid), n_valid,
                                            decim_sos)
     s1 = stage1_core(pcm, n_valid, power_trig, sos, bit_trig, dims, fs,
-                     bitrate, bit_inset, edge_pad, use_kernel=use_kernel)
+                     bitrate, bit_inset, edge_pad)
     finish = back_half if pcm.dim() == 1 else batched_back_half
     return finish(s1, n_valid, trig_i, trig_f, hdr_rel, calib_off, dims, fs)
 
@@ -740,21 +736,19 @@ class FusedDecoder(nn.Module):
     shape (``EngineDims``) and rate."""
 
     def __init__(self, dims: EngineDims, fs: float, bitrate: float,
-                 bit_inset: int, edge_pad: int = 100, decimate2: bool = False,
-                 use_kernel: bool = True):
+                 bit_inset: int, edge_pad: int = 100, decimate2: bool = False):
         super().__init__()
         self.dims, self.fs, self.bitrate = dims, float(fs), float(bitrate)
         self.bit_inset, self.edge_pad = int(bit_inset), int(edge_pad)
-        self.decimate2, self.use_kernel = bool(decimate2), bool(use_kernel)
+        self.decimate2 = bool(decimate2)
 
     @classmethod
     def from_numpy_tables(cls, tables: dict, dims: EngineDims, fs: float, *,
                           bitrate: float, bit_inset: int, edge_pad: int = 100,
-                          decimate2: bool = False, use_kernel: bool = True,
-                          device) -> "FusedDecoder":
+                          decimate2: bool = False, device) -> "FusedDecoder":
         """Build the buffers from exactly the numpy arrays the JAX program
         is given (``engine_tables``)."""
-        m = cls(dims, fs, bitrate, bit_inset, edge_pad, decimate2, use_kernel)
+        m = cls(dims, fs, bitrate, bit_inset, edge_pad, decimate2)
         register_tables(m, tables, decimate2, torch.device(device))
         return m
 
@@ -763,7 +757,7 @@ class FusedDecoder(nn.Module):
         two halves apart (``parallel.pipeline``); no decimation."""
         return stage1_core(pcm, n_valid, self.power_trig, self.sos, self.bit_trig,
                            self.dims, self.fs, self.bitrate, self.bit_inset,
-                           self.edge_pad, use_kernel=self.use_kernel)
+                           self.edge_pad)
 
     def back_half(self, s1: dict, n_valid: torch.Tensor) -> torch.Tensor:
         """The back half of a batch of ``stage1`` outputs: the (B, L) matrix."""
@@ -775,8 +769,7 @@ class FusedDecoder(nn.Module):
             pcm, n_valid, self.power_trig, self.sos, self.bit_trig,
             self.trig_i, self.trig_f, self.hdr_rel, self.calib_off,
             self.dims, self.fs, self.bitrate, self.bit_inset, self.edge_pad,
-            use_kernel=self.use_kernel, decimate2=self.decimate2,
-            decim_sos=getattr(self, "decim_sos", None))
+            decimate2=self.decimate2, decim_sos=getattr(self, "decim_sos", None))
 
 
 # ---------------------------------------------------------------------------
@@ -820,8 +813,7 @@ EDGE_PAD = 100  # samples at the start of a drop where no bit edge is taken
 
 
 def fused_program(tables: dict, dims: EngineDims, fs: float, cfg: DecoderConfig,
-                  pcm: np.ndarray, device, *, decimate2: bool = False,
-                  use_kernel: bool = True) -> programs.Program:
+                  pcm: np.ndarray, device, *, decimate2: bool = False) -> programs.Program:
     """The cached program (``models.programs``) of the fused decode of
     wire-format PCM of `pcm`'s dtype and shape, one waveform or a (B, N)
     batch, on `device`: a ``FusedDecoder`` with `tables` on the device, a
@@ -829,13 +821,13 @@ def fused_program(tables: dict, dims: EngineDims, fs: float, cfg: DecoderConfig,
     The key holds everything the forward takes as a constant."""
     dev = programs.device_key(device)
     bitrate, bit_inset = float(cfg.bitrate), int(cfg.bit_inset)
-    key = ("fused", dims, float(fs), bool(decimate2), bool(use_kernel), pcm.dtype.str,
-           pcm.shape, str(dev), bitrate, bit_inset, EDGE_PAD, programs.table_key(tables))
+    key = ("fused", dims, float(fs), bool(decimate2), pcm.dtype.str, pcm.shape, str(dev),
+           bitrate, bit_inset, EDGE_PAD, programs.table_key(tables))
 
     def build():
         model = FusedDecoder.from_numpy_tables(
             tables, dims, fs, bitrate=bitrate, bit_inset=bit_inset, edge_pad=EDGE_PAD,
-            decimate2=decimate2, use_kernel=use_kernel, device=dev)
+            decimate2=decimate2, device=dev)
         x = torch.empty(pcm.shape, dtype=torch.from_numpy(pcm[:0]).dtype, device=dev)
         n_valid = torch.empty(pcm.shape[:-1], dtype=torch.int64, device=dev)
         return programs.Program(model, (x, n_valid), dev, module=model)
@@ -1037,6 +1029,24 @@ def resolve_device(device) -> torch.device:
 resolve_wire = wire_ops.resolve_wire  # the rule lives in ops.wire
 
 
+def report_rate(fs) -> float | int:
+    """The rate a report prints for input decoded at its own rate `fs`:
+    `fs` as given, an int staying an int (the reference prints fs
+    verbatim).  The batch paths, which never decimate, take it alone."""
+    return float(fs) if isinstance(fs, float) else int(fs)
+
+
+def decode_rates(fs) -> tuple:
+    """A single drop's rates: (decode rate, report rate, raw samples per
+    decoded sample).  Input above 50 kHz is decimated by 2 on the device and
+    its report prints the halved rate as a float (the reference's host
+    ``fs /= 2``); other input decodes at `fs`, reported as
+    :func:`report_rate` says."""
+    if float(fs) > 50000.0:
+        return float(fs) / 2.0, float(fs) / 2.0, 2
+    return float(fs), report_rate(fs), 1
+
+
 def wait_for(out: torch.Tensor) -> None:
     """Block the host until the work queued on `out`'s device's current
     stream is done (nothing on the CPU): a fetch's wait, apart from its copy."""
@@ -1047,8 +1057,7 @@ def wait_for(out: torch.Tensor) -> None:
 @profiling.entry_point
 def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = None,
                     wire: str = "auto", mode: str = "auto",
-                    lossy_retry: bool = True,
-                    use_kernel: bool = True, timer=None) -> DecodeResult:
+                    lossy_retry: bool = True, timer=None) -> DecodeResult:
     """Decode a conditioned float or raw-integer waveform on `device`.
 
     ``mode`` routes as the JAX engine does: "auto" sends waveforms longer
@@ -1065,22 +1074,17 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
     Integer PCM ships as the `wire` format and is conditioned on the
     device; >50 kHz input is decimated by 2 on the device.  An int4-wire
     decode that comes back degenerate is retried once at int8
-    (``lossy_retry``).  ``use_kernel=False`` takes the plain tone-ratio
-    version on a GPU (comparison runs only; the segmented engine has no
-    kernel).  ``timer`` (a ``StageTimer``; ``utils.profiling.entry_point``)
-    takes the host's wire encode (``host_encode_stats``), the padding, the
-    program's lookup and the pinning and queueing of the upload
-    (``build_upload``), the copy down (``fetch``, its wait ``device_wait``
-    first) and ``finish_result`` (``host_finish``), under the segmented
-    engine's stage names.
+    (``lossy_retry``).  ``timer`` (a ``StageTimer``;
+    ``utils.profiling.entry_point``) takes the host's wire encode
+    (``host_encode_stats``), the padding, the program's lookup and the
+    pinning and queueing of the upload (``build_upload``), the copy down
+    (``fetch``, its wait ``device_wait`` first) and ``finish_result``
+    (``host_finish``), under the segmented engine's stage names.
     """
     dev = resolve_device(device)
     cfg = config or DecoderConfig()
-    pcm = np.asarray(pcm)
-    pcm0, fs0 = pcm, fs  # pre-encode originals (the lossless retry's input)
-    if pcm.dtype == np.uint8:
-        raise ValueError("pass unpacked integer PCM with wire='int4'; "
-                         "pre-packed nibble streams lose the sample count")
+    pcm, wire_used = wire_ops.intake(pcm, wire, dev)
+    pcm0, fs0 = pcm, fs  # before the wire's encode (the lossless retry's input)
     if mode not in ("auto", "monolithic", "segmented"):
         raise ValueError(f"mode must be 'auto', 'monolithic' or 'segmented', got {mode!r}")
     if mode == "segmented" or (
@@ -1091,22 +1095,12 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
                                          wire=wire, lossy_retry=lossy_retry,
                                          timer=timer)
     n_raw = int(len(pcm))
-    if np.issubdtype(pcm.dtype, np.integer):
-        wire_used = resolve_wire(wire, pcm.dtype, dev)
+    if wire_used != "float32":
         with timer.stage("host_encode_stats"):
             pcm = wire_ops.encode(pcm, wire_used)
-    else:
-        wire_used = "float32"  # conditioned float PCM ships verbatim
     packed4 = pcm.dtype == np.uint8
-    decimate2 = float(fs) > 50000.0
-    if decimate2:
-        fs = float(fs) / 2.0
-        fs_report = fs
-    else:
-        # the report prints fs verbatim: int for native rates
-        fs_report = float(fs) if isinstance(fs, float) else int(fs)
-        fs = float(fs)
-    rate_mult = 2 if decimate2 else 1
+    fs, fs_report, rate_mult = decode_rates(fs)
+    decimate2 = rate_mult == 2
     unit = int(BUCKET_SECONDS * fs) * rate_mult
     n_padded = max(int(np.ceil(n_raw / unit)) * unit, unit)
     with timer.stage("build_upload"):
@@ -1118,16 +1112,14 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
                 pcm = np.concatenate([pcm, np.full(need - len(pcm), 0x88, np.uint8)])
         elif n_padded != n_raw:
             pcm = np.concatenate([pcm, np.zeros(n_padded - n_raw, pcm.dtype)])
-        if not np.issubdtype(pcm.dtype, np.integer):
-            pcm = pcm.astype(np.float32)
         with timer.stage("program_lookup"):
             dims = EngineDims.for_waveform(n_padded // rate_mult, fs, cfg.bitrate,
                                            probe_window(cfg, fs))
             # the shape's cached program; the upload goes into its static input
             program = fused_program(engine_tables(cfg, fs, dims, decimate2), dims, fs, cfg,
-                                    pcm, dev, decimate2=decimate2, use_kernel=use_kernel)
+                                    pcm, dev, decimate2=decimate2)
         program.load(pcm, n_raw)
-    n = (n_raw + 1) // 2 if decimate2 else n_raw
+    n = (n_raw + rate_mult - 1) // rate_mult
     out = program.run()
     with timer.stage("fetch"):
         with timer.stage("device_wait"):
@@ -1137,16 +1129,14 @@ def decode_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = No
         res = finish_result(host, fs_report, n, fs, cfg, wire_used=wire_used)
     if lossy_retry and lossy_retry_worthy(res, n, fs, cfg):
         return decode_waveform(pcm0, fs0, device=dev, config=cfg,
-                               mode="monolithic", wire="int8",
-                               use_kernel=use_kernel, timer=timer)
+                               mode="monolithic", wire="int8", timer=timer)
     return res
 
 
 @profiling.entry_point
 def decode_wav(path: str, timerange=(0, -1), settings: dict | None = None,
                compat: str = "strict", wire: str = "auto", *, device="cuda",
-               mode: str = "auto", use_kernel: bool = True,
-               timer=None) -> DecodeResult:
+               mode: str = "auto", timer=None) -> DecodeResult:
     """Read and decode a WAV on `device` (``mode`` and ``timer`` as in
     ``decode_waveform``; the read is the stage ``read_wav``).  int16 mono
     WAVs ship raw and are conditioned (and, above 50 kHz, decimated) on the
@@ -1160,4 +1150,4 @@ def decode_wav(path: str, timerange=(0, -1), settings: dict | None = None,
         raw = read_wav_raw16(path, timerange, allow_highrate=True)
         pcm, fs = raw if raw is not None else read_wav(path, timerange)
     return decode_waveform(pcm, fs, device=device, config=cfg, wire=wire, mode=mode,
-                           use_kernel=use_kernel, timer=timer)
+                           timer=timer)

@@ -23,13 +23,13 @@ the same int32 vector as the JAX engine's.
   segment count) is a static input.
 * :func:`decode_waveform_segmented` — the streamed decode: each group of
   segments through the group program and into the assemble program's
-  inputs, with no host sync until the one fetch.  A verbatim wire (int16
-  samples, float input) is staged on the device whole: one upload
-  (:func:`_stage_device`), the conditioning statistics taken there
-  (:func:`_device_stats`), and each group a strided view of the staged drop
-  (``DropPlan.device_groups``).  The lossy wires (int8, int4) encode on the
-  host and upload a group at a time (:func:`_chunk_host`), each group's
-  copy on a side stream under the previous group's compute.
+  inputs, with no host sync until the one fetch.  Every wire stages the
+  drop on the device whole: a lossy wire (int8, int4) encoded on the host
+  first, then one upload (:func:`_stage_device`), the conditioning
+  statistics of integer samples taken there (:func:`_device_stats`; int4's
+  are its encoder's), and each group a strided view of the staged drop
+  (``DropPlan.device_groups``; :func:`_chunk_host` is the host's cut that
+  tests hold it to).
 * :func:`prestage_waveform` / :class:`PrestagedDrop` — every group staged
   on the device first; ``decode()`` is then compute and one fetch.
 
@@ -362,10 +362,10 @@ def assemble_program(cfg: DecoderConfig, fs: float, decim2: bool, k_seg: int,
 
 @dataclasses.dataclass
 class DropPlan:
-    """Plan of one segmented decode: the wire-encoded PCM (on the host, and
-    for a verbatim wire staged on the device too) and its conditioning
-    statistics, the segment/group geometry, and the module with its tables
-    on the device (the group program's)."""
+    """Plan of one segmented decode: the wire-encoded PCM on the host and
+    staged on the device, its conditioning statistics, the segment/group
+    geometry, and the module with its tables on the device (the group
+    program's)."""
 
     cfg: DecoderConfig
     fs: float
@@ -375,7 +375,6 @@ class DropPlan:
     n: int                 # decode-rate length
     wire: str
     pcm: np.ndarray        # encoded samples (packed bytes for int4)
-    enc: object            # chunked int4 encoder, or None
     n_seg: int
     group: int
     dims: eng.EngineDims
@@ -384,30 +383,28 @@ class DropPlan:
     peak: torch.Tensor
     nv_dec: torch.Tensor
     pk: int                # samples per byte (2 for int4)
+    fill: int              # the wire's zero: two zero-level nibbles (0x88) a byte of int4
     buf_len: int
     decim2: bool
-    staged: torch.Tensor | None  # the verbatim wire's drop on the device, haloed
+    staged: torch.Tensor   # the encoded drop on the device, haloed with the wire's zero
 
     @property
     def n_chunk(self) -> int:
         return -(-self.n_seg // self.group)
 
-    @property
-    def fill(self):
-        return np.uint8(0x88) if self.pk == 2 else self.pcm.dtype.type(0)
-
     def device_groups(self) -> list:
         """Each group's G rows of the staged drop, strided views of
-        ``staged``: row k is segment k's haloed extension, zeros past the
-        drop's ends, ``_chunk_host``'s row byte for byte.  The last group's
-        rows past the last segment are zeros (its tail would be their left
-        halo), as ``_chunk_host`` fills them."""
+        ``staged``: row k is segment k's haloed extension, the wire's zero
+        past the drop's ends, ``_chunk_host``'s row byte for byte.  The last
+        group's rows past the last segment are the wire's zero (its tail
+        would be their left halo), as ``_chunk_host`` fills them."""
         g = self.group
-        rows = self.staged.unfold(0, self.buf_len, self.model.seg_len * self.raw_mult)
+        rows = self.staged.unfold(0, self.buf_len,
+                                  self.model.seg_len * self.raw_mult // self.pk)
         groups = [rows[j * g: (j + 1) * g] for j in range(self.n_chunk)]
         pad = self.n_chunk * g - self.n_seg
         if pad:
-            groups[-1] = torch.cat([groups[-1], rows.new_zeros(pad, self.buf_len)])
+            groups[-1] = torch.cat([groups[-1], rows.new_full((pad, self.buf_len), self.fill)])
         return groups
 
     def group_programs(self) -> tuple:
@@ -422,101 +419,89 @@ class DropPlan:
                                              _bucket_count(self.n_seg), dev)
 
 
+def _encode_lossy(pcm: np.ndarray, wire: str) -> tuple:
+    """A lossy wire's encoding on the host: (samples, None) for int8, whose
+    statistics are taken on the device; (packed bytes, (dc, peak)) for int4,
+    with its encoder's statistics (the C encoder's closed-form ``dc`` and
+    ``peak``, see ``wire.ChunkedInt4Encoder``, run over the whole drop;
+    without the C library the one-shot encoder's)."""
+    if wire == "int8":
+        return wire_ops.encode(pcm, wire), None
+    enc = wire_ops.chunked_int4_encoder(pcm)
+    if enc is None:
+        packed, dc, peak = wire_ops.quantize_int4_packed_stats(pcm)
+        return packed, (dc, peak)
+    enc.ensure(len(pcm))
+    return enc.packed, (enc.dc, enc.peak)
+
+
 def _plan_waveform(pcm, fs, config, wire, timer, device, group) -> DropPlan:
     """Resolve the wire, fix the geometry, stage the drop and take its
     conditioning statistics, and take the module from the cached group
-    program (tables uploaded once per shape).  A verbatim wire (int16
-    samples, float input) is uploaded whole (``build_upload``) and its
-    statistics are taken on the device (``host_encode_stats``), both inside
-    the span ``stage_device``; the lossy wires are encoded on the host,
-    which takes their statistics (host float64, as the WAV reader's)."""
+    program (tables uploaded once per shape).  Every wire is staged whole
+    inside the span ``stage_device``: a lossy wire (int8, int4) is first
+    encoded on the host (``host_encode_stats``), then the drop is uploaded
+    once (``build_upload``), then its statistics are taken
+    (``host_encode_stats``): on the device for integer samples, int4's from
+    its encoder, 0 and 1 for float input."""
     dev = eng.resolve_device(device)
     cfg = config or DecoderConfig()
-    pcm = np.asarray(pcm)
-    if pcm.dtype == np.uint8:
-        raise ValueError("pass unpacked integer PCM with wire='int4'; "
-                         "pre-packed nibble streams lose the sample count")
+    pcm, w = wire_ops.intake(pcm, wire, dev)
     if group < 1:
         raise ValueError(f"group must be >= 1, got {group}")
-    # >50 kHz input decimates by 2 on the device, per segment; the report
-    # prints the halved rate as a float (reference host `fs /= 2`)
-    decim2 = float(fs) > 50000.0
-    if decim2:
-        fs = float(fs) / 2.0
-        fs_report = fs
-    else:
-        fs_report = float(fs) if isinstance(fs, float) else int(fs)
-        fs = float(fs)
-    raw_mult = 2 if decim2 else 1
+    # >50 kHz input decimates by 2 on the device, per segment
+    fs, fs_report, raw_mult = eng.decode_rates(fs)
+    decim2 = raw_mult == 2
     n_raw = int(len(pcm))
     n = (n_raw + raw_mult - 1) // raw_mult
     _, _, seg_len, right, _ = _seg_geometry(fs)
     ext_len = LEFT_HALO + seg_len + right
     n_seg = max(-(-n // seg_len), 1)
-
-    if np.issubdtype(pcm.dtype, np.integer):
-        w = eng.resolve_wire(wire, pcm.dtype, dev)
-        if w == "int4" and (seg_len % 2 or ext_len % 2):
-            w = "int8"  # packed slicing needs even segment boundaries
-    else:
-        w = "float32"  # conditioned float PCM ships verbatim
-        pcm = pcm.astype(np.float32, copy=False)
+    if w == "int4" and (seg_len % 2 or ext_len % 2):
+        w = "int8"  # packed slicing needs even segment boundaries
+    pk, fill = (2, 0x88) if w == "int4" else (1, 0)
 
     def scalar(v, dtype):
         return torch.full((), v, dtype=dtype, device=dev)
 
-    enc = staged = None
-    if w == "float32" or (w == "int16" and pcm.dtype == np.int16):
-        with timer.stage("stage_device"):
-            with timer.stage("build_upload"):
-                staged = _stage_device(pcm, (LEFT_HALO + n_seg * seg_len + right) * raw_mult,
-                                       LEFT_HALO * raw_mult, dev)
+    stats = None
+    with timer.stage("stage_device"):
+        if w in ("int8", "int4"):
             with timer.stage("host_encode_stats"):
-                if w == "int16":
-                    dc, peak = _device_stats(staged, n_raw)
-                else:
-                    dc, peak = scalar(0.0, torch.float32), scalar(1.0, torch.float32)
-    else:
+                pcm, stats = _encode_lossy(pcm, w)
+        with timer.stage("build_upload"):
+            staged = _stage_device(pcm, (LEFT_HALO + n_seg * seg_len + right) * raw_mult // pk,
+                                   LEFT_HALO * raw_mult // pk, fill, dev)
         with timer.stage("host_encode_stats"):
-            if w == "int4":
-                # quantize ahead of the upload cursor (closed-form dc/peak,
-                # see wire.ChunkedInt4Encoder); one-shot without the C library
-                enc = wire_ops.chunked_int4_encoder(pcm)
-                if enc is not None:
-                    pcm, dc, peak = enc.packed, enc.dc, enc.peak
-                else:
-                    pcm, dc, peak = wire_ops.quantize_int4_packed_stats(pcm)
+            if w == "float32":
+                dc, peak = scalar(0.0, torch.float32), scalar(1.0, torch.float32)
+            elif stats is not None:
+                dc, peak = (scalar(float(np.float32(v)), torch.float32) for v in stats)
             else:
-                pcm = wire_ops.encode(pcm, w)
-                dc = float(np.mean(pcm))
-                # min/max, not np.abs (wraps at the int16 minimum)
-                peak = (float(max(int(pcm.max()), -int(pcm.min()), 1))
-                        if n_raw else 1.0)
-            dc = scalar(float(np.float32(dc)), torch.float32)
-            peak = scalar(float(np.float32(peak)), torch.float32)
+                dc, peak = _device_stats(staged, n_raw)
 
     dims = eng.EngineDims.for_waveform(_bucket_count(n_seg) * seg_len, fs,
                                        cfg.bitrate, eng.probe_window(cfg, fs))
-    pk = 2 if w == "int4" else 1
 
     with timer.stage("program_lookup"):
         model = segment_program(cfg, fs, decim2, int(group), pcm.dtype, dev).module
     return DropPlan(
         cfg=cfg, fs=fs, fs_report=fs_report, raw_mult=raw_mult, n_raw=n_raw,
-        n=n, wire=w, pcm=pcm, enc=enc, n_seg=n_seg, group=int(group), dims=dims,
-        model=model, dc=dc, peak=peak, nv_dec=scalar(n, torch.int64), pk=pk,
+        n=n, wire=w, pcm=pcm, n_seg=n_seg, group=int(group), dims=dims,
+        model=model, dc=dc, peak=peak, nv_dec=scalar(n, torch.int64), pk=pk, fill=fill,
         buf_len=ext_len * raw_mult // pk, decim2=decim2, staged=staged)
 
 
-def _stage_device(pcm: np.ndarray, length: int, at: int, dev: torch.device) -> torch.Tensor:
-    """The drop's samples, once, into a zero-filled device buffer of
-    `length` samples at offset `at` (the span ``pin_upload``).  On a GPU
-    they pass through one pinned buffer (the caching host allocator's,
-    reused from drop to drop once its copies are done) a chunk at a time:
-    each chunk's copy to the card is queued on the current stream, without
-    a host sync, while the host fills the next."""
+def _stage_device(pcm: np.ndarray, length: int, at: int, fill: int,
+                  dev: torch.device) -> torch.Tensor:
+    """The drop's encoded samples, once, into a device buffer of `length`
+    elements filled with `fill` (the wire's zero) at offset `at` (the span
+    ``pin_upload``).  On a GPU they pass through one pinned buffer (the
+    caching host allocator's, reused from drop to drop once its copies are
+    done) a chunk at a time: each chunk's copy to the card is queued on the
+    current stream, without a host sync, while the host fills the next."""
     dtype, n = torch.from_numpy(np.empty(0, pcm.dtype)).dtype, len(pcm)
-    buf = torch.zeros(length, dtype=dtype, device=dev)
+    buf = torch.full((length,), fill, dtype=dtype, device=dev)
     with profiling.span("pin_upload"):
         if dev.type != "cuda":
             buf.numpy()[at: at + n] = pcm
@@ -531,25 +516,27 @@ def _stage_device(pcm: np.ndarray, length: int, at: int, dev: torch.device) -> t
 
 
 def _device_stats(staged: torch.Tensor, n_raw: int) -> tuple:
-    """``dc`` and ``peak`` of a staged int16 drop as 0-d float32 device
-    tensors, bit for bit the host's ``np.float32(np.mean(pcm))`` and
-    ``max(max, -min, 1)``: every partial sum of int16 samples is an integer
-    below 2**53, so the int64 sum is numpy's float64 sum exactly; the float64
-    division (by a device tensor: a CUDA division by a host scalar multiplies
-    by its reciprocal) rounds once and the float32 cast once more, as on the
-    host.  The peak is taken in int32 (-32768 does not wrap).  The zero halos
-    change neither, and nothing reads the device."""
+    """``dc`` and ``peak`` of a staged integer drop (int16, int8) as 0-d
+    float32 device tensors, bit for bit the host's
+    ``np.float32(np.mean(pcm))`` and ``max(max, -min, 1)``: every partial
+    sum of such samples is an integer below 2**53, so the int64 sum is
+    numpy's float64 sum exactly; the float64 division (by a device tensor: a
+    CUDA division by a host scalar multiplies by its reciprocal) rounds once
+    and the float32 cast once more, as on the host.  The peak is taken in
+    int64 (the type's minimum does not wrap).  The zero halos change
+    neither, and nothing reads the device."""
     total = staged.sum(dtype=torch.int64).to(torch.float64)
     count = torch.full((), n_raw, dtype=torch.float64, device=staged.device)
     lo, hi = torch.aminmax(staged)
-    peak = torch.maximum(hi.to(torch.int32), -lo.to(torch.int32)).clamp_(min=1)
+    peak = torch.maximum(hi.to(torch.int64), -lo.to(torch.int64)).clamp_(min=1)
     return (total / count).to(torch.float32), peak.to(torch.float32)
 
 
 def _chunk_host(p: DropPlan, j: int) -> np.ndarray:
-    """Group j's stacked haloed segment extensions, G rows: a row past the
-    last segment holds the wire's zero (the assemble takes the zero
-    segment in its place)."""
+    """Group j's stacked haloed segment extensions, G rows, cut on the host:
+    a row past the last segment holds the wire's zero (the assemble takes
+    the zero segment in its place).  The reference of the cut the device
+    makes (``DropPlan.device_groups``); no decode calls it."""
     rows = min(p.group, p.n_seg - j * p.group)
     exts = np.full((p.group, p.buf_len), p.fill, dtype=p.pcm.dtype)
     seg_len, rm, pk = p.model.seg_len, p.raw_mult, p.pk
@@ -562,23 +549,6 @@ def _chunk_host(p: DropPlan, j: int) -> np.ndarray:
             exts[r, (src_lo - lo) // pk: (src_hi - lo + pk - 1) // pk] = \
                 p.pcm[src_lo // pk: (src_hi + pk - 1) // pk]
     return exts
-
-
-def _upload(host: np.ndarray, dev: torch.device, copy_stream) -> torch.Tensor:
-    """One group of a lossy wire to the device.  On a GPU the copy leaves
-    pinned memory on `copy_stream`, so group j+1's upload runs under group
-    j's compute, and the compute stream waits for it before using it.  The
-    span ``pin_upload``: pinning and queueing."""
-    with profiling.span("pin_upload"):
-        if copy_stream is None:
-            return torch.from_numpy(host).to(dev)
-        pinned = torch.from_numpy(host).pin_memory()
-        with torch.cuda.stream(copy_stream):
-            ext = pinned.to(dev, non_blocking=True)
-        compute = torch.cuda.current_stream(dev)
-        compute.wait_stream(copy_stream)
-        ext.record_stream(compute)
-        return ext
 
 
 def _queue_drop(p: DropPlan, seg: programs.Program, asm: programs.Program, exts) -> None:
@@ -606,24 +576,6 @@ def _queue_drop(p: DropPlan, seg: programs.Program, asm: programs.Program, exts)
                     buf[first: first + keep].copy_(t[:keep])
 
 
-def _host_groups(p: DropPlan, timer):
-    """The groups of a lossy wire, each cut on the host (``_chunk_host``),
-    encoded ahead of the upload cursor (int4) and uploaded in turn."""
-    dev = p.nv_dec.device
-    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    for j in range(p.n_chunk):
-        if p.enc is not None:
-            with timer.stage("encode_chunks"):
-                last = min(j * p.group + p.group, p.n_seg) - 1
-                p.enc.ensure((last * p.model.seg_len + p.model.seg_len
-                              + p.model.right) * p.raw_mult)
-        with timer.stage("build_upload"):
-            # the copy into the program's input is queued after the
-            # compute stream's wait for this upload
-            ext = _upload(_chunk_host(p, j), dev, copy_stream)
-        yield ext
-
-
 @profiling.entry_point
 def decode_waveform_segmented(pcm, fs, *, device="cuda",
                               config: DecoderConfig | None = None,
@@ -634,18 +586,16 @@ def decode_waveform_segmented(pcm, fs, *, device="cuda",
     the cached group and assemble programs.
 
     Same result contract as ``engine.decode_waveform``; integer input is
-    conditioned on the device.  A verbatim wire is staged on the device
-    whole, its statistics taken there (``DropPlan.device_groups``); a lossy
-    wire's statistics are the host's and its groups are uploaded one at a
-    time.  ``timer`` (a ``StageTimer``; ``utils.profiling.entry_point``)
-    splits the wall into staging (``stage_device`` around ``build_upload``
-    and ``host_encode_stats``) or encode, dispatch loop (a lossy wire's
-    ``encode_chunks`` and ``build_upload`` inside it), assemble, fetch (its
-    wait ``device_wait`` first) and host-finish stages.  Nothing reads the
-    device until the fetch.  A degenerate int4-wire decode is retried once
-    at int8 (``lossy_retry``)."""
+    conditioned on the device.  The drop is staged on the device whole and
+    each group is a view of it (``DropPlan.device_groups``).  ``timer`` (a
+    ``StageTimer``; ``utils.profiling.entry_point``) splits the wall into
+    staging (``stage_device`` around ``build_upload`` and
+    ``host_encode_stats``), dispatch loop, assemble, fetch (its wait
+    ``device_wait`` first) and host-finish stages.  Nothing reads the device
+    until the fetch.  A degenerate int4-wire decode is retried once at int8
+    (``lossy_retry``)."""
     p = _plan_waveform(pcm, fs, config, wire, timer, device, group)
-    groups = p.device_groups() if p.staged is not None else _host_groups(p, timer)
+    groups = p.device_groups()
     seg, asm = p.group_programs()
     with programs.pinned(seg, asm):
         with timer.stage("dispatch_loop"):
@@ -715,18 +665,13 @@ class PrestagedDrop:
 def prestage_waveform(pcm, fs, *, device="cuda", config: DecoderConfig | None = None,
                       wire: str = "int8", fused: bool = False,
                       group: int = GROUP) -> PrestagedDrop:
-    """Encode and upload every group of ``pcm`` to the device and wait
-    until staged (a verbatim wire: the drop staged whole, its groups views
-    of it).  The default wire is int8: a resident decode uploads nothing
-    per decode, so a smaller wire buys nothing once staged."""
+    """Encode and stage ``pcm`` on the device whole, its groups views of
+    it, and wait until staged.  The default wire is int8: a resident decode
+    uploads nothing per decode, so a smaller wire buys nothing once
+    staged."""
     p = _plan_waveform(pcm, fs, config, wire, profiling.current(), device, group)
+    exts = p.device_groups()
     dev = p.nv_dec.device
-    if p.staged is not None:
-        exts = p.device_groups()
-    else:
-        if p.enc is not None:
-            p.enc.ensure(p.n_raw)
-        exts = [eng.to_device(_chunk_host(p, j), dev) for j in range(p.n_chunk)]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return PrestagedDrop(p, exts, fused=fused)

@@ -68,17 +68,14 @@ class DeviceStreamDecoder:
         is collected)."""
         self.cfg = config or DecoderConfig()
         self._dev = programs.device_key(eng.resolve_device(device))
-        self._decim2 = float(fs) > 50000.0
-        self.fs = float(fs) / 2.0 if self._decim2 else float(fs)
-        self._fs_report = (self.fs if self._decim2
-                           else (float(fs) if isinstance(fs, float) else int(fs)))
+        self.fs, self._fs_report, self._raw_mult = eng.decode_rates(fs)
+        self._decim2 = self._raw_mult == 2
         self._one = seg.segment_program(self.cfg, self.fs, self._decim2, 1, np.float32,
                                         self._dev)
         held = [self._one]
         programs.pin(self._one)  # before the assemble's lookup may evict
         self._model = self._one.module
         self._seg_len, self._right = self._model.seg_len, self._model.right
-        self._raw_mult = self._model.raw_mult
 
         # rolling raw buffer: samples [self._pend_at, self._fed)
         self._pend = np.zeros(0, np.float32)

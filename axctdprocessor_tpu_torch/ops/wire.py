@@ -73,6 +73,28 @@ def resolve_wire(wire: str, dtype, device=None) -> str:
     return default_wire(device) if wire == "auto" else wire
 
 
+def input_wire(dtype, wire: str, device=None) -> str:
+    """The wire input of `dtype` ships on: integer PCM resolves `wire`
+    (:func:`resolve_wire`), any other input is conditioned float PCM and
+    ships verbatim as ``"float32"``.  Packed int4 bytes (uint8) are refused:
+    they lose the sample count."""
+    dtype = np.dtype(dtype)
+    if dtype == np.uint8:
+        raise ValueError("pass unpacked integer rows of PCM with wire='int4'; "
+                         "pre-packed nibble streams lose the sample count")
+    if np.issubdtype(dtype, np.integer):
+        return resolve_wire(wire, dtype, device)
+    return "float32"
+
+
+def intake(pcm, wire: str, device=None) -> tuple[np.ndarray, str]:
+    """A drop's samples as a decode path takes them, and their wire
+    (:func:`input_wire`): integer PCM as it is, other input as float32."""
+    pcm = np.asarray(pcm)
+    w = input_wire(pcm.dtype, wire, device)
+    return (pcm.astype(np.float32, copy=False) if w == "float32" else pcm), w
+
+
 def _widened(x: np.ndarray) -> np.ndarray:
     """Signed ints widened one step so np.abs cannot wrap at the minimum
     (np.abs(int16(-32768)) == -32768; the C quantizers compute |x| in

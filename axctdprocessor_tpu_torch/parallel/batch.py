@@ -116,13 +116,9 @@ class BatchPlan:
                  device):
         self.dev = eng.resolve_device(device)
         self.cfg = config or DecoderConfig()
-        self.fs_report = float(fs) if isinstance(fs, float) else int(fs)
+        self.fs_report = eng.report_rate(fs)
         self.fs = float(fs)
-        if dtype == np.uint8:
-            raise ValueError("pass unpacked integer rows with wire='int4'; "
-                             "pre-packed nibble streams lose the sample count")
-        self.integer = np.issubdtype(dtype, np.integer)
-        self.wire_used = eng.resolve_wire(wire, dtype, self.dev) if self.integer else "float32"
+        self.wire_used = wire_ops.input_wire(dtype, wire, self.dev)
         if self.wire_used == "int4":
             n += n % 2  # packed int4 rows carry an even sample count
         cfg = self.cfg
@@ -193,7 +189,7 @@ class BatchPlan:
     def encode(self, pcms: np.ndarray) -> np.ndarray:
         """The rows as they go to the device: the wire format of integer
         rows, float32 otherwise."""
-        if self.integer:
+        if self.wire_used != "float32":
             return wire_ops.encode_rows(pcms, self.wire_used)
         return pcms.astype(np.float32)
 

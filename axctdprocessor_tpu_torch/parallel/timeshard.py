@@ -297,7 +297,7 @@ def decode_batch_timesharded(pcms, fs, config: DecoderConfig | None = None, *,
     from .batch import finish_batch, pad_to_multiple, queue_back_half_batched
 
     cfg = config or DecoderConfig()
-    fs_report = float(fs) if isinstance(fs, float) else int(fs)
+    fs_report = eng.report_rate(fs)
     fs = float(fs)
     pcms = np.asarray(pcms)
     if not np.issubdtype(pcms.dtype, np.integer):

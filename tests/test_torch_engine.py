@@ -301,7 +301,9 @@ def test_int4_retry_keeps_the_mode_and_fills_the_timer(collapsing_drop, mode):
     res = engine.decode_waveform(raw, truth["spec"].fs, device="cpu", wire="int4", mode=mode,
                                  timer=timer)
     assert res.wire == "int8" and res.status == 2 and len(res.hexframes) > 400
-    assert timer.counts["host_encode_stats"] == 2  # the int4 decode and its int8 retry
+    # the int4 decode and its int8 retry: each encodes once, and a segmented
+    # decode then takes its statistics in the span too
+    assert timer.counts["host_encode_stats"] == (2 if mode == "monolithic" else 4)
     assert timer.counts["build_upload"] >= 2
     assert ("dispatch_loop" in timer.counts) == (mode == "segmented")
 

@@ -79,8 +79,6 @@ def _fresh_packed(raw, wire: str = "auto", group: int = segmented.GROUP) -> np.n
     """A fresh module's eager forward over the drop's extensions (the plan's
     encoding, its group's padding rows not read): the packed vector."""
     p = segmented._plan_waveform(raw, FS, None, wire, StageTimer(), "cpu", group)
-    if p.enc is not None:
-        p.enc.ensure(p.n_raw)
     exts = np.concatenate([segmented._chunk_host(p, j) for j in range(p.n_chunk)])
     fresh = segmented.SegmentedDecoder.from_config(DecoderConfig(), float(FS), False, "cpu")
     with torch.inference_mode():

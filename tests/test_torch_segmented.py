@@ -12,10 +12,11 @@
 * the port against itself: group sizes, zero-segment padding, prestaged
   (both forms), no pulse, the 88.2 kHz valid lengths, and ``"auto"``
   routing in ``engine.decode_waveform``;
-* a verbatim wire staged on the device: every group byte for byte
-  ``_chunk_host``'s, ``dc`` and ``peak`` bit for bit the host's statistics,
-  the span ``stage_device`` once a decode (never on the lossy wires), and
-  the decode's hexframes and report bytes those of the host-staged decode;
+* every wire staged on the device: every group byte for byte
+  ``_chunk_host``'s, ``dc`` and ``peak`` bit for bit the host's rule for
+  the wire, the span ``stage_device`` once a decode, and the int16 decode's
+  hexframes and report bytes those of the host-staged decode;
+* the intake's rate rule: decode rate, report rate and its type;
 * marked slow: the 88.2 kHz and int4-wire decodes against JAX.
 """
 
@@ -32,6 +33,7 @@ from axctdprocessor_tpu.models import tpu_engine as jeng
 from axctdprocessor_tpu.utils import report as jreport
 from axctdprocessor_tpu.utils.config import DecoderConfig, resolve_settings
 from axctdprocessor_tpu_torch.models import engine, segmented, simulator
+from axctdprocessor_tpu_torch.ops import wire as wire_ops
 from axctdprocessor_tpu_torch.utils import profiling, report
 from torch_packed import assert_packed_close
 
@@ -363,53 +365,91 @@ def _staging_drop(case: str, fs: int, dtype) -> np.ndarray:
     return x
 
 
-STAGING = ([(case, fs, dtype) for case in ("1", "halo", "whole", "whole+1", "600 s")
+LENGTHS = ("1", "halo", "whole", "whole+1", "600 s")
+STAGING = ([(case, fs, dtype, "auto") for case in LENGTHS
             for fs in (44100, 88200) for dtype in (np.int16, np.float32)]
-           + [("-32768", 44100, np.int16), ("constant", 44100, np.int16)])
+           + [("-32768", 44100, np.int16, "auto"), ("constant", 44100, np.int16, "auto")]
+           + [(case, fs, np.int16, w) for case in LENGTHS for fs in (44100, 88200)
+              for w in ("int8", "int4")])
 
 
-@pytest.mark.parametrize("case,fs,dtype", STAGING,
-                         ids=[f"{c}-{fs}-{np.dtype(d).name}" for c, fs, d in STAGING])
-def test_device_staged_groups_and_statistics_equal_the_host(case, fs, dtype):
+def _int4_encoded(pcm):
+    """The int4 wire's packed bytes and statistics as the host encodes a
+    whole drop: the C encoder's closed-form ``dc`` / ``peak``, the one-shot
+    encoder's without the C library."""
+    enc = wire_ops.chunked_int4_encoder(pcm)
+    if enc is None:
+        return wire_ops.quantize_int4_packed_stats(pcm)
+    enc.ensure(len(pcm))
+    return enc.packed, enc.dc, enc.peak
+
+
+@pytest.mark.parametrize("case,fs,dtype,wire", STAGING,
+                         ids=[f"{c}-{fs}-{np.dtype(d).name}" if w == "auto" else f"{c}-{fs}-{w}"
+                              for c, fs, d, w in STAGING])
+def test_device_staged_groups_and_statistics_equal_the_host(case, fs, dtype, wire):
     """The drop staged on the device: every group byte for byte
     ``_chunk_host``'s (the rows past the last segment included), ``dc`` bit
-    for bit ``np.float32`` of the host's float64 mean and ``peak`` of
-    ``max(max, -min, 1)`` (0 and 1 for float input)."""
+    for bit ``np.float32`` of the host's float64 mean of the wire's samples
+    and ``peak`` of ``max(max, -min, 1)`` (int16, int8), the int4 encoder's
+    own (int4), 0 and 1 for float input."""
     pcm = _staging_drop(case, fs, dtype)
-    p = segmented._plan_waveform(pcm, fs, None, "auto", profiling.NO_TIMER, "cpu",
+    p = segmented._plan_waveform(pcm, fs, None, wire, profiling.NO_TIMER, "cpu",
                                  segmented.GROUP)
-    assert p.staged is not None and p.wire == ("int16" if dtype == np.int16 else "float32")
+    want = {"auto": "int16" if dtype == np.int16 else "float32"}.get(wire, wire)
+    assert p.wire == want and isinstance(p.staged, torch.Tensor)
     groups = p.device_groups()
     assert len(groups) == p.n_chunk
     for j, group in enumerate(groups):
         assert np.array_equal(group.numpy(), segmented._chunk_host(p, j)), j
-    if dtype == np.int16:
-        dc = np.float32(np.mean(pcm))
-        peak = np.float32(max(int(pcm.max()), -int(pcm.min()), 1))
-    else:
+    if want == "int4":
+        packed, dc, peak = _int4_encoded(pcm)
+        assert np.array_equal(p.pcm, packed)
+        dc, peak = np.float32(dc), np.float32(peak)
+    elif want == "float32":
         dc, peak = np.float32(0.0), np.float32(1.0)
+    else:
+        enc = wire_ops.encode(pcm, want)
+        assert np.array_equal(p.pcm, enc)
+        dc = np.float32(np.mean(enc))
+        peak = np.float32(max(int(enc.max()), -int(enc.min()), 1))
     assert p.dc.dtype == p.peak.dtype == torch.float32
     assert p.dc.numpy().tobytes() == dc.tobytes()
     assert p.peak.numpy().tobytes() == peak.tobytes()
 
 
-@pytest.mark.parametrize("wire,opened", [("int16", 1), ("int8", 0), ("int4", 0)])
-def test_stage_device_opens_once_per_verbatim_decode(wire, opened):
-    """``stage_device`` opens once a decode on the int16 wire, around the
-    one ``build_upload`` and ``host_encode_stats``; the lossy wires stage on
-    the host, group by group."""
+@pytest.mark.parametrize("wire,verbatim", [("int16", 1), ("int8", 0), ("int4", 0)])
+def test_stage_device_opens_once_per_verbatim_decode(wire, verbatim):
+    """``stage_device`` opens once a decode on every wire, around the one
+    ``build_upload`` and the statistics' ``host_encode_stats``; a lossy wire
+    opens ``host_encode_stats`` once more before the upload, for its host
+    encode."""
     spec = simulator.SimSpec(duration=30.0, profile_start=12.0, seed=5)
     raw = _int16(simulator.synthesize(spec)[0])
     timer = profiling.StageTimer()
     res = segmented.decode_waveform_segmented(raw, 44100, device="cpu", wire=wire,
                                               timer=timer, lossy_retry=False)
     assert res.wire == wire
-    assert timer.counts["stage_device"] == opened
-    # 30 s: two segments, one group
-    assert timer.counts["host_encode_stats"] == timer.counts["build_upload"] == 1
-    if opened:
-        assert timer.parents["build_upload"] == timer.parents["host_encode_stats"] == \
-            "stage_device"
+    assert timer.counts["stage_device"] == timer.counts["build_upload"] == 1
+    assert timer.counts["host_encode_stats"] == 2 - verbatim
+    assert timer.parents["build_upload"] == timer.parents["host_encode_stats"] == \
+        "stage_device"
+
+
+@pytest.mark.parametrize("fs,rates", [
+    (44100, (44100.0, 44100, 1)), (44100.0, (44100.0, 44100.0, 1)),
+    (48000, (48000.0, 48000, 1)), (88200, (44100.0, 44100.0, 2)),
+    (96000.0, (48000.0, 48000.0, 2))])
+def test_decode_rates(fs, rates):
+    """A drop's intake rate rule (monolithic, segmented and stream paths):
+    the decode rate, the report rate with its type (an int stays an int
+    below 50 kHz; above, the halved rate is a float) and the raw samples per
+    decoded sample; the batch paths' report rate is its undecimated half."""
+    got = engine.decode_rates(fs)
+    assert got == rates and [type(v) for v in got] == [type(v) for v in rates]
+    if rates[2] == 1:
+        assert engine.report_rate(fs) == rates[1] and type(engine.report_rate(fs)) is \
+            type(rates[1])
 
 
 def _host_staged_decode(pcm, fs):
@@ -418,7 +458,7 @@ def _host_staged_decode(pcm, fs):
     p = segmented._plan_waveform(pcm, fs, None, "int16", profiling.NO_TIMER, "cpu",
                                  segmented.GROUP)
     p = dataclasses.replace(
-        p, staged=None, dc=torch.tensor(np.float32(np.mean(pcm))),
+        p, dc=torch.tensor(np.float32(np.mean(pcm))),
         peak=torch.tensor(np.float32(max(int(pcm.max()), -int(pcm.min()), 1))))
     seg, asm = p.group_programs()
     segmented._queue_drop(p, seg, asm, [torch.from_numpy(segmented._chunk_host(p, j))
