@@ -78,6 +78,7 @@ def _decode(wav, mode, timer):
 
 COMMON = {("read_wav", "decode_wav"), ("fetch", "decode_wav"), ("device_wait", "fetch"),
           ("host_finish", "decode_wav"), ("convert", "host_finish"),
+          ("qc", "host_finish"), ("profile_rows", "host_finish"),
           ("pin_upload", "build_upload")}
 COLD = {  # a new shape's decode: the spans beside COMMON, with their parents
     "monolithic": {("host_encode_stats", "decode_wav"), ("build_upload", "decode_wav"),
