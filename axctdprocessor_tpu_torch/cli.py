@@ -10,12 +10,15 @@ device and is asked for by name (the JAX CLI has it as its default; here no
 entry point leaves the card unasked).  ``--corpus DIR_OR_GLOB`` is the
 archive mode: every WAV in batches of ``--batch-size`` on ``--device``,
 ``-o`` naming the output directory, resuming from its manifest unless
-``--no-resume``.  The parser is this module's own because the JAX CLI module
+``--no-resume``; ``--dp N`` cuts each batch over a ``dp`` mesh of N devices
+(``parallel.mesh.make_mesh``: the visible cards, or with ``--device cpu`` the
+CPU N times).  The parser is this module's own because the JAX CLI module
 loads jax.
 
     python -m axctdprocessor_tpu_torch.cli -i drop.wav -o output.txt
     python -m axctdprocessor_tpu_torch.cli -i drop.wav -o output.txt --engine parity
     python -m axctdprocessor_tpu_torch.cli --corpus wavs/ -o reports/ --batch-size 8
+    python -m axctdprocessor_tpu_torch.cli --corpus wavs/ -o reports/ --batch-size 32 --dp 4
 """
 
 from __future__ import annotations
@@ -65,6 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "in batches on --device; -o names the output dir")
     p.add_argument("--batch-size", type=int, default=8,
                    help="Drops per device batch in archive mode")
+    p.add_argument("--dp", type=int, metavar="N",
+                   help="Archive mode: cut each batch over a dp mesh of N devices (the "
+                        "visible cards; with --device cpu, the CPU N times)")
     p.add_argument("--no-resume", action="store_true",
                    help="Archive mode: re-decode files already in the manifest")
     p.add_argument("--wire", choices=["auto", "int16", "int8", "int4"],
@@ -104,8 +110,14 @@ def _run_corpus(args) -> int:
         "use_bandpass": args.use_bandpass,
     }
     compat = "fixed" if args.fixed_settings else "strict"
+    mesh = None
+    if args.dp is not None:
+        from .parallel.mesh import make_mesh
+
+        mesh = make_mesh({"dp": args.dp},
+                         None if args.device == "cuda" else [args.device] * args.dp)
     manifest = reprocess_corpus(paths, out_dir, settings=settings, compat=compat,
-                                device=args.device, batch_size=args.batch_size,
+                                device=args.device, mesh=mesh, batch_size=args.batch_size,
                                 resume=not args.no_resume,
                                 wire=args.wire, diagnostics=args.diagnostics)
     done = sum(1 for v in manifest["files"].values() if v["status"] == "done")

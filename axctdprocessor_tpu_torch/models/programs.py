@@ -74,14 +74,16 @@ the ~1,200 kernels that the eager forward queues one Python op at a time.
   release by the cache) and ``pin_upload`` (a host array into a static
   input); a warm call's replay opens none.
 * **The cache** (:func:`cached`) holds at most ``MAX_PROGRAMS`` programs of
-  one kind (the first item of a key: the JAX package keeps an
+  one kind on each device (the first item of a key: the JAX package keeps an
   ``lru_cache(maxsize=8)`` for each of its program kinds; one count over
   all kinds would thrash a process that serves the monolithic, batch,
   segmented, stream and pipeline paths, whose warm shapes number 11 in
-  ``chip_smoke.py``'s phase 9h), and what their graphs hold on a card at
-  most ``1 / POOL_SHARE`` (a third) of its memory (:attr:`Program.bytes`: the
-  private pool, ``pool_bytes``, read once after the capture from
-  ``torch.cuda.memory_snapshot()``, and the static inputs).  A cached XLA
+  ``chip_smoke.py``'s phase 9h; one count over all devices would thrash a
+  ``dp`` mesh, whose batches make a program on every card), and what their
+  graphs hold on a card at most ``1 / POOL_SHARE`` (a third) of its memory
+  (:attr:`Program.bytes`: the private pool, ``pool_bytes``, read once after
+  the capture from ``torch.cuda.memory_snapshot()``, and the static inputs).
+  A cached XLA
   executable holds no activations, but a captured graph keeps its whole
   pool (12.1 GiB for 64 rows of 120 s), so the JAX package's count alone
   does not bound the card's memory.  The least recently used programs are
@@ -112,7 +114,12 @@ import torch
 from ..ops import chain, goertzel, tonepower
 from ..utils import profiling
 
-MAX_PROGRAMS = 8  # of one kind: the JAX package's lru_cache(maxsize=8) over each program kind
+# Of one kind on each device: the JAX package's lru_cache(maxsize=8) over each program kind.
+# Its entries are executables, and an executable spans the mesh: a batch over a dp mesh of four
+# is one entry there and a program on each of four cards here.  Counted over every card, a pass
+# of the archive at batch_size=32 over dp=4 (3-4 shapes a card, 12-16 programs) built, ran eagerly
+# and evicted 12 of them again: 186 ms a batch on four H100s (PERF.md, the archive.dp4 cell).
+MAX_PROGRAMS = 8
 # The cached graphs' pools and static inputs hold at most a third of the card's memory
 # (26.39 GiB of an H100 80GB).  The archive at the JAX package's 64-drop batch unit keeps
 # three batch programs a pass, measured at 12.75 GiB (64 rows of 120 s), 11.37 GiB (57 rows
@@ -364,8 +371,9 @@ def _kind(key):
 
 def _evict(keep: Program | None = None) -> None:
     """Evict and release the least recently used programs until the cache
-    holds at most ``MAX_PROGRAMS`` of each kind and each device's programs
-    at most its ``pool_budget``; never `keep` nor a pinned program."""
+    holds at most ``MAX_PROGRAMS`` of each kind on each device and each
+    device's programs at most its ``pool_budget``; never `keep` nor a pinned
+    program."""
     def drop(which) -> bool:
         key = next((k for k, p in _cache.items()
                     if p is not keep and not p.pins and which(k, p)), None)
@@ -376,9 +384,12 @@ def _evict(keep: Program | None = None) -> None:
                 _note(evicted.device, "evictions")
         return key is not None
 
-    for kind in {_kind(k) for k in _cache}:
-        while (sum(_kind(k) == kind for k in _cache) > MAX_PROGRAMS
-               and drop(lambda k, p: _kind(k) == kind)):
+    for kind, device in {(_kind(k), p.device) for k, p in _cache.items()}:
+        def mate(k, p, kind=kind, device=device):
+            return _kind(k) == kind and p.device == device
+
+        while (sum(mate(k, p) for k, p in _cache.items()) > MAX_PROGRAMS
+               and drop(mate)):
             pass
     for device in {p.device for p in _cache.values()}:
         budget = pool_budget(device)

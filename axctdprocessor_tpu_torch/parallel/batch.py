@@ -244,9 +244,13 @@ def dispatch_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cud
 
     With a `mesh` the batch is placed by the mesh alone and `device` is not
     read: the rows, padded to a multiple of ``mesh.shape["dp"]`` by
-    repeating row 0, are cut into ``dp`` contiguous runs and run k is
-    queued on the k-th device along ``dp``, as a batch of its own.  `out` is
-    then the list of the runs' packed matrices, each on its device."""
+    repeating row 0 (as ``pad_to_multiple`` pads them), are cut into ``dp``
+    contiguous runs and run k is queued on the k-th device along ``dp``, as
+    a batch of its own.  Only a run that reaches past the batch's last row
+    is copied: the others are views of `pcms`.  `out` is then the list of
+    the runs' packed matrices, each on its device.  Spans (a mesh only):
+    ``mesh.pad`` around the copy of each padded run, ``mesh.run`` around
+    each run's encode, lookup, upload, launch and queued fetch."""
     pcms = np.asarray(pcms)
     lengths = row_lengths(pcms, lengths)
     if mesh is None:
@@ -254,10 +258,18 @@ def dispatch_batch(pcms, fs, config: DecoderConfig | None = None, *, device="cud
         return out, ([run], len(pcms))
     b_orig = len(pcms)
     devices = mesh.devices_along("dp")
-    (pcms, lengths), _ = pad_to_multiple([pcms, lengths], len(devices))
-    per = len(pcms) // len(devices)
-    queued = [_dispatch_run(pcms[k * per: (k + 1) * per], lengths[k * per: (k + 1) * per],
-                            fs, config, wire, dev) for k, dev in enumerate(devices)]
+    per = -(-b_orig // len(devices))
+    queued = []
+    for k, dev in enumerate(devices):
+        rows = range(k * per, (k + 1) * per)
+        if rows.stop <= b_orig:  # a whole run: a view of the batch
+            part, part_lengths = pcms[rows.start: rows.stop], lengths[rows.start: rows.stop]
+        else:  # a run past the batch's end: its own rows, then row 0 again
+            with profiling.span("mesh.pad"):
+                idx = [i if i < b_orig else 0 for i in rows]
+                part, part_lengths = pcms[idx], lengths[idx]
+        with profiling.span("mesh.run"):
+            queued.append(_dispatch_run(part, part_lengths, fs, config, wire, dev))
     return [out for out, _ in queued], ([run for _, run in queued], b_orig)
 
 

@@ -6,10 +6,11 @@ report bytes as the JAX package's and the same manifest but for
 ``finished_at``, ``stage_times``, ``output`` (each its own directory) and the
 wire name; a corrupt file is quarantined while the rest decode; ``resume``
 skips what is done and ``resume=False`` decodes again; the port's CLI
-``--corpus``; the WAV header and conditioned reads with and without the C
-library give the same reports; files of two sample rates never share a
-batch.  Marked slow (JAX compiles a 4-row float batch program): a
-mixed-encoding batch against the JAX runner's reports.
+``--corpus``, and with ``--dp 2`` over a mesh of the CPU; the WAV header and
+conditioned reads with and without the C library give the same reports;
+files of two sample rates never share a batch.  Marked slow (JAX compiles a
+4-row float batch program): a mixed-encoding batch against the JAX runner's
+reports.
 """
 
 import json
@@ -160,6 +161,31 @@ def test_cli_corpus_mode(corpus, ours, tmp_path, capsys):
     text = open(os.path.join(out, "drop0.txt")).read()
     assert "Wire format: int8" in text and ", R400, dR7500" in text
     assert cli.main(["--corpus", str(tmp_path / "nothing_here"), "-o", out]) == 1
+
+
+def test_cli_corpus_over_a_dp_mesh_writes_the_same_reports(corpus, tmp_path, monkeypatch):
+    """``--dp 2 --device cpu``: the batch of three rows cut over a mesh of
+    the CPU twice (two runs, a row repeated to pad), the same reports and
+    manifest entries as without the flag (one run)."""
+    from axctdprocessor_tpu_torch import cli
+    from axctdprocessor_tpu_torch.parallel import batch
+
+    runs = []
+    dispatch = batch._dispatch_run
+    monkeypatch.setattr(batch, "_dispatch_run",
+                        lambda pcms, *a: runs.append(len(pcms)) or dispatch(pcms, *a))
+    argv = ["--corpus", os.path.dirname(corpus[0]), "--batch-size", "3", "--device", "cpu",
+            "--quiet"]
+    outs, manifests = {}, {}
+    for name, flags in (("plain", []), ("dp2", ["--dp", "2"])):
+        outs[name] = str(tmp_path / name)
+        assert cli.main(argv + ["-o", outs[name]] + flags) == 0
+        manifests[name] = json.load(open(os.path.join(outs[name], "manifest.json")))
+    assert runs == [3, 2, 2]
+    assert _reports(outs["dp2"]) == _reports(outs["plain"])
+    keep = ("status", "rows", "decode_status", "wire")
+    assert [{k: e[k] for k in keep} for e in manifests["dp2"]["files"].values()] == \
+        [{k: e[k] for k in keep} for e in manifests["plain"]["files"].values()]
 
 
 def test_corpus_needs_the_device_it_is_asked_for(corpus, tmp_path):

@@ -1235,6 +1235,64 @@ def test_pipeline_on_two_cards_equals_decode_batch():
 
 
 @pytest.mark.cuda
+def test_reprocess_corpus_over_four_cards_equals_one_card(tmp_path):
+    """``reprocess_corpus`` over ``make_mesh({"dp": 4})`` on four cards, in
+    batches of 3 padded to 4 (one row a card): six 45 s, six 90 s and four
+    88.2 kHz drops make each of a card's three shapes twice a pass, so the
+    first pass builds, runs eagerly and captures on every card, the second
+    replays on every card.  Both passes' reports are byte for byte those of
+    one card (``device="cuda:0"``); the second pass builds, captures and
+    evicts nothing on any card.  Needs four cards."""
+    _need_cuda()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import os
+
+    from axctdprocessor_tpu_torch.models import programs
+    from axctdprocessor_tpu_torch.parallel.archive import reprocess_corpus
+    from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
+
+    programs.clear()
+    paths = []
+    for i, (duration, fs) in enumerate([(45.0, 44100)] * 6 + [(90.0, 44100)] * 6
+                                       + [(60.0, 88200)] * 4):
+        spec = simulator.SimSpec(duration=duration, fs=fs, profile_start=33.0, seed=60 + i)
+        paths.append(str(tmp_path / f"drop{i:02d}.wav"))
+        simulator.write_wav(paths[-1], simulator.synthesize(spec)[0], spec.fs)
+    mesh = make_mesh({"dp": 4})
+    cards = mesh.devices_along("dp")
+    assert cards == [torch.device("cuda", k) for k in range(4)]
+
+    def counts():
+        return {str(c): {k: programs.cache_stats(c)[k] for k in ("builds", "captures",
+                                                                 "evictions")} for c in cards}
+
+    one = reprocess_corpus(paths, str(tmp_path / "one"), batch_size=3, device="cuda:0")
+    programs.clear()  # its last batch, one float row, is a mesh run's shape on card 0
+    before = counts()
+    first = reprocess_corpus(paths, str(tmp_path / "mesh0"), batch_size=3, mesh=mesh,
+                             resume=False)
+    mid = counts()
+    second = reprocess_corpus(paths, str(tmp_path / "mesh1"), batch_size=3, mesh=mesh,
+                              resume=False)
+    for c in map(str, cards):
+        made = {k: mid[c][k] - before[c][k] for k in mid[c]}
+        assert made == {"builds": 3, "captures": 3, "evictions": 0}, (c, made)
+    assert counts() == mid
+    assert first["program_cache"]["captures"] == 12
+    assert {k: second["program_cache"][k] for k in ("builds", "captures", "evictions")} == \
+        {"builds": 0, "captures": 0, "evictions": 0}
+    for name in sorted(one["files"]):
+        assert one["files"][name]["status"] == "done", name
+        stem = os.path.splitext(name)[0] + ".txt"
+        want = open(tmp_path / "one" / stem, "rb").read()
+        assert b"Probe Serial: 00123456" in want
+        for out in ("mesh0", "mesh1"):
+            assert open(tmp_path / out / stem, "rb").read() == want, (out, name)
+    programs.clear()
+
+
+@pytest.mark.cuda
 def test_program_replay_adds_the_counts_of_its_capture():
     """A batch program's replays: the kernels' counts rise by the capture's
     deltas on every replay, as the eager forward raises them; interleaved

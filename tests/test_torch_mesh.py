@@ -7,8 +7,8 @@ one (shapes, axis names, the error for too few devices); ``decode_batch``
 over ``{"dp": 2}`` on three rows (so one row is padding) against the same call
 without a mesh, rows **equal** (the same arithmetic per row); the int8 retry
 over a mesh; ``decode_batches_pipelined(devices=[cpu, cpu])`` against
-``devices=None``, rows equal; ``reprocess_corpus(mesh=)`` against
-``device="cpu"``, report bytes equal.
+``devices=None``, rows equal; ``reprocess_corpus(mesh=)`` over ``dp`` 2 and 4
+against ``device="cpu"``, report bytes equal.
 """
 
 import os
@@ -145,6 +145,26 @@ def test_decode_batch_over_other_meshes_equals_no_mesh(three_rows, plain_rows, s
     _assert_rows_equal(batch.decode_batch(pcms, FS, mesh=mesh, lengths=lengths), plain_rows)
 
 
+@pytest.mark.parametrize("b,dp", [(1, 4), (3, 2), (4, 4), (5, 4), (7, 4), (25, 4), (32, 4)])
+def test_the_mesh_cut_equals_the_padded_batch_cut(b, dp, monkeypatch):
+    """``dispatch_batch``'s runs are the contiguous runs of the batch padded
+    by ``pad_to_multiple`` (rows and lengths); a run that ends inside the
+    batch is a view of it, and only a run past its end is copied."""
+    rows = np.arange(b * 6, dtype=np.int16).reshape(b, 6)
+    lengths = np.arange(1, b + 1)
+    runs = []
+    monkeypatch.setattr(batch, "_dispatch_run",
+                        lambda pcms, lens, *a: runs.append((pcms, lens)) or (None, None))
+    batch.dispatch_batch(rows, FS, mesh=make_mesh({"dp": dp}, [CPU] * dp), lengths=lengths)
+    (want, want_lengths), _ = batch.pad_to_multiple([rows, lengths], dp)
+    per = len(want) // dp
+    assert len(runs) == dp
+    for k, (pcms, lens) in enumerate(runs):
+        np.testing.assert_array_equal(pcms, want[k * per: (k + 1) * per])
+        np.testing.assert_array_equal(lens, want_lengths[k * per: (k + 1) * per])
+        assert np.shares_memory(pcms, rows) == ((k + 1) * per <= b), k
+
+
 def test_retry_lossy_rows_over_a_mesh(three_rows, monkeypatch):
     pcms, lengths = three_rows
     mesh = make_mesh({"dp": 2}, [CPU] * 2)
@@ -179,16 +199,25 @@ def test_pipelined_on_two_devices_equals_one(three_rows, plain_rows):
     _assert_rows_equal(alone[0], plain_rows)
 
 
-def test_reprocess_corpus_over_a_mesh_writes_the_same_reports(tmp_path):
+# (duration s, rate) of each file and the batch size: at dp 2 one batch of 3 rows, padded to 4;
+# at dp 4 a 60 s-wide batch of 4 rows, a 120 s-wide batch of 3 padded to 4 and the float batch
+# of the 88.2 kHz file (decimated on the host) padded to 4
+CORPORA = {2: ([(40.0, 44100)] * 3, 3),
+           4: ([(40.0, 44100)] * 4 + [(65.0, 44100)] * 3 + [(40.0, 88200)], 4)}
+
+
+@pytest.mark.parametrize("dp", sorted(CORPORA))
+def test_reprocess_corpus_over_a_mesh_writes_the_same_reports(tmp_path, dp):
+    drops, batch_size = CORPORA[dp]
     paths = []
-    for i in range(3):
-        spec = simulator.SimSpec(duration=40.0, profile_start=33.0, seed=50 + i)
+    for i, (duration, fs) in enumerate(drops):
+        spec = simulator.SimSpec(duration=duration, fs=fs, profile_start=33.0, seed=50 + i)
         paths.append(str(tmp_path / f"drop{i}.wav"))
         simulator.write_wav(paths[-1], simulator.synthesize(spec)[0], spec.fs)
-    plain = reprocess_corpus(paths, str(tmp_path / "plain"), batch_size=3, device="cpu")
-    mesh = make_mesh({"dp": 2}, [CPU] * 2)
-    meshed = reprocess_corpus(paths, str(tmp_path / "mesh"), batch_size=3, mesh=mesh)
-    for i in range(3):
+    plain = reprocess_corpus(paths, str(tmp_path / "plain"), batch_size=batch_size, device="cpu")
+    mesh = make_mesh({"dp": dp}, [CPU] * dp)
+    meshed = reprocess_corpus(paths, str(tmp_path / "mesh"), batch_size=batch_size, mesh=mesh)
+    for i in range(len(drops)):
         name = f"drop{i}"
         assert meshed["files"][name + ".wav"]["status"] == "done"
         got = open(os.path.join(tmp_path, "mesh", name + ".txt"), "rb").read()

@@ -8,10 +8,11 @@ stale static input and a static output overwritten before it is read.
 * the cache: two decodes of one bucket take one entry; another wire, rate,
   configuration of the device tables or bucket takes another, a host-only
   setting the same; a ninth key evicts the least recently used and
-  releases it; on stand-in programs whose pools' bytes are set by hand,
-  the byte budget evicts the least recently used until the pools fit,
-  never the program just used nor a pinned one, and the count bound holds
-  beside it;
+  releases it, and on stand-ins keyed to four cards a ninth on one card
+  evicts that card's least recently used alone; on stand-in programs whose
+  pools' bytes are set by hand, the byte budget evicts the least recently
+  used until the pools fit, never the program just used nor a pinned one,
+  and the count bound holds beside it;
 * three drops of one bucket decoded in a row through the cached path: each
   packed vector equals a fresh ``FusedDecoder``'s forward bit for bit, and
   the JAX engine's (``torch_packed.assert_packed_close``, hexframes);
@@ -170,6 +171,37 @@ def test_a_capture_past_the_budget_keeps_the_program_just_used_and_the_pinned(
         programs.cached(("t", k), lambda: _stand_in(0))
     assert len(programs.programs()) == programs.MAX_PROGRAMS + 1
     assert new.forward is None and programs.programs()[0] is other
+
+
+def test_the_count_bound_holds_on_each_device(empty_cache, monkeypatch):
+    """Stand-ins keyed to four cards (built on the CPU, then placed: no card
+    needed): 12 programs of one kind, 3 a card, are all kept, as are 5 more
+    on card 0 (8 there); a ninth on card 0 evicts card 0's least recently
+    used program and no other card's."""
+    monkeypatch.setattr(programs, "pool_budget", lambda device: None)
+    cards = [torch.device("cuda", k) for k in range(4)]
+    made = {}
+
+    def build(k, card):
+        def make():
+            made[k, card.index] = programs.Program(lambda x: x * 2, (torch.zeros(3),), "cpu")
+            made[k, card.index].device = card
+            return made[k, card.index]
+        return make
+
+    for k in range(3):
+        for card in cards:
+            programs.cached(("fused", k, str(card)), build(k, card))
+    assert len(programs.programs()) == 12
+    for k in range(3, 8):
+        programs.cached(("fused", k, str(cards[0])), build(k, cards[0]))
+    assert len(programs.programs()) == 17
+    assert all(p.forward is not None for p in made.values())
+    programs.cached(("fused", 8, str(cards[0])), build(8, cards[0]))
+    assert made[0, 0].forward is None and made[0, 0] not in programs.programs()
+    assert len(programs.programs()) == 17
+    assert all(p.forward is not None for key, p in made.items() if key != (0, 0))
+    assert sum(p.device == cards[0] for p in programs.programs()) == programs.MAX_PROGRAMS
 
 
 def test_three_drops_of_one_bucket_equal_a_fresh_module_and_jax(empty_cache, packed_of):

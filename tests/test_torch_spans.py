@@ -7,6 +7,8 @@
 * ``programs.cached`` and ``Program.run`` open ``program.build`` and
   ``program.eager`` once for a new shape and nothing on a warm call; a
   second program of a kind past ``MAX_PROGRAMS`` opens ``program.evict``;
+* ``dispatch_batch`` over a mesh opens ``mesh.pad`` and a ``mesh.run`` a
+  run, and without one neither;
 * a decode given no timer builds no ``StageTimer`` and leaves none installed;
 * a decode with a ``StageTimer`` inside ``device_trace`` leaves its spans as
   named ranges in the Chrome trace; ``StageTimer.report`` indents a stage
@@ -145,6 +147,27 @@ def test_a_kind_mate_past_the_bound_opens_program_evict(empty_cache, monkeypatch
         programs.cached(("spans", 2), build)
     assert timer.counts() == {"program.build": 2, "program.evict": 1}
     assert made[0].forward is None and programs.programs() == [made[1]]
+
+
+def test_mesh_spans_open_under_a_mesh_alone(empty_cache):
+    """``dispatch_batch`` of three rows over ``dp`` 2 (padded to four):
+    ``mesh.pad`` once and ``mesh.run`` once a run, each run's lookup inside
+    its ``mesh.run``; the same batch without a mesh opens neither."""
+    from axctdprocessor_tpu_torch.parallel import batch
+    from axctdprocessor_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(0)
+    pcms = rng.integers(-3000, 3000, (3, 16 * 44100)).astype(np.int16)
+    meshed, plain = Opened(), Opened()
+    with profiling.installed(meshed):
+        batch.dispatch_batch(pcms, 44100, mesh=make_mesh({"dp": 2}, ["cpu"] * 2))
+    counts = meshed.counts()
+    assert counts["mesh.pad"] == 1 and counts["mesh.run"] == 2
+    assert {parent for name, parent in meshed.opened if name == "program_lookup"} == {"mesh.run"}
+    with profiling.installed(plain):
+        batch.dispatch_batch(pcms, 44100, device="cpu")
+    assert plain.counts()["program_lookup"] == 1
+    assert not any(name.startswith("mesh.") for name, _ in plain.opened)
 
 
 @pytest.mark.parametrize("mode", ["monolithic", "segmented"])
