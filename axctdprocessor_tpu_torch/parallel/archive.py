@@ -7,12 +7,16 @@ Design:
 * **length bucketing** — drops are grouped by sample rate and padded length
   (rounded up to a bucket granularity) so each bucket has one shape and pads
   little;
-* **host/device pipelining** — while the device decodes batch k, two
-  background threads read + condition batch k+1's WAVs, and batch k-1 is
-  fetched and its reports written (``batch.dispatch_batch`` queues a batch
-  and the copy of its result without waiting for the device; the copy runs
-  on a side stream behind its own batch only, so ``finish_dispatched`` of
-  batch k-1 does not wait for batch k);
+* **host/device pipelining** — while the device decodes batch k, a
+  background thread loads batch k+1, and batch k-1 is fetched and its
+  reports written (``batch.dispatch_batch`` queues a batch and the copy of
+  its result without waiting for the device; the copy runs on a side stream
+  behind its own batch only, so ``finish_dispatched`` of batch k-1 does not
+  wait for batch k);
+* **reader pool** — a batch's files are read at once, one a task on a pool
+  of up to ``READERS`` threads (no more than the batch has files or the
+  host has cores): the decimation of files above 50 kHz and numpy's float
+  passes release the GIL;
 * **checkpoint/resume** — a JSON manifest in the output directory records
   per-file status, so a preempted job re-run with ``resume=True`` skips
   completed drops;
@@ -36,7 +40,7 @@ from ..utils import profiling
 from ..utils.config import resolve_settings
 from ..utils.profiling import StageTimer
 from ..utils.report import write_report
-from ..utils.wavio import read_wav
+from ..utils.wavio import read_wav, read_wav_raw16
 from .batch import dispatch_batch, finish_dispatched, retry_lossy_rows
 
 BUCKET_SECONDS = 60  # pad each drop up to a whole minute bucket
@@ -45,6 +49,7 @@ BUCKET_SECONDS = 60  # pad each drop up to a whole minute bucket
 MANIFEST_STAGES = ("io.read_wavs", "io.write_reports", "device.dispatch_batch",
                    "device.fetch_batch")
 CACHE_COUNTS = ("builds", "captures", "evictions")  # the manifest's program_cache
+READERS = 8  # the most reader threads a batch's files are read on at once
 
 
 def _cache_counts(devices) -> dict:
@@ -98,7 +103,8 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
     takes the runner's stages, the spans below them and, on the main thread,
     the wait for the readers (``io.wait_reader``), the batch array
     (``pad_batch``), the plan (``plan_batches``) and each manifest write
-    (``io.save_manifest``); the manifest's ``stage_times`` keeps
+    (``io.save_manifest``), and on the reader threads each file's read
+    (``io.read_file``, inside its batch's ``io.read_wavs``); the manifest's ``stage_times`` keeps
     ``MANIFEST_STAGES``, and its ``program_cache`` the program cache's
     builds, captures and evictions that this call made on its devices, and
     the bytes the cache holds there at its end."""
@@ -161,7 +167,17 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
         if current:
             batches.append(current)
 
-    executor = ThreadPoolExecutor(max_workers=2)
+    def read_file(path):
+        # one file of a batch, on a reader thread: (its samples, fs) and
+        # whether it took the float path, or the exception it raised
+        with timer.stage("io.read_file"):
+            try:
+                r = read_wav_raw16(path)
+                if r is None:
+                    return _read_and_condition(path), True
+                return r, False
+            except Exception as e:
+                return e, False
 
     def load_batch(paths):
         # Per-file loading: one unreadable or odd-format file is isolated
@@ -171,20 +187,9 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
         # path, the raw rows are host-conditioned to match (same raw-int
         # DC/peak statistics as utils.wavio.read_wav).
         with timer.stage("io.read_wavs"):
-            from ..utils.wavio import read_wav_raw16
-
-            items = []
-            any_float = False
-            for p in paths:
-                try:
-                    r = read_wav_raw16(p)
-                    if r is None:
-                        r = _read_and_condition(p)
-                        any_float = True
-                except Exception as e:
-                    r = e
-                items.append((r, p))
-            if any_float:
+            read = list(readers.map(read_file, paths))  # in the batch's order
+            items = [(r, p) for (r, _), p in zip(read, paths)]
+            if any(is_float for _, is_float in read):
                 for k, (r, p) in enumerate(items):
                     if isinstance(r, Exception):
                         continue
@@ -222,49 +227,56 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
 
     # software pipeline: while batch k computes on device, batch k-1 is
     # fetched + reported and batch k+1's WAVs are read (the device never
-    # waits on host IO between batches)
-    inflight = None  # (out_tree, ctx, loaded)
-    pending = executor.submit(load_batch, batches[0]) if batches else None
-    for bi, paths in enumerate(batches):
-        with timer.stage("io.wait_reader"):
-            loaded = pending.result()
-        pending = (executor.submit(load_batch, batches[bi + 1])
-                   if bi + 1 < len(batches) else None)
+    # waits on host IO between batches).  One thread loads the next batch;
+    # the readers it hands the batch's files to are a pool of their own, so
+    # its waits on them never hold a thread they need.  Both are joined
+    # before the call returns.
+    n_readers = min(max(map(len, batches), default=1), READERS, os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=1) as executor, \
+            ThreadPoolExecutor(max_workers=n_readers,
+                               thread_name_prefix="archive-reader") as readers:
+        inflight = None  # (out_tree, ctx, loaded)
+        pending = executor.submit(load_batch, batches[0]) if batches else None
+        for bi, paths in enumerate(batches):
+            with timer.stage("io.wait_reader"):
+                loaded = pending.result()
+            pending = (executor.submit(load_batch, batches[bi + 1])
+                       if bi + 1 < len(batches) else None)
 
-        # quarantine unreadable files (failure isolation: a corrupt drop
-        # must not abort a 1000-drop job)
-        bad = [(d, p) for d, p in loaded if isinstance(d, Exception)]
-        for err, path in bad:
-            manifest["files"][os.path.basename(path)] = {
-                "status": "failed", "error": repr(err),
-                "finished_at": time.time(),
-            }
-        loaded = [(d, p) for d, p in loaded if not isinstance(d, Exception)]
-        if not loaded:
-            _save_manifest(out_dir, manifest)
-            continue
+            # quarantine unreadable files (failure isolation: a corrupt drop
+            # must not abort a 1000-drop job)
+            bad = [(d, p) for d, p in loaded if isinstance(d, Exception)]
+            for err, path in bad:
+                manifest["files"][os.path.basename(path)] = {
+                    "status": "failed", "error": repr(err),
+                    "finished_at": time.time(),
+                }
+            loaded = [(d, p) for d, p in loaded if not isinstance(d, Exception)]
+            if not loaded:
+                _save_manifest(out_dir, manifest)
+                continue
 
-        with timer.stage("pad_batch"):
-            fs = loaded[0][0][1]
-            bucket_n = int(np.ceil(max(len(x[0][0]) for x in loaded)
-                                   / (BUCKET_SECONDS * fs))) * BUCKET_SECONDS * int(fs)
-            pcms = np.zeros((len(loaded), bucket_n), dtype=loaded[0][0][0].dtype)
-            for i, ((pcm, _), _) in enumerate(loaded):
-                pcms[i, : len(pcm)] = pcm[:bucket_n]
+            with timer.stage("pad_batch"):
+                fs = loaded[0][0][1]
+                bucket_n = int(np.ceil(max(len(x[0][0]) for x in loaded)
+                                       / (BUCKET_SECONDS * fs))) * BUCKET_SECONDS * int(fs)
+                pcms = np.zeros((len(loaded), bucket_n), dtype=loaded[0][0][0].dtype)
+                for i, ((pcm, _), _) in enumerate(loaded):
+                    pcms[i, : len(pcm)] = pcm[:bucket_n]
 
-        with timer.stage("device.dispatch_batch"):
-            lengths = [min(len(x[0][0]), bucket_n) for x in loaded]
-            out, ctx = dispatch_batch(pcms, fs, config=cfg, device=device, mesh=mesh,
-                                      lengths=lengths, wire=wire)
-        if inflight is not None:
-            p_out, p_ctx, p_loaded, p_pcms, p_lens, p_fs = inflight
-            with timer.stage("device.fetch_batch"):
-                results = finish_dispatched(p_out, p_ctx)
-                results = retry_lossy_rows(results, p_pcms, p_fs,
-                                           config=cfg, device=device, mesh=mesh,
-                                           lengths=p_lens)
-            write_results(p_loaded, results)
-        inflight = (out, ctx, loaded, pcms, lengths, fs)
+            with timer.stage("device.dispatch_batch"):
+                lengths = [min(len(x[0][0]), bucket_n) for x in loaded]
+                out, ctx = dispatch_batch(pcms, fs, config=cfg, device=device, mesh=mesh,
+                                          lengths=lengths, wire=wire)
+            if inflight is not None:
+                p_out, p_ctx, p_loaded, p_pcms, p_lens, p_fs = inflight
+                with timer.stage("device.fetch_batch"):
+                    results = finish_dispatched(p_out, p_ctx)
+                    results = retry_lossy_rows(results, p_pcms, p_fs,
+                                               config=cfg, device=device, mesh=mesh,
+                                               lengths=p_lens)
+                write_results(p_loaded, results)
+            inflight = (out, ctx, loaded, pcms, lengths, fs)
 
     if inflight is not None:
         p_out, p_ctx, p_loaded, p_pcms, p_lens, p_fs = inflight
@@ -274,7 +286,6 @@ def reprocess_corpus(wav_paths: list[str], out_dir: str,
                                        device=device, mesh=mesh, lengths=p_lens)
         write_results(p_loaded, results)
 
-    executor.shutdown(wait=False)
     manifest["stage_times"] = {k: v for k, v in timer.as_dict().items()
                                if k in MANIFEST_STAGES}
     cache_after = _cache_counts(devices)

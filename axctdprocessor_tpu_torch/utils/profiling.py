@@ -35,13 +35,15 @@ _tracing = False  # True while device_trace records
 
 class StageTimer:
     """Accumulates wall time per named stage across repeated calls; a stage
-    opened inside another (on the same thread) is reported under it."""
+    opened inside another (on the same thread) is reported under it.
+    Threads may open stages at once (the archive runner's readers do)."""
 
     def __init__(self):
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
         self.parents: dict[str, str | None] = {}  # the stage open at a name's first opening
         self._open = threading.local()
+        self._lock = threading.Lock()  # the totals' read-modify-write
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -59,8 +61,10 @@ class StageTimer:
             with ctx:
                 yield
         finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            seconds = time.perf_counter() - t0
+            with self._lock:
+                self.totals[name] += seconds
+                self.counts[name] += 1
             stack.pop()
 
     def report(self) -> str:
@@ -82,7 +86,8 @@ class StageTimer:
         return "\n".join(lines)
 
     def as_dict(self) -> dict:
-        return {k: round(v, 6) for k, v in self.totals.items()}
+        with self._lock:
+            return {k: round(v, 6) for k, v in self.totals.items()}
 
 
 class _NoTimer:

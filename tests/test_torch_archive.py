@@ -8,13 +8,17 @@ wire name; a corrupt file is quarantined while the rest decode; ``resume``
 skips what is done and ``resume=False`` decodes again; the port's CLI
 ``--corpus``, and with ``--dp 2`` over a mesh of the CPU; the WAV header and
 conditioned reads with and without the C library give the same reports;
-files of two sample rates never share a batch.  Marked slow (JAX compiles a
+files of two sample rates never share a batch; a batch's files are read at
+once, one a reader thread (``io.read_file``), into the same reports and
+manifest as reads in turn, with no thread left behind.  Marked slow (JAX compiles a
 4-row float batch program): a mixed-encoding batch against the JAX runner's
 reports.
 """
 
 import json
 import os
+import struct
+import threading
 
 import numpy as np
 import pytest
@@ -242,6 +246,86 @@ def test_mixed_sample_rates(corpus, tmp_path):
     for name in ("drop0.txt", "drop22k.txt"):
         assert "Probe Serial: 00123456" in open(os.path.join(out, name)).read(), name
     assert "Sampling frequency (fs): 22050 Hz" in open(os.path.join(out, "drop22k.txt")).read()
+
+
+def test_a_batchs_files_are_read_at_once(corpus, tmp_path, monkeypatch):
+    """Each read of a batch of three waits for the other two: they load only
+    if all three run at once, on three threads; each opens ``io.read_file``
+    on its reader thread."""
+    from axctdprocessor_tpu_torch.parallel import archive
+
+    barrier = threading.Barrier(len(corpus), timeout=5)
+    threads = set()
+    read = archive.read_wav_raw16
+
+    def read_together(path):
+        threads.add(threading.get_ident())
+        barrier.wait()
+        return read(path)
+
+    monkeypatch.setattr(archive, "read_wav_raw16", read_together)
+    timer = StageTimer()
+    manifest = reprocess_corpus(corpus, str(tmp_path / "out"), batch_size=len(corpus),
+                                device="cpu", timer=timer)
+    assert not barrier.broken
+    assert len(threads) == len(corpus) and threading.get_ident() not in threads
+    assert {e["status"] for e in manifest["files"].values()} == {"done"}
+    assert timer.counts["io.read_file"] == len(corpus)
+    assert timer.counts["io.read_wavs"] == 1
+    assert timer.parents["io.read_file"] in (None, "io.read_wavs")
+
+
+def _truncated_wav(path, fs):
+    """A WAV whose header claims 10 s of int16 at `fs` and holds 0.1 s: its
+    rate reads, its samples do not."""
+    n = fs * 10
+    data = np.random.default_rng(0).normal(0, 3000, fs // 10).astype("<i2").tobytes()
+    header = (b"RIFF" + struct.pack("<I", 36 + 2 * n) + b"WAVEfmt "
+              + struct.pack("<IHHIIHH", 16, 1, 1, fs, 2 * fs, 2, 16)
+              + b"data" + struct.pack("<I", 2 * n))
+    open(path, "wb").write(header + data)
+
+
+def test_pooled_reads_write_the_reports_of_reads_in_turn(corpus, tmp_path, monkeypatch):
+    """Three 88.2 kHz files (the host decimation) and a truncated one in one
+    batch, the three 44.1 kHz files in another: read at once, the reports
+    are byte for byte those of reads in turn (a pool of one), the manifests
+    the same but for the clocks, the stage times, the output directory and
+    the program cache's counts (the first call builds), only the truncated
+    file failed, and no thread outlives a call."""
+    from axctdprocessor_tpu_torch.parallel import archive
+
+    high = []
+    for i in range(3):
+        spec = simulator.SimSpec(fs=88200, duration=40.0, profile_start=33.0, seed=70 + i)
+        pcm, _ = simulator.synthesize(spec)
+        high.append(str(tmp_path / f"high{i}.wav"))
+        simulator.write_wav(high[-1], pcm, spec.fs)
+    bad = str(tmp_path / "truncated.wav")
+    _truncated_wav(bad, 88200)
+    paths = corpus + high + [bad]
+    outs, manifests = {}, {}
+    for readers in (1, archive.READERS):
+        monkeypatch.setattr(archive, "READERS", readers)
+        outs[readers] = str(tmp_path / f"out{readers}")
+        timer = StageTimer()
+        alive = threading.active_count()
+        manifests[readers] = reprocess_corpus(paths, outs[readers], batch_size=4,
+                                              device="cpu", timer=timer)
+        assert threading.active_count() == alive
+        assert timer.counts["io.read_file"] == len(paths)
+        assert timer.counts["device.dispatch_batch"] == 2
+    names = [os.path.splitext(os.path.basename(p))[0] for p in corpus + high]
+    assert _reports(outs[archive.READERS], names) == _reports(outs[1], names)
+    for n in ("high0", "drop0"):
+        assert b"Probe Serial: 00123456" in _reports(outs[1], [n])[n]
+    failed = {k for k, e in manifests[1]["files"].items() if e["status"] == "failed"}
+    assert failed == {"truncated.wav"}
+    strip = lambda m: {k: {f: v for f, v in e.items() if f not in ("finished_at", "output")}  # noqa: E731
+                       for k, e in m["files"].items()}
+    assert strip(manifests[archive.READERS]) == strip(manifests[1])
+    assert list(manifests[archive.READERS]["files"]) == list(manifests[1]["files"])
+    assert not os.path.exists(os.path.join(outs[archive.READERS], "truncated.txt"))
 
 
 @pytest.mark.slow  # a 4-row float batch against the JAX runner's

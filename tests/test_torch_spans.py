@@ -12,7 +12,8 @@
 * a decode given no timer builds no ``StageTimer`` and leaves none installed;
 * a decode with a ``StageTimer`` inside ``device_trace`` leaves its spans as
   named ranges in the Chrome trace; ``StageTimer.report`` indents a stage
-  under the one it was opened in.
+  under the one it was opened in, and counts every stage that threads open
+  at once.
 """
 
 import collections
@@ -229,3 +230,32 @@ def test_stage_timer_report_nests_by_first_opening():
     assert timer.parents == {"fetch": None, "device_wait": "fetch", "host_finish": None,
                              "convert": "host_finish"}
     assert set(timer.as_dict()) == set(depth)
+
+
+def test_stage_timer_counts_every_stage_across_threads():
+    """Threads opening one stage at once (the archive runner's readers) lose
+    no count and no time: more threads than cores, the interpreter switching
+    threads as often as it can."""
+    import os
+    import sys
+
+    timer = profiling.StageTimer()
+    n_threads, n_stages = 2 * (os.cpu_count() or 1) + 2, 2000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def open_stages():
+            for _ in range(n_stages):
+                with timer.stage("io.read_file"):
+                    pass
+
+        threads = [threading.Thread(target=open_stages) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert timer.counts["io.read_file"] == n_threads * n_stages
+    assert timer.parents["io.read_file"] is None and timer.totals["io.read_file"] > 0
